@@ -1,0 +1,143 @@
+"""Nonnegative least squares by block principal pivoting (Kim-Park).
+
+Port of smallk_tpu/solvers/nnls.py:nnls_blockpivot.  Every column's
+masked SPD subproblem,
+
+    M = (p p^T) .* LHS + diag(1 - p),   M x = p .* rhs,
+
+is solved by the masked Gauss-Jordan kernel (kernels/masked_gj.py) for all
+n columns at once; the pivot rules (PBAR = 3, Ninf counters, the backup
+single-bit toggle) and the tolerance-based sign tests are the reference's,
+line for line.  The pivot loop is a host loop: one host sync per round.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import masked_gj
+from ..ops.dense import gemm, zeroize_small
+
+PBAR = 3
+
+# The reference narrows pivot rounds to slabs of n/8 columns where
+# n >= 2048 and k >= 48, and then allows 8x the rounds (see nnls_blockpivot)
+_REDUCE_FRACTION = 8
+_REDUCE_MIN_N = 2048
+_REDUCE_MIN_K = 48
+
+
+def _masked_solve(LHS, RHS, passive):
+    """All columns' masked solves through the K1 kernel (its plain version
+    for CPU tensors).  The reference's CG, Cholesky and compact tiers are
+    not ported; a CUDA solve above the kernel's rank limit raises."""
+    if LHS.is_cuda and RHS.shape[0] > masked_gj.MAX_K:
+        raise NotImplementedError(
+            f"k={RHS.shape[0]} > {masked_gj.MAX_K}: masked solves above the "
+            "GJ kernel's rank limit need the CG tier (ROADMAP queue 1, "
+            "item 4: the masked-solve tiers)")
+    return masked_gj.masked_gj_solve(LHS, RHS, passive)
+
+
+def _pivot_cols(P, Ninf, nonopt, infeas, not_good, sel):
+    """One pivot-rule update (UpdatePassiveSet) on the columns in `sel`."""
+    cols1 = sel & (not_good < Ninf)
+    cols2 = sel & (not_good >= Ninf) & (P >= 1)
+    cols3 = sel & ~cols1 & ~cols2
+
+    P = torch.where(cols1, PBAR, torch.where(cols2, P - 1, P))
+    Ninf = torch.where(cols1, not_good, Ninf)
+    return P, Ninf, cols1, cols2, cols3
+
+
+def _update_passive(passive, nonopt, infeas, cols1, cols2, cols3):
+    w = passive.shape[0]
+    rids = torch.arange(w, dtype=torch.int32, device=passive.device)[:, None]
+    # full exchange for cols1|cols2: set nonopt bits, clear infeasible ones
+    cc = (cols1 | cols2)[None, :]
+    passive = (passive | (nonopt & cc)) & ~(infeas & cc)
+    # backup rule for cols3: toggle the highest-index offending bit
+    r1 = torch.amax(torch.where(nonopt, rids, -1), dim=0)
+    r2 = torch.amax(torch.where(infeas, rids, -1), dim=0)
+    toggle = (rids == torch.maximum(r1, r2)[None, :]) & cols3[None, :]
+    return passive ^ toggle
+
+
+def _count(nonopt, infeas):
+    return (torch.sum(nonopt, dim=0, dtype=torch.int32)
+            + torch.sum(infeas, dim=0, dtype=torch.int32))
+
+
+def nnls_blockpivot(LHS, RHS, Xinit):
+    """Solve LHS @ X = RHS s.t. X >= 0 columnwise, LHS (k, k) SPD.
+
+    Returns (X, Y, ok, rounds): Y = LHS X - RHS is the gradient, `ok` a
+    bool tensor (converged and finite), `rounds` the number of pivot
+    rounds (masked solves after the first) as a Python int.
+
+    Only the reference's full-width round body is ported.  Its slab ladder
+    exists for XLA's static shapes, and each column's pivot sequence is
+    independent of every other column's, so X, Y and ok are the same
+    without it.  Only `rounds` can differ, and only where n >= 2048 and
+    k >= 48: there the ladder counts its slab rounds against a cap of 8x
+    the rounds, which is kept below.
+    """
+    k, n = RHS.shape
+    RHS = RHS.contiguous()
+    reduce_width = n >= _REDUCE_MIN_N and k >= _REDUCE_MIN_K
+    max_iter = 5 * k * (_REDUCE_FRACTION if reduce_width else 1)
+    eps = torch.finfo(RHS.dtype).eps
+
+    # Per-entry sign-test tolerances (the reference's `deltas`): values are
+    # never altered, the tests treat anything above -delta as nonnegative.
+    # For f64 they collapse to ~1e-12, the reference's zeroize level.
+    abs_lhs = torch.abs(LHS)
+    abs_rhs = torch.abs(RHS)
+
+    def deltas(X):
+        dx = 512.0 * eps * torch.clamp(torch.max(torch.abs(X)), min=1.0)
+        dy = 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)  # (k, n)
+        return dx, dy
+
+    passive = (Xinit > 0).contiguous()
+    X = _masked_solve(LHS, RHS, passive)
+    Y = gemm(LHS, X) - RHS
+
+    P = torch.full((n,), PBAR, dtype=torch.int32, device=RHS.device)
+    Ninf = torch.full((n,), k + 1, dtype=torch.int32, device=RHS.device)
+
+    dx, dy = deltas(X)
+    nonopt = (Y < -dy) & ~passive
+    infeas = (X < -dx) & passive
+    not_good = _count(nonopt, infeas)
+
+    it = 0
+    while it < max_iter and bool(torch.any(not_good > 0)):
+        notopt_col = not_good > 0
+        P, Ninf, cols1, cols2, cols3 = _pivot_cols(
+            P, Ninf, nonopt, infeas, not_good, notopt_col)
+        passive = _update_passive(passive, nonopt, infeas,
+                                  cols1, cols2, cols3)
+
+        # solve every column with the updated passive sets; keep the
+        # non-optimal ones
+        Xs = _masked_solve(LHS, RHS, passive)
+        Ys = gemm(LHS, Xs) - RHS
+        mask = notopt_col[None, :]
+        X = torch.where(mask, Xs, X)
+        Y = torch.where(mask, Ys, Y)
+
+        dx, dy = deltas(X)
+        nonopt = mask & (Y < -dy) & ~passive
+        infeas = mask & (X < -dx) & passive
+        not_good = _count(nonopt, infeas)
+        it += 1
+
+    converged = ~torch.any(not_good > 0)
+    # isfinite, not just not-NaN: an f32 overflow yields +/-Inf
+    finite = torch.all(torch.isfinite(X)) & torch.all(torch.isfinite(Y))
+    # project tolerated negatives onto the constraint set, then zeroize dust
+    # relative to the solution's magnitude
+    X = torch.clamp(X, min=0.0)
+    X = zeroize_small(X, 8.0 * eps * torch.clamp(torch.max(X), min=1.0))
+    return X, Y, converged & finite, it

@@ -1,0 +1,43 @@
+"""Convergence progress estimators — port of smallk_tpu/solvers/progress.py.
+
+  - PG_RATIO:    projected-gradient norm ratio pg_i / pg_0
+  - DELTA_FNORM: ||W - W_prev||_F / ||W||_F
+
+Each estimator is (init, update) over an explicit state tensor; the metric
+stays on the device until the solve loop reads it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smallk_tpu.common.options import NmfProgressAlgorithm
+
+from ..ops.dense import fro_norm, projected_gradient_norm
+
+
+def prog_init(method: NmfProgressAlgorithm, W):
+    if method == NmfProgressAlgorithm.PG_RATIO:
+        # state: pg0 (set on iteration 0)
+        return torch.ones((), dtype=W.dtype, device=W.device)
+    if method == NmfProgressAlgorithm.DELTA_FNORM:
+        # state: W_prev, initially W_init
+        return W
+    raise ValueError(f"unknown progress method {method}")
+
+
+def prog_update(method: NmfProgressAlgorithm, it: int, W, H, gradW, gradH,
+                state, have_pg0: bool = False):
+    """Returns (metric, new_state); `it` is the 0-based iteration.
+
+    `have_pg0`: the PG_RATIO denominator was supplied from outside, so
+    iteration 0 measures against it instead of priming it.
+    """
+    if method == NmfProgressAlgorithm.PG_RATIO:
+        pg = projected_gradient_norm(gradW, gradH, W, H)
+        if it == 0 and not have_pg0:
+            return torch.ones_like(pg), pg
+        return pg / state, state
+    if method == NmfProgressAlgorithm.DELTA_FNORM:
+        return fro_norm(state - W) / fro_norm(W), W
+    raise ValueError(f"unknown progress method {method}")
