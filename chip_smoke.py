@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, library NMF-BPP, through its user entry
-points on the card and fails (nonzero exit, no result line) on any fault:
+Drives the port's paths through their user entry points on the card and
+fails (nonzero exit, no result line) on any fault:
 
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the CUDA kernels from smallk_torch/csrc/;
-  3. the masked Gauss-Jordan kernel against its plain torch version on the
-     card, f32 and f64, at the main path's shapes and up to k = 128, plus
-     the dead-pivot case; kernel and plain times at the main path's shapes;
-  4. slice parity in f64: run_nmf on the card against the same call on the
-     CPU (plain versions throughout);
-  5. the main path at full width: the 12411 x 7984 Reuters shape, 80 nnz
-     per column, k = 8, bf16 A, f32 factors, 100 fixed iterations, with
-     the kernel's launches counted over that run;
-  6. the nmf CLI as a subprocess;
-  7. the kernel table as one JSON line, the card line, and last the result
+  2. build: compiles the CUDA kernels from smallk_torch/csrc/, one nvcc
+     per library, all started together;
+  3. K1, the masked Gauss-Jordan kernel, against its plain torch version
+     on the card, f32 and f64, at the BPP path's shapes and up to k = 128,
+     plus the dead-pivot case; kernel and plain times at the BPP shapes;
+  4. K2, the whole-step HALS kernel, against its plain version at the
+     flatclust shape (f32 and bf16 A), small and ragged shapes, the
+     largest square shape the kernel admits at k = 16 and the zero-column
+     rescue; kernel and plain times at 256 x 256, k = 16;
+  5. slice parity in f64: run_nmf with BPP, MU, HALS and RANK2 on the card
+     against the same calls on the CPU (f64 runs the torch-ops steps);
+  6. the BPP main path at full width: the 12411 x 7984 Reuters shape, 80
+     nnz per column, k = 8, bf16 A, f32 factors, 100 fixed iterations,
+     with K1's launches counted over that run;
+  7. the flatclust HALS path at full width: the reference's flatclust
+     configuration (dense 256 x 256 UNIFORM, k = 16, tol 1e-4) through
+     run_flatclust, with K2's launches counted over that run; HALS it/s
+     over 2000 fixed iterations; f32 on the card against f32 on the CPU;
+  8. MU and RANK2 on a dense 800 x 600 operand and flatclust BPP at
+     256 x 256, k = 16 beside it;
+  9. the nmf and flatclust CLIs as subprocesses;
+ 10. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
 There is no CPU fallback: without a card the script exits 1.
@@ -32,6 +43,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +58,18 @@ K1_SHAPES = [(8, 7984), (8, 12411), (16, 7984), (32, 2000), (64, 500),
 MAIN_SHAPES = [(8, 7984), (8, 12411)]  # H side (n = docs), W side (n = terms)
 SLICE_ATOL = 1e-9
 M, N, K, NZ_PER_COL, ITERS = 12411, 7984, 8, 80, 100
+
+# K2 against its plain version, evaluated in f64 on the same inputs, with
+# the reference's Pallas-vs-XLA tolerances (tests/test_solvers.py:720-727):
+# W, H, gradW, gradH, HH', AH'.  The plain version in f32 misses these
+# tolerances itself at 256 x 256 and above (the step is a chain of
+# cancellations; its distance to f64 is printed beside the kernel's), so
+# the kernel sums in f64 and is held against the f64 evaluation.
+K2_OUTPUTS = ("W", "H", "gradW", "gradH", "HHt", "AHt")
+K2_TOL = [dict(rtol=2e-5, atol=2e-6)] * 2 + [dict(rtol=2e-4, atol=2e-5)] * 2 \
+    + [dict(rtol=2e-5, atol=2e-6)] * 2
+FLAT_M, FLAT_N, FLAT_K = 256, 256, 16   # the reference's flatclust config
+FLAT_ITERS = 2000
 
 
 def log(msg: str) -> None:
@@ -115,6 +139,21 @@ def back_to_back_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from smallk_torch.kernels import hals_step, masked_gj
+
+    masked_gj.launches = 0
+    hals_step.launches = 0
+
+
+def read_counts() -> tuple[int, int]:
+    """(K1, K2) launches since the last reset_counts()."""
+    from smallk_torch.kernels import hals_step, masked_gj
+
+    return masked_gj.launches, hals_step.launches
+
+
 def k1_inputs(k: int, n: int, dtype, device):
     """As the reference's kernel parity test makes them."""
     import torch
@@ -147,10 +186,14 @@ def phase_build() -> None:
     from smallk_torch.kernels import _build
 
     t0 = time.perf_counter()
-    path = _build.build("masked_gj")
-    _build.load_library("masked_gj")
+    names = sorted(_build.SIGNATURES)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per library
+        paths = list(pool.map(_build.build, names))
+    for name in names:
+        _build.load_library(name)
     secs = time.perf_counter() - t0
-    log(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
+    log(f"[build] {', '.join(str(p.relative_to(ROOT)) for p in paths)} "
+        f"in {secs:.2f} s")
 
 
 def phase_kernel() -> dict:
@@ -200,39 +243,132 @@ def phase_kernel() -> dict:
     return {"max_abs_err": worst, "times": times}
 
 
-def phase_slice_parity() -> None:
-    from smallk_torch import NmfOptions, NmfStats, Random, random_matrix
-    from smallk_torch.engines.nmf import run_nmf
-    from smallk_torch.kernels import masked_gj
+def k2_inputs(m: int, n: int, k: int, a_dtype, rescue: bool = False):
+    """As the reference's kernel parity test makes them; `rescue` zeroes W's
+    column 3 and makes its AH' column negative, so that the sweep drives
+    it to all zeros and the eps fill takes over."""
+    import torch
 
-    m, n, k = 300, 200, 8
-    rng = Random(7)
-    A = rng.uniform((m, n))
-    W0 = random_matrix(m, k, rng)
-    H0 = random_matrix(k, n, rng)
-    opts = NmfOptions(tol=1e-30, height=m, width=n, k=k, min_iter=1,
-                      max_iter=30, verbose=False, dtype="float64")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        stats = NmfStats()
-        before = masked_gj.launches
-        W, H, ok = run_nmf(A, W0, H0, opts, stats, device=device)
-        runs[device] = (W, H, ok, stats, masked_gj.launches - before)
-    (Wc, Hc, okc, sc, lc), (Wh, Hh, okh, sh, lh) = runs["cuda"], runs["cpu"]
-    dW, dH = float(np.abs(Wc - Wh).max()), float(np.abs(Hc - Hh).max())
-    log(f"[slice f64] run_nmf {m}x{n} k={k}: cuda vs cpu max|dW| = {dW:.3e}, "
-        f"max|dH| = {dH:.3e}, iterations {sc.iteration_count}/"
-        f"{sh.iteration_count}, pivot rounds {sc.pivot_rounds}/"
-        f"{sh.pivot_rounds}, kernel launches {lc}/{lh}")
-    np.testing.assert_allclose(Wc, Wh, rtol=0, atol=SLICE_ATOL)
-    np.testing.assert_allclose(Hc, Hh, rtol=0, atol=SLICE_ATOL)
-    if not (okc and okh and okc == okh):
-        raise AssertionError(f"slice run success cuda={okc} cpu={okh}")
-    if (sc.iteration_count, sc.pivot_rounds) != (sh.iteration_count,
-                                                 sh.pivot_rounds):
-        raise AssertionError("slice runs differ in iterations or rounds")
-    if lc < 2 * sc.iteration_count or lh != 0:
-        raise AssertionError(f"kernel launches: cuda {lc}, cpu {lh}")
+    from smallk_torch.ops.aop import DenseAOp
+    from smallk_torch.solvers import hals
+
+    rs = np.random.RandomState(0)
+    A = torch.tensor(rs.rand(m, n).astype(np.float32), device="cuda")
+    A = A.to(a_dtype)
+    W = torch.tensor(rs.rand(m, k).astype(np.float32), device="cuda")
+    H = torch.tensor(rs.rand(k, n).astype(np.float32), device="cuda")
+    HHt, AHt = hals.init(DenseAOp(A), W, H)
+    if rescue:
+        W[:, 3] = 0.0
+        AHt[:, 3] = -1.0
+    return A, W, H, HHt, AHt
+
+
+def phase_k2() -> dict:
+    import torch
+
+    from smallk_torch.kernels import hals_step as k2
+
+    side = max(s for s in range(1, 2048) if k2.hals_fits(s, s, FLAT_K))
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((256, 256, 16), f32, False), ((256, 256, 16), bf16, False),
+             ((96, 80, 8), f32, False), ((200, 130, 5), f32, False),
+             ((side, side, FLAT_K), f32, False),
+             ((side, side, FLAT_K), bf16, False),
+             ((96, 80, 8), f32, True)]
+    worst = 0.0
+    for (m, n, k), a_dtype, rescue in cases:
+        label = (f"m={m} n={n} k={k} A {str(a_dtype)[6:]}"
+                 + (" zero-column rescue" if rescue else ""))
+        args = k2_inputs(m, n, k, a_dtype, rescue)
+        before = k2.launches
+        out = k2.hals_step(*args)
+        plain64 = k2.hals_step_reference(*(t.double() for t in args))
+        plain32 = k2.hals_step_reference(*args)
+        torch.cuda.synchronize()
+        if k2.launches != before + 1:
+            raise AssertionError("hals_step did not launch its kernel")
+        errs = [float((a.double() - b).abs().max())
+                for a, b in zip(out[:6], plain64[:6])]
+        errs32 = [float((a.double() - b).abs().max())
+                  for a, b in zip(plain32[:6], plain64[:6])]
+        log(f"[K2] {label}: max|kernel - plain f64|: " + ", ".join(
+            f"{o} {e:.2e}" for o, e in zip(K2_OUTPUTS, errs)))
+        log(f"[K2] {label}: max|plain f32 - plain f64|: " + ", ".join(
+            f"{o} {e:.2e}" for o, e in zip(K2_OUTPUTS, errs32)))
+        for name, a, b, tol in zip(K2_OUTPUTS, out[:6], plain64[:6], K2_TOL):
+            torch.testing.assert_close(a, b.float(), **tol,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        if not (bool(out[6]) and bool(plain64[6])):
+            raise AssertionError(f"K2 {label}: a gradient is not finite")
+        if rescue:
+            col = out[0][:, 3]
+            if not bool(torch.isfinite(col).all()) or bool((col < 0).any()):
+                raise AssertionError("rescued column is not finite and >= 0")
+        worst = max(worst, *errs)
+    log(f"[K2] tolerances (rtol, atol): W, H, HHt, AHt (2e-5, 2e-6); gradW, "
+        f"gradH (2e-4, 2e-5); largest square shape at k={FLAT_K}: {side}")
+
+    args = k2_inputs(FLAT_M, FLAT_N, FLAT_K, f32)
+
+    def kernel():
+        return k2.hals_step(*args)
+
+    def plain_version():
+        return k2.hals_step_reference(*args)
+
+    ms, plain = device_ms(kernel, 200), device_ms(plain_version, 20)
+    ms_host = back_to_back_ms(kernel, 500)
+    plain_host = back_to_back_ms(plain_version, 50)
+    log(f"[K2 time f32] m={FLAT_M} n={FLAT_N} k={FLAT_K}: device ms per "
+        f"call: kernel {ms:.4f}, plain {plain:.4f}; back-to-back with host "
+        f"launch cost: kernel {ms_host:.4f}, plain {plain_host:.4f}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+
+
+def phase_slice_parity() -> None:
+    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfStats, Random,
+                              random_matrix)
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.kernels import hals_step, masked_gj
+
+    m, n = 300, 200
+    for algorithm, k in ((NmfAlgorithm.BPP, 8), (NmfAlgorithm.MU, 8),
+                         (NmfAlgorithm.HALS, 8), (NmfAlgorithm.RANK2, 2)):
+        rng = Random(7)
+        A = rng.uniform((m, n))
+        W0 = random_matrix(m, k, rng)
+        H0 = random_matrix(k, n, rng)
+        opts = NmfOptions(tol=1e-30, algorithm=algorithm, height=m, width=n,
+                          k=k, min_iter=1, max_iter=30, verbose=False,
+                          dtype="float64")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            stats = NmfStats()
+            k1, k2 = masked_gj.launches, hals_step.launches
+            W, H, ok = run_nmf(A, W0, H0, opts, stats, device=device)
+            runs[device] = (W, H, ok, stats, masked_gj.launches - k1,
+                            hals_step.launches - k2)
+        (Wc, Hc, okc, sc, lc, hc), (Wh, Hh, okh, sh, lh, hh) = (
+            runs["cuda"], runs["cpu"])
+        dW, dH = float(np.abs(Wc - Wh).max()), float(np.abs(Hc - Hh).max())
+        log(f"[slice f64] run_nmf {algorithm.value} {m}x{n} k={k}: cuda vs "
+            f"cpu max|dW| = {dW:.3e}, max|dH| = {dH:.3e}, iterations "
+            f"{sc.iteration_count}/{sh.iteration_count}, pivot rounds "
+            f"{sc.pivot_rounds}/{sh.pivot_rounds}, K1 launches {lc}/{lh}")
+        np.testing.assert_allclose(Wc, Wh, rtol=0, atol=SLICE_ATOL)
+        np.testing.assert_allclose(Hc, Hh, rtol=0, atol=SLICE_ATOL)
+        if not (okc and okh):
+            raise AssertionError(f"slice run success cuda={okc} cpu={okh}")
+        if (sc.iteration_count, sc.pivot_rounds) != (sh.iteration_count,
+                                                     sh.pivot_rounds):
+            raise AssertionError("slice runs differ in iterations or rounds")
+        want_k1 = 2 * sc.iteration_count if algorithm == NmfAlgorithm.BPP \
+            else 0
+        # f64 takes the torch-ops HALS step: K2 takes f32 factors only
+        if lc < want_k1 or (want_k1 == 0 and lc) or lh or hc or hh:
+            raise AssertionError(f"kernel launches: K1 cuda {lc}, cpu {lh}; "
+                                 f"K2 cuda {hc}, cpu {hh}")
 
 
 def phase_main_path(card: str) -> dict:
@@ -241,7 +377,6 @@ def phase_main_path(card: str) -> dict:
     from smallk_torch import (NmfAlgorithm, NmfOptions, NmfStats, Random,
                               random_matrix, random_sparse_matrix)
     from smallk_torch.engines.nmf import run_nmf
-    from smallk_torch.kernels import masked_gj
     from smallk_torch.ops.aop import as_aop
     from smallk_torch.ops.dense import relative_fnorm
 
@@ -265,11 +400,11 @@ def phase_main_path(card: str) -> dict:
     run_nmf(A, W0, H0, opts, device="cuda")  # warm-up
 
     stats = NmfStats()
-    masked_gj.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
     wall = time.perf_counter() - t0
-    launches = masked_gj.launches
+    launches, k2_launches = read_counts()
 
     rel = rel_err(W, H)
     its = stats.iteration_count / (stats.elapsed_us / 1e6)
@@ -291,7 +426,152 @@ def phase_main_path(card: str) -> dict:
     if launches < 2 * ITERS:
         raise AssertionError(f"K1 launched {launches} times in {ITERS} "
                              "iterations: masked solves bypassed the kernel")
+    if k2_launches:
+        raise AssertionError(f"K2 launched {k2_launches} times in a BPP run")
     return {"launches": launches, "it_per_s": its}
+
+
+def rel_err(A, W, H) -> float:
+    """||A - WH||_F / ||A||_F on the host, in f64."""
+    A = np.asarray(A, dtype=np.float64)
+    return float(np.linalg.norm(A - W.astype(np.float64) @ H) /
+                 np.linalg.norm(A))
+
+
+def flat_problem():
+    """The reference's flatclust workload (pages_tests.rst:276-287): a dense
+    256 x 256 uniform matrix, as its rnd_256_256.csv is, made from a seed,
+    and the CLI's random initializers."""
+    from smallk_torch import Random, generate, random_matrix
+
+    rng = Random(256)
+    A = generate(FLAT_M, FLAT_N, "UNIFORM", rng=rng)
+    W0 = random_matrix(FLAT_M, FLAT_K, rng)
+    H0 = random_matrix(FLAT_K, FLAT_N, rng)
+    return A, W0, H0
+
+
+def phase_flatclust(card: str) -> dict:
+    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfProgressAlgorithm,
+                              NmfStats)
+    from smallk_torch.engines.flatclust import run_flatclust
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.kernels import hals_step
+
+    A, W0, H0 = flat_problem()
+    # the flatclust CLI's defaults
+    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.HALS,
+                      prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO,
+                      height=FLAT_M, width=FLAT_N, k=FLAT_K, min_iter=5,
+                      max_iter=5000, tolcount=1, verbose=False,
+                      normalize=True, dtype="float32")
+    run_flatclust(A, W0, H0, dataclasses.replace(opts, max_iter=20),
+                  device="cuda")  # warm-up
+
+    stats = NmfStats()
+    reset_counts()
+    W, H, assign, fuzzy, ok = run_flatclust(A, W0, H0, opts, stats,
+                                            device="cuda")
+    k1_launches, launches = read_counts()
+    its = stats.iteration_count
+    rel = rel_err(A, W, H)
+    log(f"[flatclust] HALS {FLAT_M}x{FLAT_N} k={FLAT_K} tol 1e-4: "
+        f"success={ok}, iterations={its}, K2 launches={launches}, rel err "
+        f"{rel:.6f}, {its / (stats.elapsed_us / 1e6):.1f} it/s to "
+        f"convergence")
+    if not ok:
+        raise AssertionError("flatclust HALS run failed")
+    for name, F in (("W", W), ("H", H)):
+        if not np.isfinite(F).all() or (F < 0).any():
+            raise AssertionError(f"{name} is not finite and nonnegative")
+    if assign.shape != (FLAT_N,) or not ((0 <= assign) & (assign < FLAT_K)).all():
+        raise AssertionError(f"assignments {assign.shape}")
+    col_sums = fuzzy.astype(np.float64).sum(axis=0)
+    if fuzzy.shape != (FLAT_K, FLAT_N) or np.abs(col_sums - 1).max() > 1e-5:
+        raise AssertionError("fuzzy columns do not sum to 1")
+    if launches != its:
+        raise AssertionError(f"K2 launched {launches} times in {its} "
+                             "iterations: a step took another route")
+    if k1_launches:
+        raise AssertionError(f"K1 launched {k1_launches} times in a HALS run")
+
+    # HALS it/s over a fixed number of iterations, after one warm-up
+    fixed = dataclasses.replace(opts, tol=1e-30, max_iter=FLAT_ITERS)
+    run_flatclust(A, W0, H0, dataclasses.replace(fixed, max_iter=200),
+                  device="cuda")
+    stats2 = NmfStats()
+    before = hals_step.launches
+    *_, ok2 = run_flatclust(A, W0, H0, fixed, stats2, device="cuda")
+    fixed_its = stats2.iteration_count / (stats2.elapsed_us / 1e6)
+    log(f"[flatclust] HALS {FLAT_ITERS} fixed iterations: {fixed_its:.1f} "
+        f"it/s (solve {stats2.elapsed_us / 1e6:.4f} s) on {card}")
+    if not ok2 or stats2.iteration_count != FLAT_ITERS or \
+            hals_step.launches - before != FLAT_ITERS:
+        raise AssertionError("fixed-iteration HALS run failed")
+
+    # quality gate: f32 on the card (K2) against f32 on the CPU (torch ops)
+    short = dataclasses.replace(fixed, max_iter=50)
+    rels = {}
+    for device in ("cuda", "cpu"):
+        Wd, Hd, okd = run_nmf(A, W0, H0, short, device=device)
+        if not okd:
+            raise AssertionError(f"50-iteration HALS run failed on {device}")
+        rels[device] = rel_err(A, Wd, Hd)
+    log(f"[flatclust] 50 iterations f32: rel err cuda {rels['cuda']:.8f}, "
+        f"cpu {rels['cpu']:.8f}")
+    if abs(rels["cuda"] - rels["cpu"]) > 1e-4:
+        raise AssertionError("f32 relative errors differ by more than 1e-4")
+    return {"launches": launches, "it_per_s": fixed_its}
+
+
+def phase_beside(card: str) -> None:
+    """MU and RANK2 on a dense 800 x 600 operand (as the reference's TPU
+    smoke runs them) and flatclust BPP at the flatclust shape."""
+    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfProgressAlgorithm,
+                              NmfStats, Random, random_matrix)
+    from smallk_torch.engines.flatclust import run_flatclust
+    from smallk_torch.engines.nmf import run_nmf
+
+    m, n = 800, 600
+    A = np.random.RandomState(1).rand(m, n).astype(np.float32)
+    rng = Random(5)
+    for alg, k, prog in (("MU", 8, NmfProgressAlgorithm.DELTA_FNORM),
+                         ("RANK2", 2, NmfProgressAlgorithm.PG_RATIO)):
+        W0 = random_matrix(m, k, rng, dtype=np.float32)
+        H0 = random_matrix(k, n, rng, dtype=np.float32)
+        opts = NmfOptions(tol=0.005, algorithm=NmfAlgorithm(alg),
+                          prog_est_algorithm=prog, height=m, width=n, k=k,
+                          min_iter=5, max_iter=5000, verbose=False,
+                          stall_patience=200)
+        one = dataclasses.replace(opts, min_iter=1, max_iter=1)
+        W1, H1, _ = run_nmf(A, W0, H0, one, device="cuda")
+        stats = NmfStats()
+        W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
+        rel, rel1 = rel_err(A, W, H), rel_err(A, W1, H1)
+        log(f"[beside] {alg} {m}x{n} k={k}: success={ok}, iterations="
+            f"{stats.iteration_count}, rel err {rel:.6f} (after 1 iteration "
+            f"{rel1:.6f}), {stats.iteration_count / (stats.elapsed_us / 1e6):.1f}"
+            f" it/s on {card}")
+        if not ok or not rel < rel1 or not np.isfinite(W).all():
+            raise AssertionError(f"{alg} run failed")
+
+    A, W0, H0 = flat_problem()
+    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.BPP, height=FLAT_M,
+                      width=FLAT_N, k=FLAT_K, min_iter=5, max_iter=200,
+                      verbose=False, dtype="float32")
+    one = dataclasses.replace(opts, min_iter=1, max_iter=1)
+    W1, H1, *_ = run_flatclust(A, W0, H0, one, device="cuda")
+    stats = NmfStats()
+    reset_counts()
+    W, H, assign, fuzzy, ok = run_flatclust(A, W0, H0, opts, stats,
+                                            device="cuda")
+    launches, _ = read_counts()
+    rel, rel1 = rel_err(A, W, H), rel_err(A, W1, H1)
+    log(f"[beside] flatclust BPP {FLAT_M}x{FLAT_N} k={FLAT_K}: success={ok}, "
+        f"iterations={stats.iteration_count}, K1 launches={launches}, rel "
+        f"err {rel:.6f} (after 1 iteration {rel1:.6f})")
+    if not ok or not rel < rel1 or launches < 2 * stats.iteration_count:
+        raise AssertionError("flatclust BPP run failed or bypassed K1")
 
 
 def phase_cli() -> None:
@@ -323,6 +603,45 @@ def phase_cli() -> None:
         f"h.csv {H.shape}; {tail}")
 
 
+def phase_flat_cli() -> None:
+    A, _, _ = flat_problem()
+    k = FLAT_K
+    with tempfile.TemporaryDirectory() as td:
+        csv = os.path.join(td, "rnd_256_256.csv")
+        np.savetxt(csv, A, delimiter=",", fmt="%.9g")
+        dic = os.path.join(td, "dict.txt")
+        with open(dic, "w") as f:
+            f.write("".join(f"term{i}\n" for i in range(FLAT_M)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "smallk_torch.cli.flatclust_cli",
+               "--matrixfile", csv, "--dictfile", dic, "--clusters", str(k),
+               "--algorithm", "HALS", "--device", "cuda", "--verbose", "0",
+               "--seed", "1", "--outdir", td]
+        proc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"flatclust CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        assign = np.loadtxt(os.path.join(td, f"assignments_{k}.csv"),
+                            delimiter=",", dtype=np.int64, ndmin=1)
+        fuzzy = np.loadtxt(os.path.join(td, f"assignments_fuzzy_{k}.csv"),
+                           delimiter=",", ndmin=2)
+        with open(os.path.join(td, f"clusters_{k}.xml")) as f:
+            xml = f.read()
+    if assign.shape != (FLAT_N,) or not ((0 <= assign) & (assign < k)).all():
+        raise AssertionError(f"assignments_{k}.csv holds {assign.shape}")
+    if fuzzy.shape != (FLAT_N, k) or np.abs(fuzzy.sum(axis=1) - 1).max() > 2e-3:
+        raise AssertionError(f"assignments_fuzzy_{k}.csv holds {fuzzy.shape}")
+    if xml.count("<node id=") != k or f'<DataSet id="{FLAT_N}">' not in xml:
+        raise AssertionError(f"clusters_{k}.xml is malformed")
+    tail = proc.stdout.strip().splitlines()[-1]
+    log(f"[cli] flatclust_cli {FLAT_M}x{FLAT_N} --clusters {k} --algorithm "
+        f"HALS --device cuda: rc 0, assignments {assign.shape}, fuzzy "
+        f"{fuzzy.shape}, clusters_{k}.xml with {k} nodes; {tail}")
+
+
 def main() -> int:
     import torch
 
@@ -332,17 +651,33 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from smallk_torch.common.device import setup
-    from smallk_torch.kernels import masked_gj
+    from smallk_torch.kernels import hals_step, masked_gj
 
     setup("cuda")
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    phase_build()
-    k1 = phase_kernel()
-    phase_slice_parity()
-    main_path = phase_main_path(card)
-    phase_cli()
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    k1 = timed("K1", phase_kernel)
+    k2 = timed("K2", phase_k2)
+    timed("slice", phase_slice_parity)
+    main_path = timed("main", phase_main_path, card)
+    flat_path = timed("flatclust", phase_flatclust, card)
+    timed("beside", phase_beside, card)
+    with ThreadPoolExecutor(2) as pool:  # the two CLI processes side by side
+        t0 = time.perf_counter()
+        for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli)]:
+            job.result()
+        secs["cli"] = time.perf_counter() - t0
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
 
     ms, plain_ms = k1["times"][MAIN_SHAPES[-1]]
     print(json.dumps({"kernels": [{
@@ -354,6 +689,15 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "hals_step",
+        "route": "cuda",
+        "source": hals_step.SOURCE,
+        "replaces": hals_step.REPLACES,
+        "launches": flat_path["launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ import, not copied, and is re-exported here so that callers of the port
 need not name the reference package.  Those modules import only numpy
 and scipy.
 
-Library entry point: `smallk_torch.engines.nmf.run_nmf(A, W0, H0, opts,
-device=...)`.
+Library entry points: `smallk_torch.engines.nmf.run_nmf(A, W0, H0, opts,
+device=...)` and `smallk_torch.engines.flatclust.run_flatclust(...)`.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ from smallk_tpu.common.options import (  # noqa: F401
     Result,
 )
 from smallk_tpu.common.rng import Random, random_matrix  # noqa: F401
-from smallk_tpu.engines.matrixgen import random_sparse_matrix  # noqa: F401
+from smallk_tpu.engines.matrixgen import (  # noqa: F401
+    generate,
+    random_sparse_matrix,
+)
 
 __version__ = "0.1.0"

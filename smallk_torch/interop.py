@@ -12,6 +12,17 @@ import torch
 
 from .common.device import setup, torch_dtype
 from .ops.aop import as_aop
+from .solvers import bpp, hals, mu, rank2
+
+# solver-state classes by name: the reference's and the port's share them
+_STATES = {cls.__name__: cls for cls in (
+    mu.MuState, hals.HalsState, rank2.Rank2State, bpp.BppState)}
+
+
+def _tensor(x, dtype, device):
+    """A copy of array `x` as a tensor (numpy views of jax arrays are
+    read-only, so no shared memory)."""
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def from_reference(A, W0, H0, *, device, dtype="float32", a_dtype=None):
@@ -20,9 +31,27 @@ def from_reference(A, W0, H0, *, device, dtype="float32", a_dtype=None):
     dev = setup(device)
     dt = torch_dtype(dtype)
     aop = as_aop(A, dtype=a_dtype or dt, device=dev)
+    return aop, _tensor(W0, dt, dev), _tensor(H0, dt, dev)
 
-    def factor(X):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(X))).to(
-            dt).to(dev)
 
-    return aop, factor(W0), factor(H0)
+def state_from_reference(state, device, dtype="float32"):
+    """A reference solver state (MuState, HalsState, Rank2State or
+    BppState, a NamedTuple whose arrays the caller turned into numpy) ->
+    the port's state of the same name, its arrays on `device` in `dtype`.
+    Integer fields (BPP's pivot count) stay Python ints."""
+    try:
+        cls = _STATES[type(state).__name__]
+    except KeyError:
+        raise ValueError(f"not a solver state: {type(state).__name__} "
+                         f"(expected one of {sorted(_STATES)})") from None
+    dev = setup(device)
+    dt = torch_dtype(dtype)
+
+    def field(v):
+        a = np.asarray(v)
+        if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+            return int(a)
+        return _tensor(a, dt, dev)
+
+    return cls(*(field(getattr(state, name)) for name in cls._fields))
+

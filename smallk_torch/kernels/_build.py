@@ -37,6 +37,11 @@ SIGNATURES = {
         "smallk_masked_gj_f64": ((_P, _P, _P, _P, _I, _I, _P, _I), _I),
         "smallk_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
+    "hals_step": {
+        "smallk_hals_step_f32": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
+        "smallk_hals_step_bf16": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
+        "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,9 @@ is solved by the masked Gauss-Jordan kernel (kernels/masked_gj.py) for all
 n columns at once; the pivot rules (PBAR = 3, Ninf counters, the backup
 single-bit toggle) and the tolerance-based sign tests are the reference's,
 line for line.  The pivot loop is a host loop: one host sync per round.
+
+`nnls_hals` is the fixed-W NNLS by HALS row sweeps that hierclust's flat
+refinement calls.
 """
 
 from __future__ import annotations
@@ -16,7 +19,13 @@ from __future__ import annotations
 import torch
 
 from ..kernels import masked_gj
-from ..ops.dense import gemm, zeroize_small
+from ..ops.dense import (
+    gemm,
+    normalize_and_scale,
+    projected_gradient_norm_single,
+    zeroize_small,
+)
+from .hals import update_h
 
 PBAR = 3
 
@@ -141,3 +150,31 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     X = torch.clamp(X, min=0.0)
     X = zeroize_small(X, 8.0 * eps * torch.clamp(torch.max(X), min=1.0))
     return X, Y, converged & finite, it
+
+
+def nnls_hals(a_op, W, H, tol, max_iter):
+    """Fixed-W NNLS by HALS row sweeps, for flat-clustering refinement —
+    port of smallk_tpu/solvers/nnls.py:nnls_hals (reference NnlsHals).
+
+    Sweeps H until the projected-gradient norm drops below tol * pg0
+    (pg0: the first sweep's), at most `max_iter` sweeps, one host sync per
+    sweep.  Returns (W, H, success); on success W and H come back
+    normalized, as the reference's do.
+    """
+    WtW = gemm(W.T, W)
+    WtA = a_op.mm_tn(W)
+    pg0 = None
+    done = False
+    it = 0
+    while not done and it < max_iter:
+        H = update_h(H, WtW, WtA)
+        gradH = gemm(WtW, H) - WtA
+        pg = projected_gradient_norm_single(gradH, H)
+        if it == 0:
+            pg0 = pg
+        else:
+            done = bool(pg < tol * pg0)
+        it += 1
+    if done:
+        W, H, _ = normalize_and_scale(W, H)
+    return W, H, done

@@ -12,9 +12,9 @@ semantics:
     returned unnormalized;
   - reaching max_iter without failure counts as success.
 
-Host syncs: one per step (the step's `ok` and the metric, read together)
-plus one per test of each NNLS pivot loop's condition (rounds + 1 per
-NNLS, two NNLS per BPP step).
+Host syncs: one per step (the step's `ok` and the metric, read together).
+BPP adds one per test of each NNLS pivot loop's condition (rounds + 1 per
+NNLS, two NNLS per step); MU, HALS and RANK2 add none.
 """
 
 from __future__ import annotations
@@ -31,10 +31,13 @@ from smallk_tpu.common.options import (
 )
 
 from ..ops.dense import normalize_and_scale, projected_gradient_norm
-from . import bpp
+from . import bpp, hals, mu, rank2
 from .progress import prog_init, prog_update
 
 _SOLVERS = {
+    NmfAlgorithm.MU: mu,
+    NmfAlgorithm.HALS: hals,
+    NmfAlgorithm.RANK2: rank2,
     NmfAlgorithm.BPP: bpp,
 }
 
@@ -66,8 +69,8 @@ def get_solver(algorithm: NmfAlgorithm):
         return _SOLVERS[algorithm]
     except KeyError:
         raise NotImplementedError(
-            f"{algorithm.value} is not ported yet (ROADMAP queue 1, "
-            "slice 7: MU, HALS and RANK2)") from None
+            f"{algorithm} has no solver in the port (it has "
+            f"{', '.join(a.value for a in _SOLVERS)})") from None
 
 
 def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None) -> SolveResult:

@@ -165,10 +165,16 @@ def test_failed_step_ends_the_solve_unnormalized():
 
 @pytest.mark.parametrize("algorithm", [NmfAlgorithm.MU, NmfAlgorithm.HALS,
                                        NmfAlgorithm.RANK2])
-def test_unported_algorithms_raise(algorithm):
+def test_unported_algorithms_raise(algorithm, monkeypatch):
+    """Every algorithm has a solver now; one missing from the registry
+    raises instead of running another."""
+    import smallk_torch.solvers.solve as solve
+
     A, W0, H0 = _problem(6, k=2)
     opts = _opts(algorithm=algorithm, k=2)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    assert set(solve._SOLVERS) == set(NmfAlgorithm)
+    monkeypatch.delitem(solve._SOLVERS, algorithm)
+    with pytest.raises(NotImplementedError, match="no solver"):
         _port_solve(A, W0, H0, opts)
 
 
@@ -249,7 +255,10 @@ def test_cli_exit_codes(tmp_path):
     assert tnmf_entry(["--matrixfile", str(tmp_path / "missing.mtx"),
                        "--k", "4", "--device", "cpu"]) == 2  # BAD_PARAM
     assert tnmf_entry(["--matrixfile", csv, "--k", "4", "--device", "cpu",
-                       "--algorithm", "MU"]) == 1  # FAILURE: not ported
+                       "--algorithm", "MU", "--verbose", "0", "--maxiter",
+                       "10", "--outfile_W", w, "--outfile_H", h]) == 0
+    assert tnmf_entry(["--matrixfile", csv, "--k", "4", "--device", "cpu",
+                       "--algorithm", "ALS"]) == 2  # BAD_PARAM: no such flag
     assert tnmf_entry(["--k", "4"]) == 2  # usage error
 
 
