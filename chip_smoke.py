@@ -27,9 +27,26 @@ fails (nonzero exit, no result line) on any fault:
      over 2000 fixed iterations; f32 on the card against f32 on the CPU;
   8. MU and RANK2 on a dense 800 x 600 operand and flatclust BPP at
      256 x 256, k = 16 beside it;
-  9. the nmf and flatclust CLIs as subprocesses;
- 10. the kernel table as one JSON line, the card line, and last the result
+  9. K3, the rank-2 products and loop, against its plain version at the
+     shapes of P3 (scripts/tpu_batch60.py) and small ragged shapes, and its
+     two products alone at the hierclust root shape (12411 x 7984 bf16);
+     kernel, plain and library times;
+ 10. hierclust parity: a small planted corpus in initdir mode, f64 on the
+     card against the CPU (same tree, assignments and priorities), and f32
+     on the card (through K3) against f32 on the CPU by NMI;
+ 11. the hierclust path at full width: the Reuters-shape corpus (12411 x
+     7984, bf16 A, f32 factors) to 12 clusters, as bench.py times the
+     reference, with K3's launches and the products' branches counted;
+ 12. the nmf, flatclust and hierclust CLIs as subprocesses;
+ 13. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile
+
+runs only the full-width hierclust path: once under torch.profiler, to
+print where the device time goes, then with its rank-2 products through
+K3 and through torch.matmul, alternating, to time what K3 moves end to
+end.
 
 There is no CPU fallback: without a card the script exits 1.
 """
@@ -71,6 +88,20 @@ K2_TOL = [dict(rtol=2e-5, atol=2e-6)] * 2 + [dict(rtol=2e-4, atol=2e-5)] * 2 \
 FLAT_M, FLAT_N, FLAT_K = 256, 256, 16   # the reference's flatclust config
 FLAT_ITERS = 2000
 
+# K3 against its plain version: max |kernel - plain| / max |plain|.  Both
+# sum in f32, in other orders; the 200-iteration loop compounds them.
+K3_TOL = {"product": 2e-5, "loop": 1e-4}
+P3_SHAPES = [(12411, 512, "bfloat16"), (12411, 512, "float32"),
+             (20000, 512, "bfloat16"), (12411, 2048, "bfloat16")]
+K3_RAGGED = [(1, 1, "float32"), (100, 3, "bfloat16"), (257, 130, "float32"),
+             (257, 130, "bfloat16"), (4097, 33, "bfloat16")]
+HIER_M, HIER_N, HIER_TOPICS, HIER_K = 12411, 7984, 16, 12  # bench.py:60-79
+HIER_NMI_MARGIN = 0.05   # f32 card run's NMI may trail the CPU run's by this
+HIER_PRIORITY_TOL = 1e-10
+
+# H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -84,13 +115,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, queued: bool = True) -> float:
     """Device time of one fn() call in ms, with the host out of the way.
 
     fn is captured once in a CUDA graph, so a call is one launch however
     many kernels it runs; `iters` replays are queued behind a sleep kernel,
     and the events around them time the device alone.  The run fails if
     the sleep ended before the last replay was queued.
+
+    A graph of ~1000 kernels (a 200-iteration loop) fills the device's
+    launch queue behind the sleep, so the host cannot queue it all; with
+    `queued=False` the replays run back to back instead, which times the
+    device when a replay's device time exceeds its host cost.
     """
     import torch
 
@@ -103,7 +139,10 @@ def device_ms(fn, iters: int) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
-    sleep_s = back_to_back_ms(graph.replay, iters) * iters / 1e3 * 2 + 0.01
+    replays = back_to_back_ms(graph.replay, iters)
+    if not queued:
+        return replays
+    sleep_s = replays * iters / 1e3 * 2 + 0.01
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     for _ in range(4):
@@ -139,19 +178,36 @@ def back_to_back_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for `flop` f32 operations
+    on `nbytes` bytes moved, and which of the two bounds it."""
+    t_ops, t_bytes = flop / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def reset_counts() -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
-    from smallk_torch.kernels import hals_step, masked_gj
+    """Every kernel's launch count, and the product branch counts, to 0,
+    just before a path is driven."""
+    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
+    from smallk_torch.ops import aop
 
     masked_gj.launches = 0
     hals_step.launches = 0
+    rank2_loop.launches = 0
+    aop.kernel_products = 0
+    aop.matmul_products = 0
 
 
-def read_counts() -> tuple[int, int]:
-    """(K1, K2) launches since the last reset_counts()."""
-    from smallk_torch.kernels import hals_step, masked_gj
+def read_counts() -> dict:
+    """Launches of K1, K2 and K3, and the products that went to K3 and to
+    torch.matmul, since the last reset_counts()."""
+    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
+    from smallk_torch.ops import aop
 
-    return masked_gj.launches, hals_step.launches
+    return {"K1": masked_gj.launches, "K2": hals_step.launches,
+            "K3": rank2_loop.launches, "kernel_products": aop.kernel_products,
+            "matmul_products": aop.matmul_products}
 
 
 def k1_inputs(k: int, n: int, dtype, device):
@@ -236,10 +292,32 @@ def phase_kernel() -> dict:
         ms, plain = device_ms(kernel, 100), device_ms(plain_version, 20)
         ms_host = back_to_back_ms(kernel, 200)
         plain_host = back_to_back_ms(plain_version, 50)
-        times[(k, n)] = (ms, plain)
+        # the library call: one batched torch.linalg.solve_ex of the (n, k,
+        # k) masked systems, built beforehand and not timed
+        p = passive.to(LHS.dtype).T                       # (n, k)
+        M = (LHS[None] * (p[:, :, None] * p[:, None, :])
+             + torch.diag_embed(1.0 - p))
+        b = (RHS.T * p)[:, :, None]
+        X = kernel()
+        lib_rel = float((torch.linalg.solve_ex(M, b)[0][:, :, 0].T - X)
+                        .abs().max() / X.abs().max())
+        if not lib_rel <= 1e-3:  # the same function, solved another way
+            raise AssertionError(f"K1 library solve differs by {lib_rel}")
+        library = device_ms(lambda: torch.linalg.solve_ex(M, b), 50)
+        lib_host = back_to_back_ms(lambda: torch.linalg.solve_ex(M, b), 50)
+        # what these inputs need: a Gauss-Jordan on each column's q x (q+1)
+        # passive system (q divisions per pivot row, 2 (q-1)(q+1) per
+        # elimination), and each input and output moved once
+        q = passive.sum(dim=0).double()
+        flop = float((q * (q + 1) + 2 * q * (q - 1) * (q + 1)).sum())
+        nbytes = 4 * k * k + (4 + 1 + 4) * k * n
+        times[(k, n)] = (ms, plain, library, *bound(flop, nbytes))
         log(f"[K1 time f32] k={k} n={n}: device ms per call: kernel "
-            f"{ms:.4f}, plain {plain:.4f}; back-to-back with host launch "
-            f"cost: kernel {ms_host:.4f}, plain {plain_host:.4f}")
+            f"{ms:.4f}, plain {plain:.4f}, library torch.linalg.solve_ex on "
+            f"the (n, k, k) batch {library:.4f} (max rel diff "
+            f"{lib_rel:.1e}); back-to-back with host launch cost: kernel "
+            f"{ms_host:.4f}, plain {plain_host:.4f}, library {lib_host:.4f}; "
+            f"bound {times[(k, n)][3]:.6f} ms ({times[(k, n)][4]})")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -320,10 +398,19 @@ def phase_k2() -> dict:
     ms, plain = device_ms(kernel, 200), device_ms(plain_version, 20)
     ms_host = back_to_back_ms(kernel, 500)
     plain_host = back_to_back_ms(plain_version, 50)
+    # one HALS step: W'A and AH' (2 m n k each), W'W, HH', the two sweeps
+    # and the gradients (2 k^2 (3 m + 3 n)); inputs A, W, H, HH', AH' and
+    # the six outputs moved once.  No single PyTorch call computes a step.
+    m, n, k = FLAT_M, FLAT_N, FLAT_K
+    flop = 4 * m * n * k + 2 * k * k * (3 * m + 3 * n)
+    nbytes = 4 * (m * n + 2 * (2 * m * k + 2 * k * n + k * k))
+    bound_ms, bound_by = bound(flop, nbytes)
     log(f"[K2 time f32] m={FLAT_M} n={FLAT_N} k={FLAT_K}: device ms per "
         f"call: kernel {ms:.4f}, plain {plain:.4f}; back-to-back with host "
-        f"launch cost: kernel {ms_host:.4f}, plain {plain_host:.4f}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+        f"launch cost: kernel {ms_host:.4f}, plain {plain_host:.4f}; bound "
+        f"{bound_ms:.6f} ms ({bound_by}); no library call computes a step")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_slice_parity() -> None:
@@ -404,7 +491,8 @@ def phase_main_path(card: str) -> dict:
     t0 = time.perf_counter()
     W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
     wall = time.perf_counter() - t0
-    launches, k2_launches = read_counts()
+    counts = read_counts()
+    launches, k2_launches = counts["K1"], counts["K2"]
 
     rel = rel_err(W, H)
     its = stats.iteration_count / (stats.elapsed_us / 1e6)
@@ -472,7 +560,8 @@ def phase_flatclust(card: str) -> dict:
     reset_counts()
     W, H, assign, fuzzy, ok = run_flatclust(A, W0, H0, opts, stats,
                                             device="cuda")
-    k1_launches, launches = read_counts()
+    counts = read_counts()
+    k1_launches, launches = counts["K1"], counts["K2"]
     its = stats.iteration_count
     rel = rel_err(A, W, H)
     log(f"[flatclust] HALS {FLAT_M}x{FLAT_N} k={FLAT_K} tol 1e-4: "
@@ -565,7 +654,7 @@ def phase_beside(card: str) -> None:
     reset_counts()
     W, H, assign, fuzzy, ok = run_flatclust(A, W0, H0, opts, stats,
                                             device="cuda")
-    launches, _ = read_counts()
+    launches = read_counts()["K1"]
     rel, rel1 = rel_err(A, W, H), rel_err(A, W1, H1)
     log(f"[beside] flatclust BPP {FLAT_M}x{FLAT_N} k={FLAT_K}: success={ok}, "
         f"iterations={stats.iteration_count}, K1 launches={launches}, rel "
@@ -642,6 +731,332 @@ def phase_flat_cli() -> None:
         f"{fuzzy.shape}, clusters_{k}.xml with {k} nodes; {tail}")
 
 
+def k3_inputs(m: int, w: int, dtype: str, seed: int = 0):
+    """A >= 0 in `dtype`, a Wt with both signs and an H, made on the card
+    from a seed."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + m + w)
+    A = torch.rand((m, w), generator=g, device="cuda").to(getattr(torch,
+                                                                  dtype))
+    Wt = torch.rand((2, m), generator=g, device="cuda") - 0.3
+    H = torch.rand((2, w), generator=g, device="cuda")
+    return A, Wt, H
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version at P3's shapes and ragged ones; times of
+    the loop at P3's shapes and of one iteration's two products at the
+    hierclust root shape."""
+    import torch
+
+    from smallk_torch.kernels import rank2_loop as k3
+
+    worst_abs = worst_rel = 0.0
+
+    def check(label, got, want, tol):
+        nonlocal worst_abs, worst_rel
+        diff = float((got - want).abs().max())
+        # a loop whose A has no singular value above 1 decays to exact 0
+        rel = diff / max(float(want.abs().max()), 1e-30)
+        log(f"[K3] {label}: max|kernel - plain| = {diff:.3e}, relative "
+            f"{rel:.3e} (tolerance {tol:g})")
+        if not (rel <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K3 {label} disagrees with its plain "
+                                 "version")
+        worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
+
+    for m, w, dt in K3_RAGGED + P3_SHAPES:
+        A, Wt, H = k3_inputs(m, w, dt)
+        before = k3.launches
+        got = (k3.wt_a(A, Wt), k3.h_at(A, H), k3.rank2_loop(A, Wt))
+        want = (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H),
+                k3.rank2_loop_plain(A, Wt))
+        torch.cuda.synchronize()
+        if k3.launches != before + 3:
+            raise AssertionError("a K3 wrapper did not launch its kernel")
+        label = f"m={m} w={w} A {dt}"
+        check(f"{label} wt_a", got[0], want[0], K3_TOL["product"])
+        check(f"{label} h_at", got[1], want[1], K3_TOL["product"])
+        check(f"{label} loop x{k3.ITERS}", got[2], want[2], K3_TOL["loop"])
+        if (m, w, dt) not in P3_SHAPES:
+            continue
+        ms = device_ms(lambda: k3.rank2_loop(A, Wt), 10, queued=False)
+        plain = device_ms(lambda: k3.rank2_loop_plain(A, Wt), 3,
+                          queued=False)
+        # the library's products of one iteration: torch.matmul after the
+        # upcast, as the port computed them before K3
+        library = device_ms(lambda: torch.matmul(
+            torch.matmul(Wt, A.float()), A.float().T), 20)
+        b_ms, b_by = bound(8.0 * m * w * k3.ITERS,
+                           A.numel() * A.element_size() + 16 * m)
+        log(f"[K3 time] P3 m={m} w={w} A {dt}, {k3.ITERS} iterations: "
+            f"device ms (graph replays back to back) kernel {ms:.4f}, plain "
+            f"{plain:.4f}; library products "
+            f"of one iteration {library:.4f} (x{k3.ITERS} = "
+            f"{library * k3.ITERS:.4f}); bound {b_ms:.4f} ms ({b_by})")
+
+    # one rank-2 iteration's A-products at the hierclust root shape
+    A, Wt, H = k3_inputs(HIER_M, HIER_N, "bfloat16")
+    check(f"root m={HIER_M} w={HIER_N} A bfloat16 wt_a", k3.wt_a(A, Wt),
+          k3.wt_a_plain(A, Wt), K3_TOL["product"])
+    check(f"root m={HIER_M} w={HIER_N} A bfloat16 h_at", k3.h_at(A, H),
+          k3.h_at_plain(A, H), K3_TOL["product"])
+    ms = device_ms(lambda: (k3.wt_a(A, Wt), k3.h_at(A, H)), 20)
+    plain = device_ms(lambda: (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H)), 10)
+    library = device_ms(lambda: (torch.matmul(Wt, A.to(torch.float32)),
+                                 torch.matmul(H, A.to(torch.float32).T)), 10)
+    parts = [device_ms(lambda: k3.wt_a(A, Wt), 20),
+             device_ms(lambda: k3.h_at(A, H), 20)]
+    # the pair reads A once at the least (each input once), and does
+    # 2 x 4 m w operations
+    b_ms, b_by = bound(8.0 * HIER_M * HIER_N,
+                       A.numel() * A.element_size() + 16 * (HIER_M + HIER_N))
+    log(f"[K3 time] root products m={HIER_M} w={HIER_N} A bfloat16: device "
+        f"ms wt_a + h_at {ms:.4f} (wt_a {parts[0]:.4f}, h_at {parts[1]:.4f}), "
+        f"plain {plain:.4f}, library (torch.matmul after the upcast) "
+        f"{library:.4f}; bound {b_ms:.4f} ms ({b_by}; two separate reads of "
+        f"A: {2 * b_ms:.4f} ms)")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def hier_opts(k: int, dtype: str, initdir=None, a_dtype=None):
+    """The hierclust configuration of bench.py:60-79 (RANK2, PG_RATIO,
+    tol 1e-4, min_iter 1, max_iter 5000, stall_patience 100)."""
+    from smallk_torch import ClustOptions, NmfAlgorithm, NmfOptions
+    from smallk_torch import NmfProgressAlgorithm
+
+    return ClustOptions(
+        nmf_opts=NmfOptions(
+            tol=1e-4, algorithm=NmfAlgorithm.RANK2,
+            prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO, k=2,
+            min_iter=1, max_iter=5000, verbose=False, dtype=dtype,
+            a_dtype=a_dtype, stall_patience=100),
+        num_clusters=k, verbose=False, initdir=initdir)
+
+
+def phase_hier_parity() -> None:
+    """A small planted corpus in initdir mode: f64 on the card against the
+    CPU (the same tree), and f32 on the card, through K3, against f32 on
+    the CPU by NMI against the planted labels."""
+    from smallk_torch import Random
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+
+    m, n, k = 600, 400, 6
+    A, labels = synthetic_term_doc_corpus(m, n, k, seed=5, topic_weight=0.5)
+    rng = np.random.RandomState(9)
+    with tempfile.TemporaryDirectory() as initdir:
+        for i in range(1, 61):
+            np.savetxt(os.path.join(initdir, f"Winit_{i}.csv"),
+                       rng.rand(m, 2), delimiter=",", fmt="%.17g")
+            np.savetxt(os.path.join(initdir, f"Hinit_{i}.csv"),
+                       rng.rand(2, n), delimiter=",", fmt="%.17g")
+        runs = {}
+        for dtype in ("float64", "float32"):
+            for device in ("cuda", "cpu"):
+                reset_counts()
+                tree, stats = clust_hier(A, hier_opts(k, dtype, initdir),
+                                         Random(1), device=device)
+                runs[dtype, device] = (tree, stats, read_counts())
+    (tc, sc, cc), (th, sh, ch) = runs["float64", "cuda"], runs["float64",
+                                                               "cpu"]
+    worst = 0.0
+    for q, (a, b) in enumerate(zip(tc.nodes, th.nodes)):
+        same = ((a.is_valid, a.parent_index, a.left_child_index)
+                == (b.is_valid, b.parent_index, b.left_child_index))
+        if not same or (a.is_valid and not np.array_equal(a.docs, b.docs)):
+            raise AssertionError(f"f64 trees differ at node {q}")
+        worst = max(worst, abs(a.priority - b.priority))
+    if not np.array_equal(tc.assignments, th.assignments):
+        raise AssertionError("f64 assignments differ between cuda and cpu")
+    if worst > HIER_PRIORITY_TOL or cc["K3"] or cc["kernel_products"]:
+        raise AssertionError(f"f64 priorities differ by {worst}, or f64 "
+                             f"took K3 ({cc})")
+    log(f"[hier parity f64] {m}x{n} k={k} initdir: cuda vs cpu same tree "
+        f"and assignments, max|d priority| = {worst:.2e} (tolerance "
+        f"{HIER_PRIORITY_TOL:g}); iterations {sc.iter_count}/{sh.iter_count}, "
+        f"factorizations {sc.nmf_count}/{sh.nmf_count}")
+    (t32, s32, c32), (h32, hs32, _) = runs["float32", "cuda"], runs[
+        "float32", "cpu"]
+    nmi_card, nmi_cpu = nmi(t32.assignments, labels), nmi(h32.assignments,
+                                                          labels)
+    log(f"[hier parity f32] NMI cuda {nmi_card:.4f} (K3 launches "
+        f"{c32['K3']}, matmul products {c32['matmul_products']}), cpu "
+        f"{nmi_cpu:.4f}; iterations {s32.iter_count}/{hs32.iter_count}")
+    if c32["K3"] < 2 * s32.iter_count or c32["matmul_products"]:
+        raise AssertionError(f"f32 card run bypassed K3: {c32}")
+    if nmi_card < nmi_cpu - HIER_NMI_MARGIN:
+        raise AssertionError(f"f32 NMI on the card {nmi_card} trails the "
+                             f"CPU's {nmi_cpu} by more than "
+                             f"{HIER_NMI_MARGIN}")
+
+
+def hier_problem():
+    """bench.py's Reuters-shape hierclust corpus, made from its seed, as a
+    bf16 operand on the card (built once, outside the timing)."""
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.ops.aop import as_aop
+
+    A, labels = synthetic_term_doc_corpus(HIER_M, HIER_N, HIER_TOPICS,
+                                          seed=11)
+    return as_aop(A, dtype="bfloat16", device="cuda"), labels
+
+
+def phase_hierclust(card: str) -> dict:
+    import torch
+
+    from smallk_torch import ClustStats, Random
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+
+    a_op, labels = hier_problem()
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    clust_hier(a_op, opts, Random(1))  # warm-up
+    stats = ClustStats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, stats = clust_hier(a_op, opts, Random(2), stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    leaves = sum(tree.is_leaf)
+    score = nmi(tree.assignments, labels)
+    log(f"[hierclust] {HIER_M}x{HIER_N} bf16 A, f32 factors, {HIER_K} "
+        f"clusters: wall {wall:.4f} s, nmf_count {stats.nmf_count}, "
+        f"converged {stats.nmf_count - stats.max_count}, iter_count "
+        f"{stats.iter_count}, {stats.iter_count / wall:.1f} rank-2 it/s, K3 "
+        f"launches {counts['K3']}, k=2 products to torch.matmul "
+        f"{counts['matmul_products']}, leaves {leaves}, outliers "
+        f"{len(tree.outliers)}, NMI {score:.4f} on {card}")
+    if leaves != HIER_K:
+        raise AssertionError(f"{leaves} leaves, expected {HIER_K}")
+    if (tree.assignments < 0).any():
+        raise AssertionError(f"{len(tree.outliers)} documents unassigned")
+    if counts["K3"] < 2 * stats.iter_count:
+        raise AssertionError(f"K3 launched {counts['K3']} times in "
+                             f"{stats.iter_count} rank-2 iterations")
+    if counts["matmul_products"]:
+        raise AssertionError(f"{counts['matmul_products']} k=2 f32 products "
+                             "went to torch.matmul")
+    return {"launches": counts["K3"], "wall": wall}
+
+
+def profile_hierclust() -> None:
+    """The full-width hierclust path once under torch.profiler: device time
+    by kernel, the device's busy share of the window, launches and
+    syncs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import Random
+    from smallk_torch.engines.hierclust import clust_hier
+
+    a_op, _ = hier_problem()
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    clust_hier(a_op, opts, Random(1))  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, stats = clust_hier(a_op, opts, Random(2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    total = sum(by_name.values())
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
+                         "cudaMemcpyAsync")}
+    log(f"[profile] hierclust wall {wall:.4f} s (profiled), iter_count "
+        f"{stats.iter_count}; device busy {busy / 1e6:.4f} s = "
+        f"{100 * busy / 1e6 / wall:.2f}% of the wall; host calls {host}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"[profile]   {us / 1e3:10.3f} ms {100 * us / total:6.2f}%  "
+            f"{name[:90]}")
+
+    # the same path with K3 and with every k = 2 product sent to
+    # torch.matmul (the dispatch rule switched off), alternating
+    from smallk_torch.ops import aop
+
+    rule = aop._kernel_product_ok
+    try:
+        for side in ("K3", "matmul", "matmul", "K3"):
+            aop._kernel_product_ok = (rule if side == "K3"
+                                      else lambda *args: False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, stats = clust_hier(a_op, opts, Random(2))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[profile] hierclust with the products through {side}: "
+                f"wall {wall:.4f} s, iter_count {stats.iter_count}, "
+                f"{stats.iter_count / wall:.1f} rank-2 it/s")
+    finally:
+        aop._kernel_product_ok = rule
+
+
+def phase_hier_cli() -> None:
+    """The hierclust CLI with --flat 1 on a small .mtx with a dictionary."""
+    import scipy.io
+
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+
+    m, n, k = 400, 300, 5
+    A, _ = synthetic_term_doc_corpus(m, n, k, seed=3)
+    with tempfile.TemporaryDirectory() as td:
+        mtx = os.path.join(td, "corpus.mtx")
+        scipy.io.mmwrite(mtx, A)
+        dic = os.path.join(td, "dict.txt")
+        with open(dic, "w") as f:
+            f.write("".join(f"term{i}\n" for i in range(m)))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "smallk_torch.cli.hierclust_cli",
+               "--matrixfile", mtx, "--dictfile", dic, "--clusters", str(k),
+               "--device", "cuda", "--flat", "1", "--verbose", "0",
+               "--seed", "1", "--outdir", td]
+        proc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"hierclust CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        with open(os.path.join(td, f"tree_{k}.xml")) as f:
+            xml = f.read()
+        assign = [np.loadtxt(os.path.join(td, name), delimiter=",",
+                             dtype=np.int64, ndmin=1, max_rows=1)
+                  for name in (f"assignments_{k}.csv",
+                               f"assignments_flat_{k}.csv")]
+        names = sorted(os.listdir(td))
+    # the tree file holds every stored node: 2 (k - 1), the root is not
+    # stored (tree.hpp)
+    if xml.count("<node id=") != 2 * (k - 1) or "<DataSet id=" not in xml:
+        raise AssertionError(f"tree_{k}.xml holds {xml.count('<node id=')} "
+                             "nodes")
+    for a in assign:
+        if a.shape != (n,) or not ((-1 <= a) & (a < 2 * (k - 1))).all():
+            raise AssertionError(f"an assignment file holds {a.shape}")
+    tail = proc.stdout.strip().splitlines()
+    log(f"[cli] hierclust_cli {m}x{n} --clusters {k} --flat 1 --device cuda: "
+        f"rc 0, tree_{k}.xml with {2 * (k - 1)} nodes, files {names}; "
+        f"{' '.join(tail[-2:])}")
+
+
 def main() -> int:
     import torch
 
@@ -651,7 +1066,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from smallk_torch.common.device import setup
-    from smallk_torch.kernels import hals_step, masked_gj
+    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
 
     setup("cuda")
     card = card_line()
@@ -666,20 +1081,28 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    if sys.argv[1:] == ["--profile"]:
+        profile_hierclust()
+        return 0
     k1 = timed("K1", phase_kernel)
     k2 = timed("K2", phase_k2)
+    k3 = timed("K3", phase_k3)
     timed("slice", phase_slice_parity)
     main_path = timed("main", phase_main_path, card)
     flat_path = timed("flatclust", phase_flatclust, card)
     timed("beside", phase_beside, card)
-    with ThreadPoolExecutor(2) as pool:  # the two CLI processes side by side
+    timed("hier parity", phase_hier_parity)
+    hier_path = timed("hierclust", phase_hierclust, card)
+    with ThreadPoolExecutor(3) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()
-        for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli)]:
+        for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
+                    pool.submit(phase_hier_cli)]:
             job.result()
         secs["cli"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
 
-    ms, plain_ms = k1["times"][MAIN_SHAPES[-1]]
+    ms, plain_ms, library_ms, bound_ms, bound_by = k1["times"][
+        MAIN_SHAPES[-1]]
     print(json.dumps({"kernels": [{
         "name": "masked_gj_solve",
         "route": "cuda",
@@ -689,6 +1112,9 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
     }, {
         "name": "hals_step",
         "route": "cuda",
@@ -698,6 +1124,21 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rank2_loop",
+        "route": "cuda",
+        "source": rank2_loop.SOURCE,
+        "replaces": rank2_loop.REPLACES,
+        "launches": hier_path["launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

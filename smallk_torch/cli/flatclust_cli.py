@@ -44,15 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from smallk_tpu.common.options import (
+    from ..common.options import (
         NmfAlgorithm, NmfOptions, NmfProgressAlgorithm, NmfStats,
         OutputFormat,
     )
-    from smallk_tpu.common.rng import Random, random_matrix
-    from smallk_tpu.io.delimited import load_delimited
-    from smallk_tpu.io.loader import load_matrix, load_strings
-
+    from ..common.rng import Random, random_matrix
     from ..engines.flatclust import run_flatclust, write_flatclust_results
+    from ..io.delimited import load_delimited
+    from ..io.loader import load_matrix, load_strings
 
     args = build_parser().parse_args(argv)
 
@@ -104,7 +103,7 @@ def main(argv=None) -> int:
 
 def entry(argv=None) -> int:
     """Console entry point: main() behind the Result exit-code boundary."""
-    from smallk_tpu.cli import run_cli
+    from . import run_cli
 
     return run_cli(main, argv)
 

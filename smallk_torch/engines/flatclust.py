@@ -4,11 +4,13 @@
 MU) through `run_nmf`, then derives the argmax assignments and the fuzzy
 (column-normalized) assignments from H.
 `write_flatclust_results` writes the reference's result files.  Both sit
-on the reference package's numpy-only `engines.assignments` and
+on the port's copies of the numpy-only `engines.assignments` and
 `io.writers`.
 
-Not ported here: the sharded solve (`mesh`, ROADMAP slice 15) and
-`run_hier_nmf2`, which needs hierclust (slice 9).
+`run_hier_nmf2` is the whole hierarchical workload: the tree, then the
+optional flat refinement.
+
+Not ported here: the sharded solve (`mesh`, ROADMAP slice 15).
 """
 
 from __future__ import annotations
@@ -18,19 +20,20 @@ from typing import Optional
 
 import numpy as np
 
-from smallk_tpu.common.options import (
+from ..common.options import (
+    ClustOptions,
+    ClustStats,
     NmfAlgorithm,
     NmfOptions,
     NmfStats,
     OutputFormat,
 )
-from smallk_tpu.engines.assignments import (
+from ..io.writers import make_flatclust_writer
+from .assignments import (
     compute_assignments,
     compute_fuzzy_assignments,
     top_terms_matrix,
 )
-from smallk_tpu.io.writers import make_flatclust_writer
-
 from .nmf import run_nmf
 
 _FLATCLUST_ALGORITHMS = (
@@ -39,9 +42,9 @@ _FLATCLUST_ALGORITHMS = (
 
 
 def run_flatclust(A, W0: np.ndarray, H0: np.ndarray, opts: NmfOptions,
-                  stats: Optional[NmfStats] = None, *, device):
-    """Factor A on `device` ("cuda", "cuda:1", "cpu") and derive the flat
-    clustering.
+                  stats: Optional[NmfStats] = None, *, device="cuda"):
+    """Factor A on `device` ("cuda", "cuda:1", "cpu"; the card unless the
+    caller asks for the CPU) and derive the flat clustering.
 
     Returns (W, H, assignments, fuzzy, success) as host arrays; top terms
     are derived by the caller via assignments.top_terms_matrix(W, maxterms).
@@ -96,3 +99,32 @@ def write_flatclust_results(
     with open(rpath, "w") as f:
         writer.write(f, n, doc_counts, term_lists, dictionary)
     return apath, fpath, rpath
+
+
+def run_hier_nmf2(A, opts: ClustOptions, rng, stats=None,
+                  checkpoint_path=None, *, device="cuda"):
+    """Full hierarchical workload on `device` (the card unless the caller
+    asks for the CPU): tree + optional flat refinement.
+
+    Reference: RunHierNmf2 (hierclust/include/run_hier_nmf2.hpp:17-76).
+    Returns (tree, stats, flat) where flat is None or a dict with
+    W, H, assignments, fuzzy, success.  `checkpoint_path` makes the tree
+    phase preemption-safe (resumes from an existing checkpoint).
+    """
+    from .hierclust import clust_flat, clust_hier
+
+    stats = stats if stats is not None else ClustStats()
+    tree, stats = clust_hier(A, opts, rng, stats,
+                             checkpoint_path=checkpoint_path, device=device)
+
+    flat = None
+    if opts.flat:
+        W, H, ok = clust_flat(A, tree, opts, rng, device=device)
+        flat = {
+            "W": W,
+            "H": H,
+            "assignments": compute_assignments(H),
+            "fuzzy": compute_fuzzy_assignments(H).astype(np.float32),
+            "success": ok,
+        }
+    return tree, stats, flat

@@ -14,9 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from smallk_tpu.common.options import NmfOptions, NmfStats
-
 from ..common.device import setup, torch_dtype
+from ..common.options import NmfOptions, NmfStats
 from ..ops.aop import as_aop
 from ..solvers.solve import nmf_solve
 
@@ -39,8 +38,9 @@ def is_initialized() -> bool:
 
 
 def run_nmf(A, W0: np.ndarray, H0: np.ndarray, opts: NmfOptions,
-            stats: Optional[NmfStats] = None, *, device):
-    """Factor A ~= W H on `device` ("cuda", "cuda:1", "cpu").
+            stats: Optional[NmfStats] = None, *, device="cuda"):
+    """Factor A ~= W H on `device` ("cuda", "cuda:1", "cpu"; the card
+    unless the caller asks for the CPU).
 
     A: ndarray (dense), scipy sparse, or a prebuilt operand.
     W0/H0: host initializer arrays (m x k, k x n).

@@ -42,6 +42,15 @@ SIGNATURES = {
         "smallk_hals_step_bf16": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
         "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
+    "rank2_loop": {
+        "smallk_wt_a_f32": ((_P,) * 4 + (_I,) * 4 + (_P, _I), _I),
+        "smallk_wt_a_bf16": ((_P,) * 4 + (_I,) * 4 + (_P, _I), _I),
+        "smallk_h_at_f32": ((_P,) * 3 + (_I,) * 2 + (_P, _I), _I),
+        "smallk_h_at_bf16": ((_P,) * 3 + (_I,) * 2 + (_P, _I), _I),
+        "smallk_rank2_loop_f32": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
+        "smallk_rank2_loop_bf16": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
+        "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

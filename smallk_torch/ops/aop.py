@@ -10,9 +10,13 @@ reference's `jnp.matmul(..., preferred_element_type=_pet(W)).astype(W.dtype)`
 contract).  With bf16 A and f32 factors, a bf16 result would feed the NNLS
 sign tests 8-bit products and collapse BPP to zero.
 
-A stored narrower than the accumulation dtype is upcast per product: at
-the 12411 x 7984 bf16 main-path shape that is a 396 MB f32 temporary per
-call.  A mixed-dtype GEMM kernel that reads bf16 directly is later work.
+Which code computes a product is a dispatch by device, dtype and shape:
+a k = 2 product of an f32 factor on a CUDA A in f32 or bf16 goes to K3
+(kernels/rank2_loop.py: `wt_a`, `h_at`), which reads A in its own dtype
+and sums in f32; every other product is `torch.matmul` on A upcast to the
+accumulation dtype (at the 12411 x 7984 bf16 shape a 396 MB f32 temporary
+per product).  A K3 failure raises.  `kernel_products` and
+`matmul_products` count the products that took each branch.
 """
 
 from __future__ import annotations
@@ -22,7 +26,19 @@ import scipy.sparse as sp
 import torch
 
 from ..common.device import setup, torch_dtype
+from ..kernels import rank2_loop
 from .dense import _pet
+
+# products since the last reset, by branch; the only places they grow are
+# the two product methods below
+kernel_products = 0
+matmul_products = 0
+
+
+def _kernel_product_ok(A, F, k: int) -> bool:
+    """The dispatch rule: A on CUDA in f32 or bf16, an f32 factor, k = 2."""
+    return (A.is_cuda and A.dtype in (torch.float32, torch.bfloat16)
+            and F.dtype == torch.float32 and k == 2)
 
 
 class DenseAOp:
@@ -40,10 +56,22 @@ class DenseAOp:
         return self.A.dtype
 
     def mm_tn(self, W):
+        global kernel_products, matmul_products
+        if _kernel_product_ok(self.A, W, W.shape[1]):
+            out = rank2_loop.wt_a(self.A, W.T.contiguous())
+            kernel_products += 1
+            return out
+        matmul_products += 1
         pet = _pet(W)
         return torch.matmul(W.T.to(pet), self.A.to(pet)).to(W.dtype)
 
     def mm_nt(self, H):
+        global kernel_products, matmul_products
+        if _kernel_product_ok(self.A, H, H.shape[0]):
+            out = rank2_loop.h_at(self.A, H.contiguous()).T
+            kernel_products += 1
+            return out
+        matmul_products += 1
         pet = _pet(H)
         return torch.matmul(self.A.to(pet), H.T.to(pet)).to(H.dtype)
 
@@ -51,10 +79,10 @@ class DenseAOp:
         return torch.sum(self.A, dim=0)
 
 
-def as_aop(A, dtype=torch.float32, *, device,
+def as_aop(A, dtype=torch.float32, *, device="cuda",
            densify_threshold_bytes=2 << 30):
-    """Build an operand on `device` from a host matrix (ndarray or scipy
-    sparse).
+    """Build an operand on `device` (the card unless the caller asks for
+    the CPU) from a host matrix (ndarray or scipy sparse).
 
     Sparse inputs whose dense image fits under `densify_threshold_bytes`
     are densified ON the device from their COO triplets: the host->device

@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from smallk_tpu.common.options import NmfProgressAlgorithm
-
+from ..common.options import NmfProgressAlgorithm
 from ..ops.dense import fro_norm, projected_gradient_norm
 
 

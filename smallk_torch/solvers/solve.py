@@ -24,12 +24,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from smallk_tpu.common.options import (
+from ..common.options import (
     NmfAlgorithm,
     NmfOptions,
     NmfProgressAlgorithm,
 )
-
 from ..ops.dense import normalize_and_scale, projected_gradient_norm
 from . import bpp, hals, mu, rank2
 from .progress import prog_init, prog_update

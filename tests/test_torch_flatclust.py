@@ -12,13 +12,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import smallk_tpu.common.options as jopt
 from smallk_tpu.cli.flatclust_cli import main as jflat_main
-from smallk_tpu.common.options import (
-    NmfAlgorithm,
-    NmfOptions,
-    NmfStats,
-    OutputFormat,
-)
 from smallk_tpu.engines.flatclust import run_flatclust as jrun_flatclust
 from smallk_tpu.engines.flatclust import (
     write_flatclust_results as jwrite_results,
@@ -26,6 +21,7 @@ from smallk_tpu.engines.flatclust import (
 from smallk_tpu.io.matrix_market import write_matrix_market
 from smallk_torch.cli.flatclust_cli import entry as tflat_entry
 from smallk_torch.cli.flatclust_cli import main as tflat_main
+from smallk_torch.common import options as topt
 from smallk_torch.engines.flatclust import run_flatclust, write_flatclust_results
 
 torch.set_num_threads(1)
@@ -33,6 +29,12 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-8, 1e-9
 M, N = 60, 45
+
+
+def _opts(pkg, algorithm, **kw):
+    """NmfOptions of `pkg`'s own options module (`topt`, the port's, or
+    `jopt`, the JAX package's)."""
+    return pkg.NmfOptions(algorithm=pkg.NmfAlgorithm(algorithm), **kw)
 
 
 def _operand(sparse, seed=0):
@@ -51,12 +53,13 @@ def test_run_flatclust_matches_reference(algorithm, sparse):
     A = _operand(sparse)
     rng = np.random.RandomState(1)
     W0, H0 = rng.rand(M, k), rng.rand(k, N)
-    opts = NmfOptions(height=M, width=N, k=k, dtype="float64", verbose=False,
-                      tol=1e-4, algorithm=NmfAlgorithm(algorithm))
-    st, jst = NmfStats(), NmfStats()
-    W, H, assign, fuzzy, ok = run_flatclust(A, W0, H0, opts, st,
-                                            device="cpu")
-    Wj, Hj, assign_j, fuzzy_j, okj = jrun_flatclust(A, W0, H0, opts, jst)
+    kw = dict(height=M, width=N, k=k, dtype="float64", verbose=False,
+              tol=1e-4)
+    st, jst = topt.NmfStats(), jopt.NmfStats()
+    W, H, assign, fuzzy, ok = run_flatclust(
+        A, W0, H0, _opts(topt, algorithm, **kw), st, device="cpu")
+    Wj, Hj, assign_j, fuzzy_j, okj = jrun_flatclust(
+        A, W0, H0, _opts(jopt, algorithm, **kw), jst)
     assert ok and okj
     assert st.iteration_count == jst.iteration_count > 1
     assert st.elapsed_us > 0
@@ -71,16 +74,15 @@ def test_run_flatclust_matches_reference(algorithm, sparse):
 def test_run_flatclust_refuses_mu():
     A = _operand(False)
     rng = np.random.RandomState(2)
-    opts = NmfOptions(height=M, width=N, k=3, dtype="float64",
-                      algorithm=NmfAlgorithm.MU)
-    args = (A, rng.rand(M, 3), rng.rand(3, N), opts)
+    args = (A, rng.rand(M, 3), rng.rand(3, N))
+    kw = dict(height=M, width=N, k=3, dtype="float64")
     with pytest.raises(ValueError, match="excludes MU"):
-        run_flatclust(*args, device="cpu")
+        run_flatclust(*args, _opts(topt, "MU", **kw), device="cpu")
     with pytest.raises(ValueError, match="excludes MU"):
-        jrun_flatclust(*args)
+        jrun_flatclust(*args, _opts(jopt, "MU", **kw))
 
 
-@pytest.mark.parametrize("fmt", [OutputFormat.XML, OutputFormat.JSON])
+@pytest.mark.parametrize("fmt", ["XML", "JSON"])
 def test_write_flatclust_results_byte_equal(fmt, tmp_path):
     rng = np.random.RandomState(3)
     k, n, m = 4, 37, 25
@@ -91,17 +93,18 @@ def test_write_flatclust_results_byte_equal(fmt, tmp_path):
     fuzzy = (H / np.where(H.sum(0) == 0, 1, H.sum(0))).astype(np.float32)
     dictionary = [f"term{i}" for i in range(m)]
     files = {}
-    for name, write in (("port", write_flatclust_results),
-                        ("jax", jwrite_results)):
+    for name, write, pkg in (("port", write_flatclust_results, topt),
+                             ("jax", jwrite_results, jopt)):
         out = tmp_path / name
         out.mkdir()
-        paths = write(str(out), assign, fuzzy, W, dictionary, 3, fmt, k,
+        paths = write(str(out), assign, fuzzy, W, dictionary, 3,
+                      pkg.OutputFormat(fmt), k,
                       assignments_prefix="assignments_flat_")
         files[name] = {os.path.basename(p): Path(p).read_bytes()
                        for p in paths}
     assert sorted(files["port"]) == sorted(
         ["assignments_flat_4.csv", "assignments_fuzzy_4.csv",
-         f"clusters_4.{fmt.value.lower()}"])
+         f"clusters_4.{fmt.lower()}"])
     assert files["port"] == files["jax"]
 
 

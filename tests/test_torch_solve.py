@@ -13,14 +13,9 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import smallk_tpu.common.options as jopt
 import smallk_tpu.solvers.bpp as jbpp
 from smallk_tpu.cli.nmf_cli import main as jnmf_main
-from smallk_tpu.common.options import (
-    NmfAlgorithm,
-    NmfOptions,
-    NmfProgressAlgorithm,
-    NmfStats,
-)
 from smallk_tpu.engines.nmf import run_nmf as jrun_nmf
 from smallk_tpu.io.delimited import load_delimited, write_delimited
 from smallk_tpu.io.matrix_market import write_matrix_market
@@ -29,6 +24,8 @@ from smallk_tpu.solvers.solve import nmf_solve as jnmf_solve
 from smallk_tpu.solvers.solve import reference_pg1 as jreference_pg1
 from smallk_torch.cli.nmf_cli import entry as tnmf_entry
 from smallk_torch.cli.nmf_cli import main as tnmf_main
+from smallk_torch.common import options as topt
+from smallk_torch.common.options import NmfAlgorithm, NmfStats
 from smallk_torch.engines.nmf import run_nmf
 from smallk_torch.interop import from_reference
 from smallk_torch.solvers import bpp
@@ -47,11 +44,17 @@ def _problem(seed=0, m=M, n=N, k=K):
     return rng.rand(m, n), rng.rand(m, k), rng.rand(k, n)
 
 
-def _opts(**kw):
+def _opts(pkg=topt, **kw):
+    """NmfOptions of `pkg`'s own options module (the port's by default, the
+    JAX package's with `jopt`); enum fields are given by value."""
     base = dict(height=M, width=N, k=K, dtype="float64", verbose=False,
                 tol=1e-4, max_iter=300)
     base.update(kw)
-    return NmfOptions(**base)
+    for key, cls in (("algorithm", "NmfAlgorithm"),
+                     ("prog_est_algorithm", "NmfProgressAlgorithm")):
+        if key in base:
+            base[key] = getattr(pkg, cls)(base[key])
+    return pkg.NmfOptions(**base)
 
 
 def _jax_solve(A, W0, H0, opts, pg0_hint=None):
@@ -112,8 +115,7 @@ def test_bpp_trajectory_matches_numpy_oracle():
 
 SOLVE_CASES = {
     "pg_ratio": {},
-    "delta_fnorm": dict(prog_est_algorithm=NmfProgressAlgorithm.DELTA_FNORM,
-                        tol=1e-3),
+    "delta_fnorm": dict(prog_est_algorithm="DELTA_FNORM", tol=1e-3),
     "min_iter_tolcount": dict(min_iter=12, tolcount=3, tol=2e-3),
     "max_iter_is_success": dict(tol=1e-12, max_iter=7, min_iter=1),
     "check_interval": dict(check_interval=4, tol=1e-3),
@@ -125,9 +127,8 @@ SOLVE_CASES = {
 @pytest.mark.parametrize("case", sorted(SOLVE_CASES))
 def test_nmf_solve_matches_reference(case):
     A, W0, H0 = _problem(3)
-    opts = _opts(**SOLVE_CASES[case])
-    r = _port_solve(A, W0, H0, opts)
-    j = _jax_solve(A, W0, H0, opts)
+    r = _port_solve(A, W0, H0, _opts(**SOLVE_CASES[case]))
+    j = _jax_solve(A, W0, H0, _opts(jopt, **SOLVE_CASES[case]))
     _assert_same_result(r, j)
     assert bool(r.success)
     if case == "max_iter_is_success":
@@ -140,14 +141,15 @@ def test_nmf_solve_matches_reference(case):
 
 def test_pg0_hint_and_reference_pg1():
     A, W0, H0 = _problem(4)
-    opts = _opts(tol=2e-3)
+    opts, jopts = _opts(tol=2e-3), _opts(jopt, tol=2e-3)
     ja = JDenseAOp(jnp.asarray(A))
-    pg1_j = float(jreference_pg1(ja, jnp.asarray(W0), jnp.asarray(H0), opts))
+    pg1_j = float(jreference_pg1(ja, jnp.asarray(W0), jnp.asarray(H0),
+                                 jopts))
     aop, W, H = from_reference(A, W0, H0, device="cpu", dtype="float64")
     pg1 = float(reference_pg1(aop, W, H, opts))
     np.testing.assert_allclose(pg1, pg1_j, rtol=1e-10)
     r = _port_solve(A, W0, H0, opts, pg0_hint=pg1)
-    j = _jax_solve(A, W0, H0, opts, pg0_hint=pg1_j)
+    j = _jax_solve(A, W0, H0, jopts, pg0_hint=pg1_j)
     _assert_same_result(r, j)
 
 
@@ -156,9 +158,8 @@ def test_failed_step_ends_the_solve_unnormalized():
     failure, and returns that step's factors without normalizing them."""
     A, W0, H0 = _problem(5)
     A[3, 7] = np.inf
-    opts = _opts()
-    r = _port_solve(A, W0, H0, opts)
-    j = _jax_solve(A, W0, H0, opts)
+    r = _port_solve(A, W0, H0, _opts())
+    j = _jax_solve(A, W0, H0, _opts(jopt))
     assert not bool(r.success) and int(r.iterations) == 1
     _assert_same_result(r, j, equal_nan=True)
 
@@ -171,7 +172,7 @@ def test_unported_algorithms_raise(algorithm, monkeypatch):
     import smallk_torch.solvers.solve as solve
 
     A, W0, H0 = _problem(6, k=2)
-    opts = _opts(algorithm=algorithm, k=2)
+    opts = _opts(algorithm=algorithm.value, k=2)
     assert set(solve._SOLVERS) == set(NmfAlgorithm)
     monkeypatch.delitem(solve._SOLVERS, algorithm)
     with pytest.raises(NotImplementedError, match="no solver"):
@@ -191,10 +192,9 @@ def test_run_nmf_from_sparse_matches_reference():
     rng = np.random.RandomState(8)
     A = sp.random(M, N, density=0.3, random_state=rng, format="csc")
     _, W0, H0 = _problem(8)
-    opts = _opts(tol=1e-3)
-    st, jst = NmfStats(), NmfStats()
-    W, H, ok = run_nmf(A, W0, H0, opts, st, device="cpu")
-    Wj, Hj, okj = jrun_nmf(A, W0, H0, opts, jst)
+    st, jst = NmfStats(), jopt.NmfStats()
+    W, H, ok = run_nmf(A, W0, H0, _opts(tol=1e-3), st, device="cpu")
+    Wj, Hj, okj = jrun_nmf(A, W0, H0, _opts(jopt, tol=1e-3), jst)
     assert ok and okj
     assert (st.iteration_count, st.pivot_rounds) == (jst.iteration_count,
                                                      jst.pivot_rounds)

@@ -8,14 +8,9 @@ import numpy as np
 import pytest
 import torch
 
+import smallk_tpu.common.options as jopt
 import smallk_tpu.solvers.mu as jmu
 import smallk_tpu.solvers.rank2 as jrank2
-from smallk_tpu.common.options import (
-    NmfAlgorithm,
-    NmfOptions,
-    NmfProgressAlgorithm,
-    NmfStats,
-)
 from smallk_tpu.engines.nmf import run_nmf as jrun_nmf
 from smallk_tpu.io.delimited import load_delimited, write_delimited
 from smallk_tpu.ops.aop import DenseAOp as JDenseAOp
@@ -24,6 +19,7 @@ from smallk_tpu.solvers import hals as jhals
 from smallk_tpu.solvers.nnls import nnls_hals as jnnls_hals
 from smallk_tpu.solvers.solve import nmf_solve as jnmf_solve
 from smallk_torch.cli.nmf_cli import entry as tnmf_entry
+from smallk_torch.common import options as topt
 from smallk_torch.engines.nmf import run_nmf
 from smallk_torch.interop import from_reference, state_from_reference
 from smallk_torch.ops.aop import DenseAOp
@@ -44,6 +40,16 @@ RTOL, ATOL = 1e-8, 1e-9
 def _problem(seed, m=40, n=30, k=5):
     rng = np.random.RandomState(seed)
     return rng.rand(m, n), rng.rand(m, k), rng.rand(k, n)
+
+
+def _opts(pkg, **kw):
+    """NmfOptions of `pkg`'s own options module (`topt`, the port's, or
+    `jopt`, the JAX package's); enum fields are given by value."""
+    for key, cls in (("algorithm", "NmfAlgorithm"),
+                     ("prog_est_algorithm", "NmfProgressAlgorithm")):
+        if key in kw:
+            kw[key] = getattr(pkg, cls)(kw[key])
+    return pkg.NmfOptions(**kw)
 
 
 def _t(*arrays):
@@ -168,14 +174,14 @@ def test_rank2_trajectory_matches_numpy_oracle(seed):
 
 
 SOLVE_CASES = {
-    "mu_delta_fnorm": dict(algorithm=NmfAlgorithm.MU, tol=1e-3,
-                           prog_est_algorithm=NmfProgressAlgorithm.DELTA_FNORM),
-    "mu_pg_ratio": dict(algorithm=NmfAlgorithm.MU, tol=1e-12, max_iter=40),
-    "hals": dict(algorithm=NmfAlgorithm.HALS, tol=1e-4),
-    "hals_delta_fnorm": dict(algorithm=NmfAlgorithm.HALS, tol=1e-4,
-                             prog_est_algorithm=NmfProgressAlgorithm.DELTA_FNORM),
-    "rank2": dict(algorithm=NmfAlgorithm.RANK2, k=2, tol=1e-4),
-    "rank2_stall": dict(algorithm=NmfAlgorithm.RANK2, k=2, tol=1e-14,
+    "mu_delta_fnorm": dict(algorithm="MU", tol=1e-3,
+                           prog_est_algorithm="DELTA_FNORM"),
+    "mu_pg_ratio": dict(algorithm="MU", tol=1e-12, max_iter=40),
+    "hals": dict(algorithm="HALS", tol=1e-4),
+    "hals_delta_fnorm": dict(algorithm="HALS", tol=1e-4,
+                             prog_est_algorithm="DELTA_FNORM"),
+    "rank2": dict(algorithm="RANK2", k=2, tol=1e-4),
+    "rank2_stall": dict(algorithm="RANK2", k=2, tol=1e-14,
                         stall_patience=5, min_iter=2),
 }
 
@@ -185,10 +191,10 @@ def test_nmf_solve_matches_reference(case):
     kw = dict(height=40, width=30, k=5, dtype="float64", verbose=False,
               max_iter=400)
     kw.update(SOLVE_CASES[case])
-    opts = NmfOptions(**kw)
+    opts = _opts(topt, **kw)
     A, W0, H0 = _problem(5, k=opts.k)
     j = jnmf_solve(JDenseAOp(jnp.asarray(A)), jnp.asarray(W0),
-                   jnp.asarray(H0), opts)
+                   jnp.asarray(H0), _opts(jopt, **kw))
     aop, W, H = from_reference(A, W0, H0, device="cpu", dtype="float64")
     r = nmf_solve(aop, W, H, opts).to_numpy()
     assert int(r.iterations) == int(j.iterations) > 1
@@ -203,16 +209,15 @@ def test_nmf_solve_matches_reference(case):
     _close(r.prog_state, j.prog_state)
 
 
-@pytest.mark.parametrize("algorithm,k", [(NmfAlgorithm.MU, 4),
-                                         (NmfAlgorithm.HALS, 4),
-                                         (NmfAlgorithm.RANK2, 2)])
+@pytest.mark.parametrize("algorithm,k", [("MU", 4), ("HALS", 4),
+                                         ("RANK2", 2)])
 def test_run_nmf_matches_reference(algorithm, k):
     A, W0, H0 = _problem(6, 36, 28, k)
-    opts = NmfOptions(height=36, width=28, k=k, dtype="float64",
-                      verbose=False, tol=1e-4, algorithm=algorithm)
-    st, jst = NmfStats(), NmfStats()
-    W, H, ok = run_nmf(A, W0, H0, opts, st, device="cpu")
-    Wj, Hj, okj = jrun_nmf(A, W0, H0, opts, jst)
+    kw = dict(height=36, width=28, k=k, dtype="float64", verbose=False,
+              tol=1e-4, algorithm=algorithm)
+    st, jst = topt.NmfStats(), jopt.NmfStats()
+    W, H, ok = run_nmf(A, W0, H0, _opts(topt, **kw), st, device="cpu")
+    Wj, Hj, okj = jrun_nmf(A, W0, H0, _opts(jopt, **kw), jst)
     assert ok and okj and st.iteration_count == jst.iteration_count
     _close(W, Wj)
     _close(H, Hj)
@@ -279,9 +284,8 @@ def test_nmf_cli_runs_every_algorithm(algorithm, tmp_path):
     assert rc == 0
     W, H = load_delimited(w), load_delimited(h)
     assert W.shape == (40, k) and H.shape == (k, 30)
-    opts = NmfOptions(height=40, width=30, k=k, dtype="float64",
-                      verbose=False, tol=0.001,
-                      algorithm=NmfAlgorithm(algorithm))
+    opts = _opts(jopt, height=40, width=30, k=k, dtype="float64",
+                 verbose=False, tol=0.001, algorithm=algorithm)
     Wj, Hj, okj = jrun_nmf(A, W0, H0, opts)
     assert okj
     np.testing.assert_allclose(W, Wj, rtol=1e-5, atol=1e-6)
