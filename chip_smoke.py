@@ -37,8 +37,22 @@ fails (nonzero exit, no result line) on any fault:
  11. the hierclust path at full width: the Reuters-shape corpus (12411 x
      7984, bf16 A, f32 factors) to 12 clusters, as bench.py times the
      reference, with K3's launches and the products' branches counted;
- 12. the nmf, flatclust and hierclust CLIs as subprocesses;
- 13. the kernel table as one JSON line, the card line, and last the result
+ 12. ell_spmm, the ELL gather-SpMM kernel, against its plain version on
+     ragged buckets with sentinels (every dtype pair, store and
+     accumulate) and at the shapes of P1 (scripts/tpu_batch29.py) and P2
+     (scripts/tpu_batch33.py); kernel, plain and torch.sparse.mm times;
+ 13. sparse parity in f64: run_nmf BPP and MU on a blocked EllAOp and on
+     a SparseAOp, the card against the CPU;
+ 14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
+     1,000,000 bf16 EllAOp (bench.py:164-195), timed as bench.py times
+     the reference (two-point fits), with the operand's host build time;
+     its two products (ell_spmm) and K1's full-width round, each timed
+     and held against its plain version at these shapes; the sparse-side
+     relative error (from plain products) and ell_spmm's launches
+     counted;
+ 15. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
+     CLI on a 30000 x 20000 .mtx above the densify threshold (EllAOp);
+ 16. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -48,11 +62,19 @@ print where the device time goes, then with its rank-2 products through
 K3 and through torch.matmul, alternating, to time what K3 moves end to
 end.
 
+    python3 chip_smoke.py --sparse
+
+runs only the studies of the flagship operand: AH' for each doc block of
+DOC_BLOCKS (how ops/ell._DOC_BLOCK was chosen), MU with its products
+through ell_spmm and through torch.sparse.mm, alternating, and one MU and
+one BPP run under torch.profiler.
+
 There is no CPU fallback: without a card the script exits 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -98,6 +120,30 @@ K3_RAGGED = [(1, 1, "float32"), (100, 3, "bfloat16"), (257, 130, "float32"),
 HIER_M, HIER_N, HIER_TOPICS, HIER_K = 12411, 7984, 16, 12  # bench.py:60-79
 HIER_NMI_MARGIN = 0.05   # f32 card run's NMI may trail the CPU run's by this
 HIER_PRIORITY_TOL = 1e-10
+
+# ell_spmm against its plain version: max |kernel - plain| / max |plain|.
+# f32 sums of up to 128 terms in other orders; f64 the same sums.
+ELL_TOL = {"float32": 2e-5, "float64": 1e-12}
+# (G, L, B, k, vals, table) of the probes the kernel replaces:
+# P1 scripts/tpu_batch29.py:38-45, P2 scripts/tpu_batch33.py:27-29, 56-58
+ELL_PROBES = {"P1": (8192, 128, 8192, 128, "float32", "bfloat16"),
+              "P2": (65536, 128, 8192, 128, "float32", "float32")}
+# ragged buckets with sentinels scattered through them, every dtype pair
+ELL_RAGGED = [(1, 1, 1, 1, "float32", "float32"),
+              (37, 5, 50, 2, "bfloat16", "float32"),
+              (1000, 33, 4097, 8, "float32", "bfloat16"),
+              (513, 80, 20000, 128, "bfloat16", "float32"),
+              (300, 17, 999, 130, "float32", "float32"),
+              (777, 40, 5000, 128, "float64", "float64"),
+              (100, 9, 300, 3, "float64", "float64")]
+SP_M, SP_N, SP_K = 600, 3000, 8        # f64 sparse parity, blocked EllAOp
+# the flagship: rank-128 NMF on a 50,000-term x 1,000,000-document corpus
+# with 80 draws per column, bf16 A, f32 factors (bench.py:164-195), uncut
+FLAG_M, FLAG_N, FLAG_K, FLAG_NZ = 50_000, 1_000_000, 128, 80
+FLAG_MU_ITERS, FLAG_BPP_ITERS = (5, 25), (1, 3)  # two-point fits
+FLAG_K1_CHECK = 65536   # columns of a full-width K1 round held to plain
+DOC_BLOCKS = (0, 32768, 65536, 131072)           # the --sparse sweep
+CLI_M, CLI_N, CLI_NZ = 30000, 20000, 80   # f32 dense image 2.4 GB > 2 GiB
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -189,24 +235,29 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 def reset_counts() -> None:
     """Every kernel's launch count, and the product branch counts, to 0,
     just before a path is driven."""
-    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
 
     masked_gj.launches = 0
     hals_step.launches = 0
     rank2_loop.launches = 0
+    ell_spmm.launches = 0
+    ell_spmm.plain_cuda_calls = 0
     aop.kernel_products = 0
     aop.matmul_products = 0
 
 
 def read_counts() -> dict:
-    """Launches of K1, K2 and K3, and the products that went to K3 and to
+    """Launches of K1, K2, K3 and ell_spmm, ell_spmm's plain-version calls
+    on CUDA tensors, and the dense products that went to K3 and to
     torch.matmul, since the last reset_counts()."""
-    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
 
     return {"K1": masked_gj.launches, "K2": hals_step.launches,
-            "K3": rank2_loop.launches, "kernel_products": aop.kernel_products,
+            "K3": rank2_loop.launches, "ell_spmm": ell_spmm.launches,
+            "ell_plain_cuda": ell_spmm.plain_cuda_calls,
+            "kernel_products": aop.kernel_products,
             "matmul_products": aop.matmul_products}
 
 
@@ -305,13 +356,7 @@ def phase_kernel() -> dict:
             raise AssertionError(f"K1 library solve differs by {lib_rel}")
         library = device_ms(lambda: torch.linalg.solve_ex(M, b), 50)
         lib_host = back_to_back_ms(lambda: torch.linalg.solve_ex(M, b), 50)
-        # what these inputs need: a Gauss-Jordan on each column's q x (q+1)
-        # passive system (q divisions per pivot row, 2 (q-1)(q+1) per
-        # elimination), and each input and output moved once
-        q = passive.sum(dim=0).double()
-        flop = float((q * (q + 1) + 2 * q * (q - 1) * (q + 1)).sum())
-        nbytes = 4 * k * k + (4 + 1 + 4) * k * n
-        times[(k, n)] = (ms, plain, library, *bound(flop, nbytes))
+        times[(k, n)] = (ms, plain, library, *k1_bound(passive))
         log(f"[K1 time f32] k={k} n={n}: device ms per call: kernel "
             f"{ms:.4f}, plain {plain:.4f}, library torch.linalg.solve_ex on "
             f"the (n, k, k) batch {library:.4f} (max rel diff "
@@ -319,6 +364,17 @@ def phase_kernel() -> dict:
             f"{ms_host:.4f}, plain {plain_host:.4f}, library {lib_host:.4f}; "
             f"bound {times[(k, n)][3]:.6f} ms ({times[(k, n)][4]})")
     return {"max_abs_err": worst, "times": times}
+
+
+def k1_bound(passive) -> tuple[float, str]:
+    """K1's bound for an f32 solve with this (k, n) passive set: what these
+    inputs need is a Gauss-Jordan on each column's q x (q+1) passive system
+    (q divisions per pivot row, 2 (q-1)(q+1) per elimination), and each
+    input and output moved once."""
+    k, n = passive.shape
+    q = passive.sum(dim=0).double()
+    flop = float((q * (q + 1) + 2 * q * (q - 1) * (q + 1)).sum())
+    return bound(flop, 4 * k * k + (4 + 1 + 4) * k * n)
 
 
 def k2_inputs(m: int, n: int, k: int, a_dtype, rescue: bool = False):
@@ -967,27 +1023,7 @@ def profile_hierclust() -> None:
         _, stats = clust_hier(a_op, opts, Random(2))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, -1.0
-    for a, b in spans:  # union of the device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    total = sum(by_name.values())
-    host = {e.key: e.count for e in prof.key_averages()
-            if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
-                         "cudaMemcpyAsync")}
-    log(f"[profile] hierclust wall {wall:.4f} s (profiled), iter_count "
-        f"{stats.iter_count}; device busy {busy / 1e6:.4f} s = "
-        f"{100 * busy / 1e6 / wall:.2f}% of the wall; host calls {host}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"[profile]   {us / 1e3:10.3f} ms {100 * us / total:6.2f}%  "
-            f"{name[:90]}")
+    profile_summary(prof, wall, f"hierclust, iter_count {stats.iter_count}")
 
     # the same path with K3 and with every k = 2 product sent to
     # torch.matmul (the dispatch rule switched off), alternating
@@ -1057,6 +1093,576 @@ def phase_hier_cli() -> None:
         f"{' '.join(tail[-2:])}")
 
 
+def ell_inputs(g: int, L: int, B: int, k: int, vals_dtype: str,
+               table_dtype: str, sentinel_share: float, seed: int):
+    """A bucket on the card from a seed: minor ids in [0, B), a share of
+    them the sentinel B (with value 0), values and a table in [0, 1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cuda = dict(device="cuda", generator=gen)
+    idx = torch.randint(0, B, (g, L), dtype=torch.int32, **cuda)
+    if sentinel_share:
+        idx[torch.rand((g, L), **cuda) < sentinel_share] = B
+    vals = torch.rand((g, L), dtype=torch.float64, **cuda)
+    vals = vals.masked_fill(idx == B, 0.0).to(getattr(torch, vals_dtype))
+    table = torch.rand((B, k), dtype=torch.float64, **cuda).to(
+        getattr(torch, table_dtype))
+    return idx, vals, table
+
+
+def phase_ell_spmm() -> dict:
+    """ell_spmm against its plain version on ragged buckets (store and
+    accumulate, every dtype pair) and at P1's and P2's shapes; times of
+    the kernel, the plain version and torch.sparse.mm at the probes'."""
+    import torch
+
+    from smallk_torch.kernels import ell_spmm as kmod
+
+    worst_abs = worst_rel = 0.0
+
+    def check(label, got, want, tol):
+        nonlocal worst_abs, worst_rel
+        diff = float((got - want).abs().max())
+        rel = diff / max(float(want.abs().max()), 1e-300)
+        log(f"[ell_spmm] {label}: max|kernel - plain| = {diff:.3e}, "
+            f"relative {rel:.3e} (tolerance {tol:g})")
+        if not (rel <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"ell_spmm {label} disagrees with its "
+                                 "plain version")
+        worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
+
+    for i, (g, L, B, k, vt, tt) in enumerate(ELL_RAGGED):
+        idx, vals, table = ell_inputs(g, L, B, k, vt, tt, 0.3, seed=i)
+        acc = torch.float64 if vt == "float64" else torch.float32
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + i)
+        rows = torch.randperm(g + 7, generator=gen, device="cuda")[:g].to(
+            torch.int32)
+        out0 = torch.rand((g + 7, k), generator=gen, dtype=acc, device="cuda")
+        for accumulate in (False, True):
+            before = kmod.launches
+            got = kmod.ell_spmm(idx, vals, table, out0.clone(), rows,
+                                accumulate)
+            want = kmod.ell_spmm_reference(idx, vals, table, out0.clone(),
+                                           rows, accumulate)
+            torch.cuda.synchronize()
+            if kmod.launches != before + 1:
+                raise AssertionError("ell_spmm did not launch its kernel")
+            check(f"g={g} L={L} B={B} k={k} vals {vt} table {tt} "
+                  f"{'accumulate' if accumulate else 'store'}", got, want,
+                  ELL_TOL[vt if vt == "float64" else "float32"])
+
+    probes = {}
+    for p, (name, (G, L, B, k, vt, tt)) in enumerate(ELL_PROBES.items()):
+        idx, vals, table = ell_inputs(G, L, B, k, vt, tt, 0.0, seed=100 + p)
+        out = torch.empty((G, k), dtype=torch.float32, device="cuda")
+
+        def kernel():
+            return kmod.ell_spmm(idx, vals, table, out)
+
+        def plain_version():
+            return kmod.ell_spmm_reference(idx, vals, table, out)
+
+        got = kernel().clone()
+        check(f"{name} G={G} L={L} B={B} k={k} vals {vt} table {tt}", got,
+              plain_version(), ELL_TOL["float32"])
+        # the library call: torch.sparse.mm on the bucket as an f32 CSR
+        # (duplicate ids summed) and the table in f32, built beforehand
+        rows = torch.arange(G, device="cuda").repeat_interleave(L)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows, idx.reshape(-1).long()]),
+            vals.reshape(-1).float(), (G, B)).coalesce().to_sparse_csr()
+        table32 = table.float()
+        lib = torch.sparse.mm(csr, table32)
+        lib_rel = float((lib - got).abs().max() / got.abs().max())
+        if not lib_rel <= 1e-4:  # the same function, summed another way
+            raise AssertionError(f"{name}: torch.sparse.mm differs by "
+                                 f"{lib_rel}")
+        ms, plain = device_ms(kernel, 50), device_ms(plain_version, 5)
+        library = back_to_back_ms(lambda: torch.sparse.mm(csr, table32), 20)
+        ms_b2b = back_to_back_ms(kernel, 50)
+        # what these inputs need: 2 k operations per stored entry; idx,
+        # vals and the table read once, out written once
+        nnz = int((idx < B).sum())
+        nbytes = (idx.numel() * 4 + vals.numel() * vals.element_size()
+                  + table.numel() * table.element_size() + G * k * 4)
+        b_ms, b_by = bound(2.0 * nnz * k, nbytes)
+        probes[name] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                        "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[ell_spmm time] {name} G={G} L={L} B={B} k={k} vals {vt} "
+            f"table {tt}: device ms per call kernel {ms:.4f} ({nnz / ms / 1e6:.2f}"
+            f" Gnnz/s, {nnz * k * table.element_size() / ms / 1e9:.1f} TB/s "
+            f"of gathered rows; back to back {ms_b2b:.4f}), plain {plain:.4f}, "
+            f"library torch.sparse.mm on the bucket as an f32 CSR {library:.4f} "
+            f"(back to back; max rel diff {lib_rel:.1e}); bound {b_ms:.4f} ms "
+            f"({b_by})")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "probes": probes}
+
+
+def phase_sparse_parity() -> None:
+    """run_nmf BPP and MU in f64 on a blocked EllAOp, the card (through
+    ell_spmm) against the CPU (its plain version), and on a SparseAOp
+    (torch ops on both; on the card index_add_ sums in no fixed order)."""
+    import scipy.sparse as sp
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfStats, Random
+    from smallk_torch import random_matrix
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.ops.aop import SparseAOp
+    from smallk_torch.ops.ell import EllAOp
+
+    A = sp.random(SP_M, SP_N, density=0.01, random_state=21, format="csc")
+    blocks = dict(doc_block=1024, term_block=256)
+    ell = {d: EllAOp.from_scipy(A, "float64", device=d, **blocks)
+           for d in ("cuda", "cpu")}
+    coo = {d: SparseAOp.from_scipy(A, "float64", device=d)
+           for d in ("cuda", "cpu")}
+    rng = Random(7)
+    W0 = random_matrix(SP_M, SP_K, rng)
+    H0 = random_matrix(SP_K, SP_N, rng)
+    for ops, algorithm in ((ell, NmfAlgorithm.BPP), (ell, NmfAlgorithm.MU),
+                           (coo, NmfAlgorithm.BPP), (coo, NmfAlgorithm.MU)):
+        kind = ("a blocked EllAOp" if ops is ell else "a SparseAOp")
+        per_iter = ell_launches_per_iteration(ops["cuda"]) if ops is ell \
+            else 0
+        opts = NmfOptions(tol=1e-30, algorithm=algorithm, height=SP_M,
+                          width=SP_N, k=SP_K, min_iter=1, max_iter=30,
+                          verbose=False, dtype="float64")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            stats = NmfStats()
+            reset_counts()
+            W, H, ok = run_nmf(ops[device], W0, H0, opts, stats,
+                               device=device)
+            runs[device] = (W, H, ok, stats, read_counts())
+        (Wc, Hc, okc, sc, cc), (Wh, Hh, okh, sh, ch) = runs["cuda"], runs[
+            "cpu"]
+        dW, dH = float(np.abs(Wc - Wh).max()), float(np.abs(Hc - Hh).max())
+        log(f"[sparse f64] run_nmf {algorithm.value} on {kind} "
+            f"{SP_M}x{SP_N} nnz={A.nnz} k={SP_K}: cuda vs cpu max|dW| = "
+            f"{dW:.3e}, max|dH| = {dH:.3e} (atol {SLICE_ATOL:g}), iterations "
+            f"{sc.iteration_count}/{sh.iteration_count}, ell_spmm launches "
+            f"{cc['ell_spmm']}/{ch['ell_spmm']}, plain calls on cuda "
+            f"{cc['ell_plain_cuda']}")
+        np.testing.assert_allclose(Wc, Wh, rtol=0, atol=SLICE_ATOL)
+        np.testing.assert_allclose(Hc, Hh, rtol=0, atol=SLICE_ATOL)
+        if not (okc and okh) or sc.iteration_count != sh.iteration_count:
+            raise AssertionError("sparse parity runs failed or differ")
+        if (cc["ell_spmm"] < per_iter * sc.iteration_count
+                or (ops is coo and cc["ell_spmm"])
+                or cc["ell_plain_cuda"] or ch["ell_spmm"]):
+            raise AssertionError(f"ell_spmm counts: cuda {cc}, cpu {ch}")
+
+
+def ell_launches_per_iteration(op) -> int:
+    """Kernel launches of one W'A and one AH': one per bucket, of every
+    minor block."""
+    def family(buckets, blocks):
+        if blocks is None:
+            return len(buckets)
+        return sum(len(b) for _, b in blocks)
+
+    return (family(op.col_buckets, op.col_blocks)
+            + family(op.row_buckets, op.row_blocks))
+
+
+def flagship_problem():
+    """bench.py:164-176's corpus, made from its seed (80 row draws per
+    column, duplicates summed), and the port's W0, H0 from Random(5)."""
+    import scipy.sparse as sp
+
+    from smallk_torch import Random, random_matrix
+
+    m, n, nzc = FLAG_M, FLAG_N, FLAG_NZ
+    gs = np.random.RandomState(9)
+    A = sp.csc_matrix(
+        (gs.rand(n * nzc).astype(np.float32),
+         gs.randint(0, m, n * nzc).astype(np.int32),
+         np.arange(0, n * nzc + 1, nzc, dtype=np.int64)),
+        shape=(m, n))
+    A.sum_duplicates()
+    rng = Random(5)
+    return (A, random_matrix(m, FLAG_K, rng, dtype=np.float32),
+            random_matrix(FLAG_K, n, rng, dtype=np.float32))
+
+
+@contextlib.contextmanager
+def plain_ell():
+    """EllAOp's products through ell_spmm's plain version, bucket by bucket
+    and block by block as the kernel runs them (ell_spmm_reference on the
+    card, counted as plain calls)."""
+    from smallk_torch.kernels.ell_spmm import ell_spmm_reference
+    from smallk_torch.ops import ell
+
+    kernel = ell.ell_spmm
+    ell.ell_spmm = ell_spmm_reference
+    try:
+        yield
+    finally:
+        ell.ell_spmm = kernel
+
+
+def sparse_rel_err(op, W, H) -> float:
+    """||A - W H||_F / ||A||_F without a dense W H: ||A||^2 - 2 <W'A, H> +
+    <W'W, HH'>, in f64, with A's stored values and W'A from the plain
+    version (so that a kernel fault cannot hide in the gate)."""
+    import torch
+
+    W = torch.as_tensor(W, device="cuda")
+    H = torch.as_tensor(H, device="cuda")
+    vals = ([v for _, _, v in op.col_buckets] if op.col_blocks is None
+            else [v for _, b in op.col_blocks for _, _, v in b])
+    a2 = sum(float(v.double().square().sum()) for v in vals)
+    with plain_ell():
+        cross = float((op.mm_tn(W).double() * H.double()).sum())
+    Wd, Hd = W.double(), H.double()
+    quad = float(((Wd.T @ Wd) * (Hd @ Hd.T)).sum())
+    return (max(a2 - 2.0 * cross + quad, 0.0) / a2) ** 0.5
+
+
+def k1_round_ms(op, W0: np.ndarray, H0: np.ndarray) -> dict:
+    """K1's device ms for one full-width round of each BPP side at the
+    flagship shape, and its bound: (k, n) for H, (k, m) for W, with the
+    real Grams and right-hand sides and half the entries passive (CUDA
+    events, one warm-up, three timed calls).  The round's first
+    FLAG_K1_CHECK columns are held against the plain version on the same
+    columns (the columns are independent systems), to TOL."""
+    import torch
+
+    from smallk_torch.kernels.masked_gj import (
+        masked_gj_solve, masked_gj_solve_reference)
+
+    W = torch.from_numpy(W0).cuda()
+    H = torch.from_numpy(H0).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    sides = {"H": (W.T @ W, op.mm_tn(W)), "W": (H @ H.T, op.mm_nt(H).T)}
+    out = {}
+    for side, (LHS, RHS) in sides.items():
+        RHS = RHS.contiguous()
+        passive = torch.rand(RHS.shape, generator=gen, device="cuda") < 0.5
+        X = masked_gj_solve(LHS, RHS, passive)[:, :FLAG_K1_CHECK]
+        c = X.shape[1]
+        Xr = masked_gj_solve_reference(LHS, RHS[:, :c].contiguous(),
+                                       passive[:, :c].contiguous())
+        err = float((X - Xr).abs().max())
+        log(f"[flagship K1] {side} side (k={LHS.shape[0]}, first {c} of "
+            f"{RHS.shape[1]} columns): max|kernel - plain| = {err:.3e}, "
+            f"relative {err / float(Xr.abs().max()):.3e} (rtol = atol = "
+            f"{TOL['float32']:g})")
+        torch.testing.assert_close(X, Xr, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+        del X, Xr
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            masked_gj_solve(LHS, RHS, passive)
+        stop.record()
+        torch.cuda.synchronize()
+        out[side] = (start.elapsed_time(stop) / 3, *k1_bound(passive), err)
+    return out
+
+
+def phase_flagship(card: str) -> dict:
+    """MU and BPP at k = 128 on the uncut 50,000 x 1,000,000 bf16 EllAOp,
+    timed as bench.py times the reference (two-point fits), with the
+    gates and the launches counted over the timed runs."""
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfStats
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.ops.ell import EllAOp
+
+    t0 = time.perf_counter()
+    A, W0, H0 = flagship_problem()
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nnz = A.nnz
+    del A
+    per_iter = ell_launches_per_iteration(op)
+    op_bytes = torch.cuda.memory_allocated()
+    log(f"[flagship] {FLAG_M}x{FLAG_N} nnz={nnz} bf16 EllAOp: corpus made "
+        f"in {gen_s:.2f} s, operand built (tocsr, buckets, "
+        f"{len(op.row_blocks or ())} doc blocks of {op.row_block_size}, "
+        f"host to card) in {build_s:.2f} s; padded entries {op.padded_nnz}, "
+        f"{per_iter} kernel launches per W'A + AH', {op_bytes / 1e9:.3f} GB "
+        f"on the card")
+
+    W = torch.from_numpy(W0).cuda()
+    H = torch.from_numpy(H0).cuda()
+    # each product through the kernel and through the plain version on the
+    # same buckets and blocks: W'A one monolithic family, AH' the blocked
+    # one (the accumulate launches)
+    worst_abs = 0.0
+    for name, product, F in (("W'A", op.mm_tn, W), ("AH'", op.mm_nt, H)):
+        got = product(F)
+        with plain_ell():
+            want = product(F)
+        diff = float((got - want).abs().max())
+        rel = diff / float(want.abs().max())
+        finite = bool(torch.isfinite(got).all())
+        log(f"[flagship] {name} {tuple(got.shape)} through ell_spmm against "
+            f"its plain version: max|kernel - plain| = {diff:.3e}, relative "
+            f"{rel:.3e} (tolerance {ELL_TOL['float32']:g})")
+        if not (rel <= ELL_TOL["float32"] and finite):
+            raise AssertionError(f"flagship {name}: ell_spmm disagrees with "
+                                 "its plain version")
+        worst_abs = max(worst_abs, diff)
+        del got, want
+    tn_ms = back_to_back_ms(lambda: op.mm_tn(W), 5)
+    nt_ms = back_to_back_ms(lambda: op.mm_nt(H), 5)
+    log(f"[flagship] products at k={FLAG_K}: W'A {tn_ms:.3f} ms, AH' "
+        f"{nt_ms:.3f} ms ({nnz / ((tn_ms + nt_ms) / 2) / 1e6:.3f} Gnnz/s "
+        f"each on average)")
+    del W, H
+    rounds = k1_round_ms(op, W0, H0)
+    log(f"[flagship] K1 device ms per full-width round at k={FLAG_K}, half "
+        f"the entries passive: H side (k, {FLAG_N}) {rounds['H'][0]:.2f} "
+        f"(bound {rounds['H'][1]:.3f}, {rounds['H'][2]}), W side (k, "
+        f"{FLAG_M}) {rounds['W'][0]:.2f} (bound {rounds['W'][1]:.3f}, "
+        f"{rounds['W'][2]})")
+
+    launches = 0
+    rates = {}
+    for alg, iters in (("MU", FLAG_MU_ITERS), ("BPP", FLAG_BPP_ITERS)):
+        opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
+                          height=FLAG_M, width=FLAG_N, k=FLAG_K, min_iter=1,
+                          max_iter=1, verbose=False, a_dtype="bfloat16")
+        walls, rel = {}, {}
+        # the 1-iteration run gives the gate's reference error (for MU it
+        # is also the warm-up); each run is counted from zero
+        for it in sorted({1, *iters}):
+            stats = NmfStats()
+            reset_counts()
+            W, H, ok = run_nmf(op, W0, H0,
+                               dataclasses.replace(opts, max_iter=it), stats,
+                               device="cuda")
+            counts = read_counts()
+            walls[it] = stats.elapsed_us / 1e6
+            if not ok or stats.iteration_count != it:
+                raise AssertionError(f"flagship {alg} {it} iterations: "
+                                     f"success={ok}, ran "
+                                     f"{stats.iteration_count}")
+            for name, F in (("W", W), ("H", H)):
+                if not np.isfinite(F).all() or (F < 0).any():
+                    raise AssertionError(f"flagship {alg}: {name} is not "
+                                         "finite and nonnegative")
+            rel[it] = sparse_rel_err(op, W, H)
+            rounds_txt = (f", pivot rounds {stats.pivot_rounds} "
+                          f"({stats.pivot_rounds / it:.1f} per iteration)"
+                          if alg == "BPP" else "")
+            log(f"[flagship] {alg} {it} iteration(s): solve {walls[it]:.3f} "
+                f"s, rel err {rel[it]:.6f}, ell_spmm launches "
+                f"{counts['ell_spmm']}, K1 launches {counts['K1']}, plain "
+                f"calls on cuda {counts['ell_plain_cuda']}{rounds_txt}")
+            if counts["ell_spmm"] < per_iter * it or counts["ell_plain_cuda"]:
+                raise AssertionError(f"flagship {alg}: products bypassed "
+                                     f"ell_spmm ({counts})")
+            want_k1 = 2 * it if alg == "BPP" else 0
+            if counts["K1"] < want_k1 or (not want_k1 and counts["K1"]):
+                raise AssertionError(f"flagship {alg}: K1 launches {counts}")
+            if it in iters:
+                launches += counts["ell_spmm"]
+        lo, hi = iters[0], iters[-1]
+        if not rel[hi] < rel[1]:
+            raise AssertionError(f"flagship {alg}: rel err {rel[hi]} after "
+                                 f"{hi} iterations not below the "
+                                 f"1-iteration {rel[1]}")
+        rates[alg] = (hi - lo) / max(walls[hi] - walls[lo], 1e-9)
+        log(f"[flagship] {alg} k={FLAG_K}: {rates[alg]:.4f} it/s "
+            f"(({hi} - {lo}) iterations / ({walls[hi]:.3f} - {walls[lo]:.3f}) "
+            f"s) on {card}")
+    log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del op
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rates": rates, "max_abs_err": worst_abs}
+
+
+def phase_sparse_cli() -> None:
+    """The nmf CLI on a 30000 x 20000 .mtx with 80 draws per column: its
+    f32 dense image (2.4 GB) is above the 2 GiB densify threshold, so
+    run_nmf takes an EllAOp."""
+    import scipy.sparse as sp
+
+    from smallk_torch.io.matrix_market import write_matrix_market
+
+    m, n, k = CLI_M, CLI_N, 8
+    if m * n * 4 <= 2 << 30:
+        raise AssertionError("the CLI matrix would be densified")
+    gs = np.random.RandomState(13)
+    A = sp.csc_matrix(
+        (gs.rand(n * CLI_NZ), gs.randint(0, m, n * CLI_NZ).astype(np.int32),
+         np.arange(0, n * CLI_NZ + 1, CLI_NZ, dtype=np.int64)), shape=(m, n))
+    A.sum_duplicates()
+    with tempfile.TemporaryDirectory() as td:
+        mtx = os.path.join(td, "corpus.mtx")
+        write_matrix_market(mtx, A)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "smallk_torch.cli.nmf_cli",
+               "--matrixfile", mtx, "--k", str(k), "--algorithm", "BPP",
+               "--maxiter", "20", "--seed", "1", "--verbose", "0"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"sparse nmf CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        W = np.loadtxt(os.path.join(td, "w.csv"), delimiter=",", ndmin=2)
+        H = np.loadtxt(os.path.join(td, "h.csv"), delimiter=",", ndmin=2)
+    if W.shape != (m, k) or H.shape != (k, n):
+        raise AssertionError(f"sparse CLI wrote W {W.shape}, H {H.shape}")
+    if not (np.isfinite(W).all() and np.isfinite(H).all()
+            and (W >= 0).all() and (H >= 0).all()):
+        raise AssertionError("sparse CLI factors are not finite and >= 0")
+    tail = " ".join(proc.stdout.strip().splitlines()[-2:])
+    log(f"[cli] nmf_cli {m}x{n} nnz={A.nnz} (.mtx, EllAOp) k={k} BPP "
+        f"--maxiter 20 --device cuda: rc 0 in {wall:.1f} s, w.csv {W.shape}, "
+        f"h.csv {H.shape}; {tail}")
+
+
+def profile_summary(prof, wall: float, label: str) -> None:
+    """Device busy share of a profiled window and the kernels that took
+    its device time."""
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    total = sum(by_name.values())
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
+                         "cudaMemcpyAsync")}
+    log(f"[profile] {label}: wall {wall:.4f} s (profiled); device busy "
+        f"{busy / 1e6:.4f} s = {100 * busy / 1e6 / wall:.2f}% of the wall "
+        f"(idle {100 - 100 * busy / 1e6 / wall:.2f}%); host calls {host}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[profile]   {us / 1e3:10.3f} ms {100 * us / max(total, 1e-9):6.2f}"
+            f"%  {name[:90]}")
+
+
+def sparse_study(card: str) -> None:
+    """--sparse: at the flagship shape, AH' for each doc block of
+    DOC_BLOCKS; MU with its products through ell_spmm and through
+    torch.sparse.mm, alternating; one MU and one BPP run under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfStats
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers.solve import nmf_solve
+
+    A, W0, H0 = flagship_problem()
+    H = torch.from_numpy(H0).cuda()
+    for block in DOC_BLOCKS:
+        t0 = time.perf_counter()
+        op = EllAOp.from_scipy(A, "bfloat16", doc_block=block,
+                               device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ms = [back_to_back_ms(lambda: op.mm_nt(H), 5) for _ in range(2)]
+        log(f"[sweep] doc_block {block}: AH' {ms[0]:.3f}, {ms[1]:.3f} ms "
+            f"(k={FLAG_K}, f32 H; {len(op.row_blocks or [None])} block(s), "
+            f"{ell_launches_per_iteration(op)} launches per W'A + AH', "
+            f"padded entries {op.padded_nnz}; built in {build_s:.2f} s) on "
+            f"{card}")
+        del op
+        torch.cuda.empty_cache()
+
+    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    # torch.sparse.mm's operands, built beforehand: A and A^T as f32 CSR
+    # holding the operand's bf16-rounded values
+    vals = torch.from_numpy(A.data.astype(np.float32)).to(
+        torch.bfloat16).float()
+    at_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)), vals,
+        (FLAG_N, FLAG_M)).cuda()
+    a_csr = at_csr.to_sparse_coo().t().coalesce().to_sparse_csr()
+    del A, vals
+
+    def mm_tn_library(self, W):
+        return torch.sparse.mm(at_csr, W).T.contiguous()
+
+    def mm_nt_library(self, H):
+        return torch.sparse.mm(a_csr, H.T.contiguous())
+
+    W = torch.from_numpy(W0).cuda()
+    for name, mine, library, F in (("W'A", op.mm_tn, mm_tn_library, W),
+                                   ("AH'", op.mm_nt, mm_nt_library, H)):
+        rel = float((mine(F) - library(op, F)).abs().max()
+                    / mine(F).abs().max())
+        lib_ms = back_to_back_ms(lambda: library(op, F), 3)
+        log(f"[library] {name}: torch.sparse.mm {lib_ms:.3f} ms, ell_spmm "
+            f"{back_to_back_ms(lambda: mine(F), 3):.3f} ms; max rel diff "
+            f"{rel:.2e}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name}: torch.sparse.mm disagrees")
+    del W
+
+    mu = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.MU, height=FLAG_M,
+                    width=FLAG_N, k=FLAG_K, min_iter=1, max_iter=1,
+                    verbose=False, a_dtype="bfloat16")
+    run_nmf(op, W0, H0, mu, device="cuda")  # warm-up
+    methods = (EllAOp.mm_tn, EllAOp.mm_nt)
+    lo, hi = FLAG_MU_ITERS
+    try:
+        for side in ("ell_spmm", "torch.sparse.mm", "torch.sparse.mm",
+                     "ell_spmm"):
+            EllAOp.mm_tn, EllAOp.mm_nt = (
+                methods if side == "ell_spmm"
+                else (mm_tn_library, mm_nt_library))
+            walls = {}
+            for it in (lo, hi):
+                stats = NmfStats()
+                W, Hf, ok = run_nmf(op, W0, H0,
+                                    dataclasses.replace(mu, max_iter=it),
+                                    stats, device="cuda")
+                walls[it] = stats.elapsed_us / 1e6
+            log(f"[library] MU with products through {side}: "
+                f"{(hi - lo) / (walls[hi] - walls[lo]):.4f} it/s ({lo}: "
+                f"{walls[lo]:.3f} s, {hi}: {walls[hi]:.3f} s), rel err "
+                f"{sparse_rel_err(op, W, Hf):.6f}, success {ok} on {card}")
+    finally:
+        EllAOp.mm_tn, EllAOp.mm_nt = methods
+
+    # the solve loop alone, on factors already on the card; BPP first, so
+    # that the profiler's start-up lands in its 30 s window, not in MU's
+    W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
+    for alg, it in (("BPP", 1), ("MU", hi)):
+        opts = dataclasses.replace(mu, algorithm=NmfAlgorithm(alg),
+                                   max_iter=it)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            nmf_solve(op, W, H, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_summary(prof, wall, f"flagship nmf_solve {alg}, {it} "
+                        "iteration(s)")
+
+
 def main() -> int:
     import torch
 
@@ -1066,7 +1672,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from smallk_torch.common.device import setup
-    from smallk_torch.kernels import hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
 
     setup("cuda")
     card = card_line()
@@ -1084,19 +1690,26 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_hierclust()
         return 0
+    if sys.argv[1:] == ["--sparse"]:
+        timed("sparse study", sparse_study, card)
+        log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+        return 0
     k1 = timed("K1", phase_kernel)
     k2 = timed("K2", phase_k2)
     k3 = timed("K3", phase_k3)
+    ell = timed("ell_spmm", phase_ell_spmm)
     timed("slice", phase_slice_parity)
+    timed("sparse parity", phase_sparse_parity)
     main_path = timed("main", phase_main_path, card)
     flat_path = timed("flatclust", phase_flatclust, card)
     timed("beside", phase_beside, card)
     timed("hier parity", phase_hier_parity)
     hier_path = timed("hierclust", phase_hierclust, card)
-    with ThreadPoolExecutor(3) as pool:  # the CLI processes side by side
+    flagship = timed("flagship", phase_flagship, card)
+    with ThreadPoolExecutor(4) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()
         for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
-                    pool.submit(phase_hier_cli)]:
+                    pool.submit(phase_hier_cli), pool.submit(phase_sparse_cli)]:
             job.result()
         secs["cli"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -1139,7 +1752,15 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
-    }]}))
+    }] + [{
+        "name": f"ell_spmm ({probe})",
+        "route": "cuda",
+        "source": ell_spmm.SOURCE,
+        "replaces": ell_spmm.REPLACES[probe],
+        "launches": flagship["launches"],
+        "max_abs_err": max(ell["max_abs_err"], flagship["max_abs_err"]),
+        **ell["probes"][probe],
+    } for probe in ELL_PROBES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,7 +22,8 @@ Not ported (ROADMAP slice 9): the bucket ladder and zero padding (exact
 widths compile nothing), the multi-split chain (hier_chain.py), pair
 batching, speculation, the prefetch pool, bit-packed results and the
 dispatch-budget segmentation (workarounds for a high-latency TPU link),
-the sparse CscChunks path, MaskedAOp and `mesh`.
+the sparse CscChunks path (a sparse operand raises NotImplementedError,
+ROADMAP slice 11), MaskedAOp and `mesh`.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ from ..common.device import setup, torch_dtype
 from ..common.options import ClustOptions, ClustStats
 from ..common.rng import Random, random_matrix
 from ..io.delimited import load_delimited
-from ..ops.aop import DenseAOp, as_aop
+from ..ops.aop import DenseAOp, SparseAOp, as_aop, densifies
 from ..ops.dense import gemm_nt, gram
+from ..ops.ell import EllAOp
 from ..solvers.nnls import nnls_hals
 from ..solvers.rank2 import spectral_init_rank2
 from ..solvers.solve import nmf_solve, reference_pg1
@@ -416,6 +418,22 @@ def _load_hier_checkpoint(path, node_count, config):
             int(arrs["iter_count"]), root, int(arrs["init_counter"]))
 
 
+def _dense_operand(A, opts: ClustOptions, device) -> DenseAOp:
+    """A as the dense operand every node gathers its columns from; a
+    sparse operand (a prebuilt one, or a matrix above the densify
+    threshold) raises before anything is built: hierclust on it is
+    ROADMAP slice 11."""
+    dtype = opts.nmf_opts.a_dtype or opts.nmf_opts.dtype
+    prebuilt = isinstance(A, (EllAOp, SparseAOp))
+    if prebuilt or (sp.issparse(A) and not densifies(A, dtype)):
+        raise NotImplementedError(
+            f"hierclust on a {type(A).__name__} of {A.shape[0]}x"
+            f"{A.shape[1]}{'' if prebuilt else ' above the densify threshold'}"
+            ": sparse hierclust (column-subset gathers on a sparse operand) "
+            "is ROADMAP slice 11 of the port")
+    return as_aop(A, dtype=dtype, device=device)
+
+
 def clust_hier(A, opts: ClustOptions, rng: Random,
                stats: ClustStats | None = None,
                checkpoint_path: str | None = None,
@@ -436,8 +454,7 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     stats = stats if stats is not None else ClustStats()
     opts.validate()
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
-                  device=device)
+    a_op = _dense_operand(A, opts, device)
     setup(a_op.A.device)
     m, n = a_op.shape
 
@@ -546,8 +563,7 @@ def clust_flat(A, tree: Tree, opts: ClustOptions, rng: Random, *,
     fresh random H.  Returns host (W (m,k), H (k,n), success).
     """
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
-                  device=device)
+    a_op = _dense_operand(A, opts, device)
     dev = setup(a_op.A.device)
     m, n = a_op.shape
     k = opts.num_clusters

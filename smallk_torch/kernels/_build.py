@@ -51,6 +51,11 @@ SIGNATURES = {
         "smallk_rank2_loop_bf16": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
         "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
+    "ell_spmm": {
+        **{f"smallk_ell_spmm_{pair}": ((_P,) * 5 + (_I,) * 6 + (_P, _I), _I)
+           for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64")},
+        "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -105,10 +105,40 @@ def test_as_aop_inputs(kind):
     assert as_aop(aop, device="cpu") is aop
 
 
-def test_sparse_above_threshold_is_not_ported():
+def test_sparse_above_threshold_is_not_ported(monkeypatch):
+    """What is still not ported above the densify threshold, hierclust on
+    a sparse operand (ROADMAP slice 11), raises before any operand is
+    built: a 50,000 x 20,000 f32 dense image (4 GB) exceeds 2 GiB."""
+    from smallk_torch.common.options import ClustOptions
+    from smallk_torch.common.rng import Random
+    from smallk_torch.engines.flatclust import run_hier_nmf2
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.ops import aop as aop_mod
+
+    def no_build(*args, **kw):
+        raise AssertionError("a sparse operand was built")
+
+    monkeypatch.setattr(aop_mod.EllAOp, "from_scipy", no_build)
+    monkeypatch.setattr(aop_mod.SparseAOp, "from_scipy", no_build)
+    A = sp.random(50_000, 20_000, density=1e-6, random_state=0, format="csc")
+    opts = ClustOptions(num_clusters=3, verbose=False, flat=True)
+    for call in (clust_hier, run_hier_nmf2):
+        with pytest.raises(NotImplementedError, match="slice 11"):
+            call(A, opts, Random(1), device="cpu")
+
+
+def test_sparse_above_threshold_becomes_ell():
+    """Above the densify threshold a sparse input becomes the bucketed-ELL
+    operand (ROADMAP slice 10), whose products equal the dense ones in f64
+    to 1e-12 (tests/test_torch_ell.py holds it to the reference)."""
+    from smallk_torch.ops.ell import EllAOp
+
     A = sp.random(40, 30, density=0.1, random_state=0, format="csc")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        as_aop(A, torch.float32, device="cpu", densify_threshold_bytes=100)
+    op = as_aop(A, torch.float64, device="cpu", densify_threshold_bytes=100)
+    assert isinstance(op, EllAOp)
+    W = np.random.RandomState(0).rand(40, 3)
+    np.testing.assert_allclose(op.mm_tn(torch.from_numpy(W)).numpy(),
+                               W.T @ A.toarray(), rtol=1e-12, atol=1e-12)
 
 
 def test_from_reference_places_and_casts():
