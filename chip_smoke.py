@@ -9,15 +9,20 @@ fails (nonzero exit, no result line) on any fault:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from smallk_torch/csrc/, one nvcc
      per library, all started together;
-  3. K1, the masked Gauss-Jordan kernel, against its plain torch version
-     on the card, f32 and f64, at the BPP path's shapes and up to k = 128,
-     plus the dead-pivot case; kernel and plain times at the BPP shapes;
+  3. K1, the masked Gauss-Jordan solve: both device kernels (narrow and
+     wide ranks) and the wrapper's pick against the plain torch version on
+     the card with tolerance 0, f32 and f64, at the BPP path's shapes and
+     up to k = 128, plus the dead-pivot case and non-finite inputs; the
+     two kernels side by side over k (what the dispatch constant is set
+     from); kernel, plain and library times at the BPP shapes;
   4. K2, the whole-step HALS kernel, against its plain version at the
      flatclust shape (f32 and bf16 A), small and ragged shapes, the
      largest square shape the kernel admits at k = 16 and the zero-column
      rescue; kernel and plain times at 256 x 256, k = 16;
   5. slice parity in f64: run_nmf with BPP, MU, HALS and RANK2 on the card
-     against the same calls on the CPU (f64 runs the torch-ops steps);
+     against the same calls on the CPU (f64 runs the torch-ops steps), and
+     nnls_blockpivot at a shape where its rounds narrow to the columns
+     still not optimal;
   6. the BPP main path at full width: the 12411 x 7984 Reuters shape, 80
      nnz per column, k = 8, bf16 A, f32 factors, 100 fixed iterations,
      with K1's launches counted over that run;
@@ -46,10 +51,11 @@ fails (nonzero exit, no result line) on any fault:
  14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
      1,000,000 bf16 EllAOp (bench.py:164-195), timed as bench.py times
      the reference (two-point fits), with the operand's host build time;
-     its two products (ell_spmm) and K1's full-width round, each timed
-     and held against its plain version at these shapes; the sparse-side
-     relative error (from plain products) and ell_spmm's launches
-     counted;
+     its two products (ell_spmm) and K1's full-width rounds, each timed
+     and held against its plain version at these shapes (K1 also against
+     the narrow kernel and torch.linalg.solve_ex at the W side's width);
+     the sparse-side relative error (from plain products), ell_spmm's
+     launches, and BPP's pivot rounds, K1 launches and K1 columns counted;
  15. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
      CLI on a 30000 x 20000 .mtx above the densify threshold (EllAOp);
  16. the kernel table as one JSON line, the card line, and last the result
@@ -62,12 +68,17 @@ print where the device time goes, then with its rank-2 products through
 K3 and through torch.matmul, alternating, to time what K3 moves end to
 end.
 
+    python3 chip_smoke.py --k1
+
+runs only K1: phase 3 above, then full-width rounds at the flagship's two
+shapes on synthetic systems.
+
     python3 chip_smoke.py --sparse
 
 runs only the studies of the flagship operand: AH' for each doc block of
 DOC_BLOCKS (how ops/ell._DOC_BLOCK was chosen), MU with its products
-through ell_spmm and through torch.sparse.mm, alternating, and one MU and
-one BPP run under torch.profiler.
+through ell_spmm and through torch.sparse.mm, alternating, and one BPP
+run (3 iterations) and one MU run under torch.profiler.
 
 There is no CPU fallback: without a card the script exits 1.
 """
@@ -95,7 +106,12 @@ TOL = {"float32": 1e-5, "float64": 1e-10}
 K1_SHAPES = [(8, 7984), (8, 12411), (16, 7984), (32, 2000), (64, 500),
              (128, 130)]
 MAIN_SHAPES = [(8, 7984), (8, 12411)]  # H side (n = docs), W side (n = terms)
+# nnls_blockpivot with narrowed and with full-width rounds (--k1)
+NNLS_SWEEP_K, NNLS_SWEEP_N = (8, 16, 32, 48, 128), (
+    2048, 12411, 65536, 262144, 1_000_000)
+K1_SWEEP_K, K1_SWEEP_N = (8, 16, 32, 48, 64, 96, 128), 65536  # narrow vs wide
 SLICE_ATOL = 1e-9
+NNLS_SHAPE = (48, 2048)   # nnls_blockpivot, narrowed rounds, card vs CPU
 M, N, K, NZ_PER_COL, ITERS = 12411, 7984, 8, 80, 100
 
 # K2 against its plain version, evaluated in f64 on the same inputs, with
@@ -140,7 +156,10 @@ SP_M, SP_N, SP_K = 600, 3000, 8        # f64 sparse parity, blocked EllAOp
 # the flagship: rank-128 NMF on a 50,000-term x 1,000,000-document corpus
 # with 80 draws per column, bf16 A, f32 factors (bench.py:164-195), uncut
 FLAG_M, FLAG_N, FLAG_K, FLAG_NZ = 50_000, 1_000_000, 128, 80
-FLAG_MU_ITERS, FLAG_BPP_ITERS = (5, 25), (1, 3)  # two-point fits
+# two-point fits; BPP's first iteration (every entry passive, some twenty
+# pivot rounds) is run and reported on its own, and its fit spans twenty
+# steady iterations
+FLAG_MU_ITERS, FLAG_BPP_ITERS = (5, 25), (3, 23)
 FLAG_K1_CHECK = 65536   # columns of a full-width K1 round held to plain
 DOC_BLOCKS = (0, 32768, 65536, 131072)           # the --sparse sweep
 CLI_M, CLI_N, CLI_NZ = 30000, 20000, 80   # f32 dense image 2.4 GB > 2 GiB
@@ -239,6 +258,7 @@ def reset_counts() -> None:
     from smallk_torch.ops import aop
 
     masked_gj.launches = 0
+    masked_gj.columns = 0
     hals_step.launches = 0
     rank2_loop.launches = 0
     ell_spmm.launches = 0
@@ -248,13 +268,14 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches of K1, K2, K3 and ell_spmm, ell_spmm's plain-version calls
-    on CUDA tensors, and the dense products that went to K3 and to
-    torch.matmul, since the last reset_counts()."""
+    """Launches of K1, K2, K3 and ell_spmm, the columns K1 solved,
+    ell_spmm's plain-version calls on CUDA tensors, and the dense products
+    that went to K3 and to torch.matmul, since the last reset_counts()."""
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
 
-    return {"K1": masked_gj.launches, "K2": hals_step.launches,
+    return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
+            "K2": hals_step.launches,
             "K3": rank2_loop.launches, "ell_spmm": ell_spmm.launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
             "kernel_products": aop.kernel_products,
@@ -303,33 +324,103 @@ def phase_build() -> None:
         f"in {secs:.2f} s")
 
 
+def nonfinite_inputs(dtype, device):
+    """Right-hand sides that are not finite: an Inf on a non-passive row of
+    column 2 (rhs * 0 = NaN poisons the column in the plain version) and a
+    NaN on a passive row of column 5."""
+    LHS, RHS, passive = k1_inputs(64, 40, dtype, device)
+    passive[4, 2], passive[7, 5] = False, True
+    RHS[4, 2], RHS[7, 5] = float("inf"), float("nan")
+    return LHS, RHS, passive
+
+
+def k1_sweep() -> None:
+    """The two device kernels side by side in f32, at every K1_SHAPES entry
+    and at K1_SWEEP_N columns of the same ranks: what WIDE_MIN_K is set
+    from."""
+    import torch
+
+    from smallk_torch.kernels import masked_gj
+
+    for k, n in K1_SHAPES + [(k, K1_SWEEP_N) for k in K1_SWEEP_K]:
+        LHS, RHS, passive = k1_inputs(k, n, torch.float32, "cuda")
+        iters = 100 if k * k * n < 1 << 26 else 5
+        narrow = device_ms(lambda: masked_gj._launch_narrow(
+            LHS, RHS, passive), iters)
+        wide = device_ms(lambda: masked_gj._launch_wide(
+            LHS, RHS, passive), iters)
+        picked = "wide" if k >= masked_gj.WIDE_MIN_K else "narrow"
+        log(f"[K1 sweep f32] k={k} n={n}: device ms per call: narrow "
+            f"{narrow:.4f}, wide {wide:.4f}; masked_gj_solve takes the "
+            f"{picked} one (WIDE_MIN_K = {masked_gj.WIDE_MIN_K})")
+
+
 def phase_kernel() -> dict:
     import torch
 
+    from smallk_torch.kernels import masked_gj
     from smallk_torch.kernels.masked_gj import (
         masked_gj_solve, masked_gj_solve_reference)
 
+    # both device kernels and the wrapper's pick against the plain version:
+    # the same operations in the same order with the same roundings, so on
+    # finite inputs the tolerance is 0
+    kernels = (("narrow", masked_gj._launch_narrow),
+               ("wide", masked_gj._launch_wide),
+               ("masked_gj_solve", masked_gj_solve))
     worst = 0.0
-    for name, tol in TOL.items():
+    for name in TOL:
         dtype = getattr(torch, name)
         cases = [(f"k={k} n={n}", k1_inputs(k, n, dtype, "cuda"))
                  for k, n in K1_SHAPES]
         cases.append(("dead-pivot k=16 n=64", dead_pivot_inputs(dtype,
                                                                  "cuda")))
         for label, (LHS, RHS, passive) in cases:
-            X = masked_gj_solve(LHS, RHS, passive)
             Xr = masked_gj_solve_reference(LHS, RHS, passive)
-            torch.cuda.synchronize()
-            err = float((X - Xr).abs().max())
-            log(f"[K1 {name}] {label}: max|kernel - plain| = {err:.3e} "
-                f"(rtol = atol = {tol:g})")
-            torch.testing.assert_close(X, Xr, rtol=tol, atol=tol)
-            if label.startswith("dead"):
-                if not bool(torch.isfinite(X).all()):
-                    raise AssertionError("dead-pivot solve is not finite")
-                torch.testing.assert_close(X[3], torch.zeros_like(X[3]),
-                                           rtol=0, atol=tol)
-            worst = max(worst, err)
+            errs = {}
+            for which, solve in kernels:
+                X = solve(LHS, RHS, passive)
+                torch.cuda.synchronize()
+                errs[which] = float((X - Xr).abs().max())
+                if label.startswith("dead"):
+                    if not bool(torch.isfinite(X).all()):
+                        raise AssertionError("dead-pivot solve is not finite")
+                    torch.testing.assert_close(X[3], torch.zeros_like(X[3]),
+                                               rtol=0, atol=TOL[name])
+            log(f"[K1 {name}] {label}: max|kernel - plain|: " + ", ".join(
+                f"{w} {e:.3e}" for w, e in errs.items()) + " (tolerance 0)")
+            if any(e != 0.0 for e in errs.values()):
+                raise AssertionError(f"K1 {name} {label}: a kernel differs "
+                                     f"from the plain version: {errs}")
+            worst = max(worst, *errs.values())
+
+        # non-finite right-hand sides: every column that is not finite in
+        # the plain version is not finite in the kernels, the others equal
+        LHS, RHS, passive = nonfinite_inputs(dtype, "cuda")
+        Xr = masked_gj_solve_reference(LHS, RHS, passive)
+        bad = ~torch.isfinite(Xr).all(dim=0)
+        for which, solve in kernels:
+            X = solve(LHS, RHS, passive)
+            bad_k = ~torch.isfinite(X).all(dim=0)
+            err = float((X[:, ~bad] - Xr[:, ~bad]).abs().max())
+            log(f"[K1 {name}] non-finite rhs, {which}: non-finite columns "
+                f"plain {bad.nonzero()[:, 0].tolist()}, kernel "
+                f"{bad_k.nonzero()[:, 0].tolist()}; the others differ by "
+                f"{err:.3e}")
+            if not bool((bad_k | ~bad).all()) or bad.sum() != 2 or err:
+                raise AssertionError(f"K1 {name} {which}: non-finite "
+                                     "columns are not kept")
+        # a NaN in LHS: tiny is NaN and every pivot dead, in all of them
+        LHS = LHS.clone()
+        LHS[3, 6] = float("nan")
+        Xr = masked_gj_solve_reference(LHS, RHS[:, ~bad].contiguous(),
+                                       passive[:, ~bad].contiguous())
+        for which, solve in kernels:
+            X = solve(LHS, RHS[:, ~bad].contiguous(),
+                      passive[:, ~bad].contiguous())
+            if not torch.equal(X, Xr):
+                raise AssertionError(f"K1 {name} {which}: NaN in LHS")
+    k1_sweep()
 
     times = {}
     for k, n in MAIN_SHAPES:
@@ -369,11 +460,12 @@ def phase_kernel() -> dict:
 def k1_bound(passive) -> tuple[float, str]:
     """K1's bound for an f32 solve with this (k, n) passive set: what these
     inputs need is a Gauss-Jordan on each column's q x (q+1) passive system
-    (q divisions per pivot row, 2 (q-1)(q+1) per elimination), and each
-    input and output moved once."""
+    that touches only the columns beyond the pivot (step j of q: q - j
+    divisions and a multiply and a subtract on (q-1)(q-j) entries, in all
+    q (q+1)/2 (2q-1) operations), and each input and output moved once."""
     k, n = passive.shape
     q = passive.sum(dim=0).double()
-    flop = float((q * (q + 1) + 2 * q * (q - 1) * (q + 1)).sum())
+    flop = float((q * (q + 1) / 2 * (2 * q - 1)).sum())
     return bound(flop, 4 * k * k + (4 + 1 + 4) * k * n)
 
 
@@ -512,6 +604,47 @@ def phase_slice_parity() -> None:
         if lc < want_k1 or (want_k1 == 0 and lc) or lh or hc or hh:
             raise AssertionError(f"kernel launches: K1 cuda {lc}, cpu {lh}; "
                                  f"K2 cuda {hc}, cpu {hh}")
+
+
+def phase_nnls_parity() -> None:
+    """nnls_blockpivot in f64 with its rounds narrowed to the columns still
+    not optimal (the gate lowered to this shape, which a CPU run can
+    afford): the card against the CPU, and K1's launches and columns
+    counted on the card."""
+    import torch
+
+    from smallk_torch.solvers import nnls
+
+    k, n = NNLS_SHAPE
+    rng = np.random.RandomState(11)
+    B = rng.rand(k, 2 * k)
+    LHS = B @ B.T + 0.1 * np.eye(k)
+    RHS = B @ rng.rand(2 * k, n) - 0.3 * B.sum(1, keepdims=True)
+    Xinit = rng.rand(k, n) - 0.5
+    runs = {}
+    gate, nnls._NARROW_MIN_ENTRIES = nnls._NARROW_MIN_ENTRIES, k * n
+    try:
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            X, Y, ok, rounds = nnls.nnls_blockpivot(*(
+                torch.tensor(a, device=device) for a in (LHS, RHS, Xinit)))
+            runs[device] = (X.cpu(), Y.cpu(), bool(ok), rounds,
+                            read_counts())
+    finally:
+        nnls._NARROW_MIN_ENTRIES = gate
+    (Xc, Yc, okc, rc, cc), (Xh, Yh, okh, rh, ch) = runs["cuda"], runs["cpu"]
+    dX, dY = float((Xc - Xh).abs().max()), float((Yc - Yh).abs().max())
+    log(f"[slice f64] nnls_blockpivot k={k} n={n}: cuda vs cpu max|dX| = "
+        f"{dX:.3e}, max|dY| = {dY:.3e} (atol {SLICE_ATOL:g}), rounds "
+        f"{rc}/{rh}, K1 launches {cc['K1']}/{ch['K1']}, K1 columns "
+        f"{cc['K1_columns']} (full-width rounds: {(rc + 1) * n})")
+    if not (okc and okh) or rc != rh or rc < 2:
+        raise AssertionError(f"nnls parity: ok {okc}/{okh}, rounds {rc}/{rh}")
+    if not (dX <= SLICE_ATOL and dY <= SLICE_ATOL):
+        raise AssertionError("nnls parity: the card and the CPU disagree")
+    if (cc["K1"] != rc + 1 or not n < cc["K1_columns"] < (rc + 1) * n
+            or ch["K1"]):
+        raise AssertionError(f"nnls parity: K1 counts {cc}, cpu {ch}")
 
 
 def phase_main_path(card: str) -> dict:
@@ -1323,49 +1456,161 @@ def sparse_rel_err(op, W, H) -> float:
     return (max(a2 - 2.0 * cross + quad, 0.0) / a2) ** 0.5
 
 
-def k1_round_ms(op, W0: np.ndarray, H0: np.ndarray) -> dict:
+def k1_round_ms(sides: dict) -> dict:
     """K1's device ms for one full-width round of each BPP side at the
-    flagship shape, and its bound: (k, n) for H, (k, m) for W, with the
-    real Grams and right-hand sides and half the entries passive (CUDA
-    events, one warm-up, three timed calls).  The round's first
-    FLAG_K1_CHECK columns are held against the plain version on the same
-    columns (the columns are independent systems), to TOL."""
+    flagship shape, and its bound: `sides` maps "H" to (LHS, RHS) of shape
+    (k, k), (k, n) and "W" to those of (k, k), (k, m), on the card; half
+    the entries are made passive.  The round's first FLAG_K1_CHECK columns
+    (all of the W side's) are held against the plain version on the same
+    columns (the columns are independent systems) with tolerance 0, for
+    both device kernels.  At the W side's width it also times the narrow
+    kernel, the plain version and the library call, one
+    torch.linalg.solve_ex of the (n, k, k) batch of masked systems built
+    beforehand (3.3 GB at (128, 50,000); the H side's batch would be 64 GB
+    and is not measured).  A round with every entry passive (q = k, the
+    first solve from a positive start) is timed beside it."""
     import torch
 
+    from smallk_torch.kernels import masked_gj
     from smallk_torch.kernels.masked_gj import (
         masked_gj_solve, masked_gj_solve_reference)
 
-    W = torch.from_numpy(W0).cuda()
-    H = torch.from_numpy(H0).cuda()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    sides = {"H": (W.T @ W, op.mm_tn(W)), "W": (H @ H.T, op.mm_nt(H).T)}
     out = {}
     for side, (LHS, RHS) in sides.items():
         RHS = RHS.contiguous()
+        k, n = RHS.shape
         passive = torch.rand(RHS.shape, generator=gen, device="cuda") < 0.5
-        X = masked_gj_solve(LHS, RHS, passive)[:, :FLAG_K1_CHECK]
-        c = X.shape[1]
+        c = min(n, FLAG_K1_CHECK)
         Xr = masked_gj_solve_reference(LHS, RHS[:, :c].contiguous(),
                                        passive[:, :c].contiguous())
-        err = float((X - Xr).abs().max())
-        log(f"[flagship K1] {side} side (k={LHS.shape[0]}, first {c} of "
-            f"{RHS.shape[1]} columns): max|kernel - plain| = {err:.3e}, "
-            f"relative {err / float(Xr.abs().max()):.3e} (rtol = atol = "
-            f"{TOL['float32']:g})")
-        torch.testing.assert_close(X, Xr, rtol=TOL["float32"],
-                                   atol=TOL["float32"])
-        del X, Xr
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            masked_gj_solve(LHS, RHS, passive)
-        stop.record()
-        torch.cuda.synchronize()
-        out[side] = (start.elapsed_time(stop) / 3, *k1_bound(passive), err)
+        errs = {}
+        for which, solve, cols in (("masked_gj_solve", masked_gj_solve, n),
+                                   ("wide", masked_gj._launch_wide, c),
+                                   ("narrow", masked_gj._launch_narrow, c)):
+            X = solve(LHS, RHS[:, :cols].contiguous(),
+                      passive[:, :cols].contiguous())[:, :c]
+            errs[which] = float((X - Xr).abs().max())
+            del X
+        log(f"[flagship K1] {side} side (k={k}, first {c} of {n} columns): "
+            f"max|kernel - plain|: " + ", ".join(
+                f"{w} {e:.3e}" for w, e in errs.items()) + " (tolerance 0)")
+        if any(e != 0.0 for e in errs.values()):
+            raise AssertionError(f"flagship K1 {side} side differs from the "
+                                 f"plain version: {errs}")
+        del Xr
+        res = {"ms": back_to_back_ms(
+                   lambda: masked_gj_solve(LHS, RHS, passive), 3),
+               "err": max(errs.values())}
+        res["bound_ms"], res["bound_by"] = k1_bound(passive)
+        full = torch.ones_like(passive)
+        res["all_passive_ms"] = back_to_back_ms(
+            lambda: masked_gj_solve(LHS, RHS, full), 2)
+        res["all_passive_bound_ms"] = k1_bound(full)[0]
+        del full
+        if n <= FLAG_K1_CHECK:
+            res["narrow_ms"] = back_to_back_ms(
+                lambda: masked_gj._launch_narrow(LHS, RHS, passive), 3)
+            res["plain_ms"] = back_to_back_ms(
+                lambda: masked_gj_solve_reference(LHS, RHS, passive), 1)
+            p = passive.to(LHS.dtype).T.contiguous()          # (n, k)
+            M = LHS[None] * p[:, :, None]
+            M *= p[:, None, :]
+            M.diagonal(dim1=1, dim2=2).add_(1.0 - p)
+            b = (RHS.T * p)[:, :, None].contiguous()
+            X = masked_gj_solve(LHS, RHS, passive)
+            lib = torch.linalg.solve_ex(M, b)[0][:, :, 0].T
+            res["library_rel"] = float((lib - X).abs().max() / X.abs().max())
+            del X, lib
+            res["library_ms"] = back_to_back_ms(
+                lambda: torch.linalg.solve_ex(M, b), 2)
+            del M, b, p
+            if not res["library_rel"] <= 1e-2:  # another elimination order
+                raise AssertionError("K1 library solve differs by "
+                                     f"{res['library_rel']}")
+        out[side] = res
+        extra = (f"; narrow kernel {res['narrow_ms']:.2f}, plain "
+                 f"{res['plain_ms']:.2f}, library torch.linalg.solve_ex on "
+                 f"the (n, k, k) batch {res['library_ms']:.2f} (max rel diff "
+                 f"{res['library_rel']:.1e})" if "narrow_ms" in res else
+                 "; plain and library not measured (a 64 GB batch)")
+        log(f"[flagship K1] {side} side (k, {n}), device ms per full-width "
+            f"round, half the entries passive: {res['ms']:.2f} (bound "
+            f"{res['bound_ms']:.3f}, {res['bound_by']}){extra}; every entry "
+            f"passive: {res['all_passive_ms']:.2f} (bound "
+            f"{res['all_passive_bound_ms']:.3f})")
     return out
+
+
+def nnls_gate_sweep(card: str) -> None:
+    """nnls_blockpivot in f32 with its rounds narrowed to the columns still
+    not optimal and at full width, over ranks and widths on both sides of
+    its gate (k n >= _NARROW_MIN_ENTRIES): wall ms per call, the best of
+    four, the two bodies alternating.  What the gate is set from."""
+    import torch
+
+    from smallk_torch.solvers import nnls
+
+    gate = nnls._NARROW_MIN_ENTRIES
+
+    def wall_ms(args, narrowed: bool):
+        nnls._NARROW_MIN_ENTRIES = 0 if narrowed else 1 << 62
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = nnls.nnls_blockpivot(*args)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, out
+        finally:
+            nnls._NARROW_MIN_ENTRIES = gate
+
+    for k in NNLS_SWEEP_K:
+        for n in NNLS_SWEEP_N:
+            rng = np.random.RandomState(k + n)
+            B = rng.rand(k, 2 * k)
+            args = [torch.tensor(a, dtype=torch.float32, device="cuda")
+                    for a in (B @ B.T + 0.1 * np.eye(k),
+                              B @ rng.rand(2 * k, n)
+                              - 0.3 * B.sum(1, keepdims=True),
+                              rng.rand(k, n) - 0.5)]
+            best = {True: float("inf"), False: float("inf")}
+            outs = {}
+            for narrowed in (True, False) * 4:  # the first pair warms up
+                ms, outs[narrowed] = wall_ms(args, narrowed)
+                best[narrowed] = min(best[narrowed], ms)
+            (Xn, _, okn, rn), (Xf, _, okf, rf) = outs[True], outs[False]
+            if not (torch.equal(Xn, Xf) and bool(okn) and bool(okf)
+                    and rn == rf):
+                raise AssertionError(f"nnls sweep k={k} n={n}: the narrowed "
+                                     "and the full-width rounds disagree")
+            picked = "narrowed" if k * n >= gate else "full width"
+            log(f"[nnls sweep f32] k={k} n={n}: {rn} rounds, wall ms per "
+                f"call: narrowed {best[True]:.3f}, full width "
+                f"{best[False]:.3f}; nnls_blockpivot takes the {picked} "
+                f"rounds (k n = {k * n}, gate {gate}) on {card}")
+
+
+def k1_study(card: str) -> None:
+    """--k1: K1 alone.  Both device kernels against the plain version and
+    side by side (phase_kernel), then full-width rounds at the flagship's
+    two shapes on synthetic systems (k1_inputs' Gram, right-hand sides made
+    on the card)."""
+    import torch
+
+    phase_kernel()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    k = FLAG_K
+    B = torch.rand((k, 2 * k), generator=gen, device="cuda")
+    LHS = B @ B.T + 0.1 * torch.eye(k, device="cuda")
+    sides = {side: (LHS, B @ torch.rand((2 * k, n), generator=gen,
+                                        device="cuda"))
+             for side, n in (("W", FLAG_M), ("H", FLAG_N))}
+    k1_round_ms(sides)
+    del sides
+    nnls_gate_sweep(card)
+    log(f"[k1] on {card}")
 
 
 def phase_flagship(card: str) -> dict:
@@ -1423,16 +1668,13 @@ def phase_flagship(card: str) -> dict:
     log(f"[flagship] products at k={FLAG_K}: W'A {tn_ms:.3f} ms, AH' "
         f"{nt_ms:.3f} ms ({nnz / ((tn_ms + nt_ms) / 2) / 1e6:.3f} Gnnz/s "
         f"each on average)")
+    # K1's full-width rounds on the real Grams and right-hand sides
+    k1_rounds = k1_round_ms({"H": (W.T @ W, op.mm_tn(W)),
+                             "W": (H @ H.T, op.mm_nt(H).T)})
     del W, H
-    rounds = k1_round_ms(op, W0, H0)
-    log(f"[flagship] K1 device ms per full-width round at k={FLAG_K}, half "
-        f"the entries passive: H side (k, {FLAG_N}) {rounds['H'][0]:.2f} "
-        f"(bound {rounds['H'][1]:.3f}, {rounds['H'][2]}), W side (k, "
-        f"{FLAG_M}) {rounds['W'][0]:.2f} (bound {rounds['W'][1]:.3f}, "
-        f"{rounds['W'][2]})")
 
-    launches = 0
-    rates = {}
+    launches = k1_launches = 0
+    rates, k1_stats = {}, {}
     for alg, iters in (("MU", FLAG_MU_ITERS), ("BPP", FLAG_BPP_ITERS)):
         opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
                           height=FLAG_M, width=FLAG_N, k=FLAG_K, min_iter=1,
@@ -1457,9 +1699,16 @@ def phase_flagship(card: str) -> dict:
                     raise AssertionError(f"flagship {alg}: {name} is not "
                                          "finite and nonnegative")
             rel[it] = sparse_rel_err(op, W, H)
+            # K1's columns beyond the two first solves of each iteration:
+            # full-width rounds would make them rounds x n
+            round_cols = counts["K1_columns"] - it * (FLAG_N + FLAG_M)
             rounds_txt = (f", pivot rounds {stats.pivot_rounds} "
-                          f"({stats.pivot_rounds / it:.1f} per iteration)"
-                          if alg == "BPP" else "")
+                          f"({stats.pivot_rounds / it:.1f} per iteration), "
+                          f"K1 columns {counts['K1_columns']} "
+                          f"({counts['K1_columns'] / it:.0f} per iteration; "
+                          f"{round_cols} in the rounds, "
+                          f"{round_cols / max(stats.pivot_rounds, 1):.0f} "
+                          f"per round)" if alg == "BPP" else "")
             log(f"[flagship] {alg} {it} iteration(s): solve {walls[it]:.3f} "
                 f"s, rel err {rel[it]:.6f}, ell_spmm launches "
                 f"{counts['ell_spmm']}, K1 launches {counts['K1']}, plain "
@@ -1470,22 +1719,41 @@ def phase_flagship(card: str) -> dict:
             want_k1 = 2 * it if alg == "BPP" else 0
             if counts["K1"] < want_k1 or (not want_k1 and counts["K1"]):
                 raise AssertionError(f"flagship {alg}: K1 launches {counts}")
+            if alg == "BPP":
+                if counts["K1"] != want_k1 + stats.pivot_rounds:
+                    raise AssertionError(
+                        f"flagship BPP: {counts['K1']} K1 launches for "
+                        f"{stats.pivot_rounds} rounds in {it} iteration(s)")
+                if not 0 < round_cols < stats.pivot_rounds * FLAG_N:
+                    raise AssertionError(
+                        f"flagship BPP: the rounds solved {round_cols} "
+                        f"columns, not fewer than {stats.pivot_rounds} "
+                        "full-width rounds")
+                k1_stats[it] = (stats.pivot_rounds, counts["K1"],
+                                counts["K1_columns"])
             if it in iters:
                 launches += counts["ell_spmm"]
+                k1_launches += counts["K1"]
         lo, hi = iters[0], iters[-1]
         if not rel[hi] < rel[1]:
             raise AssertionError(f"flagship {alg}: rel err {rel[hi]} after "
                                  f"{hi} iterations not below the "
                                  f"1-iteration {rel[1]}")
         rates[alg] = (hi - lo) / max(walls[hi] - walls[lo], 1e-9)
+        k1_txt = "".join(
+            f"; {it} iteration(s): {r} pivot rounds, {l} K1 launches, {c} "
+            f"K1 columns" for it, (r, l, c) in sorted(k1_stats.items())
+        ) if alg == "BPP" else ""
         log(f"[flagship] {alg} k={FLAG_K}: {rates[alg]:.4f} it/s "
             f"(({hi} - {lo}) iterations / ({walls[hi]:.3f} - {walls[lo]:.3f}) "
-            f"s) on {card}")
+            f"s), first iteration {walls[1]:.3f} s{k1_txt} on {card}")
     log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     del op
     torch.cuda.empty_cache()
-    return {"launches": launches, "rates": rates, "max_abs_err": worst_abs}
+    return {"launches": launches, "rates": rates, "max_abs_err": worst_abs,
+            "k1_launches": k1_launches, "k1_rounds": k1_rounds,
+            "k1_stats": k1_stats}
 
 
 def phase_sparse_cli() -> None:
@@ -1562,7 +1830,7 @@ def profile_summary(prof, wall: float, label: str) -> None:
 def sparse_study(card: str) -> None:
     """--sparse: at the flagship shape, AH' for each doc block of
     DOC_BLOCKS; MU with its products through ell_spmm and through
-    torch.sparse.mm, alternating; one MU and one BPP run under
+    torch.sparse.mm, alternating; two BPP runs and one MU run under
     torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1647,9 +1915,13 @@ def sparse_study(card: str) -> None:
         EllAOp.mm_tn, EllAOp.mm_nt = methods
 
     # the solve loop alone, on factors already on the card; BPP first, so
-    # that the profiler's start-up lands in its 30 s window, not in MU's
+    # that the profiler's start-up lands in its longer window, not in MU's.
+    # BPP's first iteration starts from an all-positive H (every entry
+    # passive, the dearest masked solve); the longer BPP run less the
+    # shorter one is the steady state.
     W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
-    for alg, it in (("BPP", 1), ("MU", hi)):
+    for alg, it in (("BPP", FLAG_BPP_ITERS[0]), ("BPP", FLAG_BPP_ITERS[-1]),
+                    ("MU", hi)):
         opts = dataclasses.replace(mu, algorithm=NmfAlgorithm(alg),
                                    max_iter=it)
         torch.cuda.synchronize()
@@ -1690,6 +1962,10 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_hierclust()
         return 0
+    if sys.argv[1:] == ["--k1"]:
+        timed("K1 study", k1_study, card)
+        log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+        return 0
     if sys.argv[1:] == ["--sparse"]:
         timed("sparse study", sparse_study, card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -1699,6 +1975,7 @@ def main() -> int:
     k3 = timed("K3", phase_k3)
     ell = timed("ell_spmm", phase_ell_spmm)
     timed("slice", phase_slice_parity)
+    timed("nnls parity", phase_nnls_parity)
     timed("sparse parity", phase_sparse_parity)
     main_path = timed("main", phase_main_path, card)
     flat_path = timed("flatclust", phase_flatclust, card)
@@ -1728,6 +2005,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        # the wide device kernel at the flagship's W-side round
+        "name": f"masked_gj_solve (wide, k={FLAG_K} n={FLAG_M})",
+        "route": "cuda",
+        "source": masked_gj.SOURCE,
+        "replaces": masked_gj.REPLACES,
+        "launches": flagship["k1_launches"],
+        "max_abs_err": max(k1["max_abs_err"],
+                           *(r["err"] for r in flagship["k1_rounds"].values())),
+        "ms": flagship["k1_rounds"]["W"]["ms"],
+        "plain_ms": flagship["k1_rounds"]["W"]["plain_ms"],
+        "bound_ms": flagship["k1_rounds"]["W"]["bound_ms"],
+        "bound_by": flagship["k1_rounds"]["W"]["bound_by"],
+        "library_ms": flagship["k1_rounds"]["W"]["library_ms"],
     }, {
         "name": "hals_step",
         "route": "cuda",

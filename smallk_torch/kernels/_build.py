@@ -35,6 +35,8 @@ SIGNATURES = {
     "masked_gj": {
         "smallk_masked_gj_f32": ((_P, _P, _P, _P, _I, _I, _P, _I), _I),
         "smallk_masked_gj_f64": ((_P, _P, _P, _P, _I, _I, _P, _I), _I),
+        "smallk_masked_gj_wide_f32": ((_P, _P, _P, _P, _I, _I, _P, _I), _I),
+        "smallk_masked_gj_wide_f64": ((_P, _P, _P, _P, _I, _I, _P, _I), _I),
         "smallk_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "hals_step": {

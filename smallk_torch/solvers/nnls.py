@@ -5,10 +5,12 @@ masked SPD subproblem,
 
     M = (p p^T) .* LHS + diag(1 - p),   M x = p .* rhs,
 
-is solved by the masked Gauss-Jordan kernel (kernels/masked_gj.py) for all
-n columns at once; the pivot rules (PBAR = 3, Ninf counters, the backup
-single-bit toggle) and the tolerance-based sign tests are the reference's,
-line for line.  The pivot loop is a host loop: one host sync per round.
+is solved by the masked Gauss-Jordan kernel (kernels/masked_gj.py), a whole
+batch of columns at once; the pivot rules (PBAR = 3, Ninf counters, the
+backup single-bit toggle) and the tolerance-based sign tests are the
+reference's, line for line.  The pivot loop is a host loop: one host sync
+per round.  Where the right-hand side is large a round solves only the
+columns that still pivot.
 
 `nnls_hals` is the fixed-W NNLS by HALS row sweeps that hierclust's flat
 refinement calls.
@@ -29,11 +31,13 @@ from .hals import update_h
 
 PBAR = 3
 
-# The reference narrows pivot rounds to slabs of n/8 columns where
-# n >= 2048 and k >= 48, and then allows 8x the rounds (see nnls_blockpivot)
-_REDUCE_FRACTION = 8
-_REDUCE_MIN_N = 2048
-_REDUCE_MIN_K = 48
+# Where RHS has at least this many entries (k * n) a pivot round solves only
+# the columns that are not optimal yet; below it the gathers, the scatters
+# and the host's wait for the column ids cost more than the narrower round
+# saves.  From `chip_smoke.py --k1` (NVIDIA H100 80GB HBM3, 700.00 W; f32,
+# k = 8..128, n = 2048..1,000,000): narrowed rounds lose by 2-5 ms a call
+# up to 8.0 M entries, tie at 8.4-12.6 M and win from 16 M.
+_NARROW_MIN_ENTRIES = 1 << 23
 
 
 def _masked_solve(LHS, RHS, passive):
@@ -84,17 +88,25 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     bool tensor (converged and finite), `rounds` the number of pivot
     rounds (masked solves after the first) as a Python int.
 
-    Only the reference's full-width round body is ported.  Its slab ladder
-    exists for XLA's static shapes, and each column's pivot sequence is
-    independent of every other column's, so X, Y and ok are the same
-    without it.  Only `rounds` can differ, and only where n >= 2048 and
-    k >= 48: there the ladder counts its slab rounds against a cap of 8x
-    the rounds, which is kept below.
+    Where RHS is large (k * n >= _NARROW_MIN_ENTRIES) a round gathers the
+    columns that are not optimal yet, applies the pivot rules, the masked
+    solve and the two small GEMMs at that exact width, and scatters the
+    results back: the port of what the reference's slab ladder is for,
+    without its slabs, padding and nested loops, which exist for XLA's
+    static shapes.  Each column's pivot sequence is independent of every
+    other column's, and the one global quantity, the infeasibility floor
+    dx from max|X|, is taken over all columns, so X, ok and `rounds` are
+    what full-width rounds give (and Y up to the summation order of a GEMM
+    at another width, well inside the sign tests' allowance dy); only the
+    work per round shrinks.  A round here is a round over all live
+    columns, so the cap is the reference's 5 k for full-width rounds; the
+    reference counts its slab rounds against 8x that, so there `rounds`
+    can differ.
     """
     k, n = RHS.shape
     RHS = RHS.contiguous()
-    reduce_width = n >= _REDUCE_MIN_N and k >= _REDUCE_MIN_K
-    max_iter = 5 * k * (_REDUCE_FRACTION if reduce_width else 1)
+    narrow_rounds = k * n >= _NARROW_MIN_ENTRIES
+    max_iter = 5 * k
     eps = torch.finfo(RHS.dtype).eps
 
     # Per-entry sign-test tolerances (the reference's `deltas`): values are
@@ -103,10 +115,11 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     abs_lhs = torch.abs(LHS)
     abs_rhs = torch.abs(RHS)
 
-    def deltas(X):
-        dx = 512.0 * eps * torch.clamp(torch.max(torch.abs(X)), min=1.0)
-        dy = 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)  # (k, n)
-        return dx, dy
+    def delta_x(X):  # over all columns, also in a narrowed round
+        return 512.0 * eps * torch.clamp(torch.max(torch.abs(X)), min=1.0)
+
+    def delta_y(X, abs_rhs):
+        return 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)  # (k, n)
 
     passive = (Xinit > 0).contiguous()
     X = _masked_solve(LHS, RHS, passive)
@@ -115,31 +128,60 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     P = torch.full((n,), PBAR, dtype=torch.int32, device=RHS.device)
     Ninf = torch.full((n,), k + 1, dtype=torch.int32, device=RHS.device)
 
-    dx, dy = deltas(X)
-    nonopt = (Y < -dy) & ~passive
-    infeas = (X < -dx) & passive
+    nonopt = (Y < -delta_y(X, abs_rhs)) & ~passive
+    infeas = (X < -delta_x(X)) & passive
     not_good = _count(nonopt, infeas)
 
     it = 0
-    while it < max_iter and bool(torch.any(not_good > 0)):
+    while it < max_iter:
         notopt_col = not_good > 0
-        P, Ninf, cols1, cols2, cols3 = _pivot_cols(
-            P, Ninf, nonopt, infeas, not_good, notopt_col)
-        passive = _update_passive(passive, nonopt, infeas,
-                                  cols1, cols2, cols3)
+        if narrow_rounds:
+            # solve the non-optimal columns only, at their exact width;
+            # their ids are the round's one host sync
+            ids = torch.nonzero(notopt_col)[:, 0]
+            if ids.numel() == 0:
+                break
+            RHS_s = RHS.index_select(1, ids)
+            nonopt_s = nonopt.index_select(1, ids)
+            infeas_s = infeas.index_select(1, ids)
+            P_s, Ninf_s, cols1, cols2, cols3 = _pivot_cols(
+                P[ids], Ninf[ids], nonopt_s, infeas_s, not_good[ids],
+                torch.ones_like(ids, dtype=torch.bool))
+            passive_s = _update_passive(passive.index_select(1, ids),
+                                        nonopt_s, infeas_s,
+                                        cols1, cols2, cols3).contiguous()
+            Xs = _masked_solve(LHS, RHS_s, passive_s)
+            Ys = gemm(LHS, Xs) - RHS_s
+            X[:, ids] = Xs
+            Y[:, ids] = Ys
+            passive[:, ids] = passive_s
+            P[ids] = P_s
+            Ninf[ids] = Ninf_s
 
-        # solve every column with the updated passive sets; keep the
-        # non-optimal ones
-        Xs = _masked_solve(LHS, RHS, passive)
-        Ys = gemm(LHS, Xs) - RHS
-        mask = notopt_col[None, :]
-        X = torch.where(mask, Xs, X)
-        Y = torch.where(mask, Ys, Y)
+            nonopt_s = (Ys < -delta_y(Xs, torch.abs(RHS_s))) & ~passive_s
+            infeas_s = (Xs < -delta_x(X)) & passive_s
+            nonopt[:, ids] = nonopt_s
+            infeas[:, ids] = infeas_s
+            not_good[ids] = _count(nonopt_s, infeas_s)
+        else:
+            if not bool(torch.any(notopt_col)):  # the round's host sync
+                break
+            P, Ninf, cols1, cols2, cols3 = _pivot_cols(
+                P, Ninf, nonopt, infeas, not_good, notopt_col)
+            passive = _update_passive(passive, nonopt, infeas,
+                                      cols1, cols2, cols3)
 
-        dx, dy = deltas(X)
-        nonopt = mask & (Y < -dy) & ~passive
-        infeas = mask & (X < -dx) & passive
-        not_good = _count(nonopt, infeas)
+            # solve every column with the updated passive sets; keep the
+            # non-optimal ones
+            Xs = _masked_solve(LHS, RHS, passive)
+            Ys = gemm(LHS, Xs) - RHS
+            mask = notopt_col[None, :]
+            X = torch.where(mask, Xs, X)
+            Y = torch.where(mask, Ys, Y)
+
+            nonopt = mask & (Y < -delta_y(X, abs_rhs)) & ~passive
+            infeas = mask & (X < -delta_x(X)) & passive
+            not_good = _count(nonopt, infeas)
         it += 1
 
     converged = ~torch.any(not_good > 0)

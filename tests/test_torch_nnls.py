@@ -1,5 +1,6 @@
 """The port's block-principal-pivoting NNLS against the JAX package (f64)
-and against the numpy transcription of the reference NnlsBlockpivot."""
+and against the numpy transcription of the reference NnlsBlockpivot; its
+rounds over the non-optimal columns only against full-width rounds."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,6 +8,8 @@ import pytest
 import torch
 
 import smallk_tpu.solvers.nnls as jnnls
+from smallk_torch.kernels import masked_gj
+from smallk_torch.ops.dense import gemm, zeroize_small
 from smallk_torch.solvers import nnls as tnnls
 from test_oracles import np_nnls_blockpivot
 
@@ -122,3 +125,118 @@ def test_rank_above_kernel_limit_uses_plain_version_on_cpu():
     X, Y, ok, _ = _port(LHS, RHS, Xinit)
     assert ok and (X >= 0).all()
     assert np.abs(X * Y).max() < 1e-6
+
+
+def _full_width_blockpivot(LHS, RHS, Xinit):
+    """The oracle for the narrowed rounds: nnls_blockpivot with every round
+    at full width (all n columns solved, the non-optimal ones kept), as the
+    reference's `body` has it."""
+    k, n = RHS.shape
+    max_iter = 5 * k
+    eps = torch.finfo(RHS.dtype).eps
+    abs_lhs, abs_rhs = torch.abs(LHS), torch.abs(RHS)
+
+    def deltas(X):
+        dx = 512.0 * eps * torch.clamp(torch.max(torch.abs(X)), min=1.0)
+        dy = 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)
+        return dx, dy
+
+    passive = Xinit > 0
+    X = masked_gj.masked_gj_solve_reference(LHS, RHS, passive)
+    Y = gemm(LHS, X) - RHS
+    P = torch.full((n,), tnnls.PBAR, dtype=torch.int32)
+    Ninf = torch.full((n,), k + 1, dtype=torch.int32)
+    dx, dy = deltas(X)
+    nonopt = (Y < -dy) & ~passive
+    infeas = (X < -dx) & passive
+    not_good = tnnls._count(nonopt, infeas)
+    it = 0
+    live = []
+    while it < max_iter and bool(torch.any(not_good > 0)):
+        notopt_col = not_good > 0
+        live.append(int(notopt_col.sum()))
+        P, Ninf, c1, c2, c3 = tnnls._pivot_cols(
+            P, Ninf, nonopt, infeas, not_good, notopt_col)
+        passive = tnnls._update_passive(passive, nonopt, infeas, c1, c2, c3)
+        Xs = masked_gj.masked_gj_solve_reference(LHS, RHS, passive)
+        Ys = gemm(LHS, Xs) - RHS
+        mask = notopt_col[None, :]
+        X = torch.where(mask, Xs, X)
+        Y = torch.where(mask, Ys, Y)
+        dx, dy = deltas(X)
+        nonopt = mask & (Y < -dy) & ~passive
+        infeas = mask & (X < -dx) & passive
+        not_good = tnnls._count(nonopt, infeas)
+        it += 1
+    converged = ~torch.any(not_good > 0)
+    finite = torch.all(torch.isfinite(X)) & torch.all(torch.isfinite(Y))
+    X = torch.clamp(X, min=0.0)
+    X = zeroize_small(X, 8.0 * eps * torch.clamp(torch.max(X), min=1.0))
+    return X, Y, converged & finite, it, live
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("k,n", [(48, 2048), (50, 2100)])
+def test_active_column_rounds_equal_full_width_rounds(k, n, dtype,
+                                                      monkeypatch):
+    """With the gate lowered to this size (on the card it is k n >= 2^23,
+    too large for a CPU test) a round solves only the columns still not
+    optimal; X, ok and rounds are those of full-width rounds, bit for bit,
+    and the columns solved are fewer than rounds x n.  Y = LHS X - RHS
+    comes from a GEMM at another width, which may sum in another order: it
+    is held to a quarter of the sign tests' own rounding allowance,
+    4 eps (|LHS| |X| + |RHS|) entry by entry (and is bit-equal wherever
+    the BLAS sums alike)."""
+    monkeypatch.setattr(tnnls, "_NARROW_MIN_ENTRIES", k * n)
+    LHS, RHS, Xinit = (torch.from_numpy(a.astype(dtype))
+                       for a in _problem(k, n, 11, cols=2))
+    Xo, Yo, oko, ro, live = _full_width_blockpivot(LHS, RHS, Xinit)
+    solved = []
+    plain = masked_gj.masked_gj_solve_reference
+
+    def counting(L, R, p):
+        solved.append(R.shape[1])
+        return plain(L, R, p)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(masked_gj, "masked_gj_solve_reference", counting)
+        X, Y, ok, rounds = tnnls.nnls_blockpivot(LHS, RHS, Xinit)
+    finally:
+        mp.undo()
+    assert rounds == ro and rounds > 2
+    assert bool(ok) == bool(oko) and bool(ok)
+    assert torch.equal(X, Xo)
+    allowance = 4.0 * torch.finfo(X.dtype).eps * (
+        gemm(torch.abs(LHS), torch.abs(X)) + torch.abs(RHS))
+    assert bool(torch.all(torch.abs(Y - Yo) <= allowance))
+    # the first solve and every round at the width of its non-optimal set
+    assert solved == [n] + live
+    assert sum(solved[1:]) < rounds * n
+
+
+def test_active_column_rounds_match_jax_f64(monkeypatch):
+    """The same shape and narrowed rounds against the JAX nnls_blockpivot,
+    whose width ladder is live here.  The ladder counts its slab rounds, so
+    its `rounds` may differ from the port's and is not compared."""
+    k, n = 48, 2048
+    monkeypatch.setattr(tnnls, "_NARROW_MIN_ENTRIES", k * n)
+    LHS, RHS, Xinit = _problem(k, n, 11, cols=2)
+    Xj, Yj, okj, _ = jnnls.nnls_blockpivot(
+        jnp.asarray(LHS), jnp.asarray(RHS), jnp.asarray(Xinit))
+    X, Y, ok, rounds = _port(LHS, RHS, Xinit)
+    assert ok == bool(okj) and ok and rounds > 0
+    np.testing.assert_allclose(X, np.asarray(Xj), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(Y, np.asarray(Yj), rtol=0, atol=1e-10)
+
+
+def test_narrow_shapes_keep_full_width_rounds():
+    """Below the gate (k n < _NARROW_MIN_ENTRIES) every round solves all n
+    columns."""
+    LHS, RHS, Xinit = (torch.from_numpy(a) for a in _problem(8, 300, 2))
+    Xo, Yo, oko, ro, _ = _full_width_blockpivot(LHS, RHS, Xinit)
+    before = masked_gj.launches, masked_gj.columns
+    X, Y, ok, rounds = tnnls.nnls_blockpivot(LHS, RHS, Xinit)
+    assert (masked_gj.launches, masked_gj.columns) == before  # CPU tensors
+    assert rounds == ro and bool(ok) and bool(oko)
+    assert torch.equal(X, Xo) and torch.equal(Y, Yo)
