@@ -15,10 +15,11 @@ fails (nonzero exit, no result line) on any fault:
      up to k = 128, plus the dead-pivot case and non-finite inputs; the
      two kernels side by side over k (what the dispatch constant is set
      from); kernel, plain and library times at the BPP shapes;
-  4. K2, the whole-step HALS kernel, against its plain version at the
-     flatclust shape (f32 and bf16 A), small and ragged shapes, the
-     largest square shape the kernel admits at k = 16 and the zero-column
-     rescue; kernel and plain times at 256 x 256, k = 16;
+  4. K2, the whole-step HALS kernel (a cluster of 8 CTAs), against its
+     plain version at the flatclust shape (f32 and bf16 A), small and
+     ragged shapes, the largest square shape the kernel admits at k = 16
+     and the zero-column rescue; kernel and plain times at 256 x 256,
+     k = 16;
   5. slice parity in f64: run_nmf with BPP, MU, HALS and RANK2 on the card
      against the same calls on the CPU (f64 runs the torch-ops steps), and
      nnls_blockpivot at a shape where its rounds narrow to the columns
@@ -44,8 +45,10 @@ fails (nonzero exit, no result line) on any fault:
      reference, with K3's launches and the products' branches counted;
  12. ell_spmm, the ELL gather-SpMM kernel, against its plain version on
      ragged buckets with sentinels (every dtype pair, store and
-     accumulate) and at the shapes of P1 (scripts/tpu_batch29.py) and P2
-     (scripts/tpu_batch33.py); kernel, plain and torch.sparse.mm times;
+     accumulate, row and transposed output) and at the shapes of P1
+     (scripts/tpu_batch29.py) and P2 (scripts/tpu_batch33.py), the
+     transposed output bit-equal to the row output transposed; kernel,
+     plain and torch.sparse.mm times;
  13. sparse parity in f64: run_nmf BPP and MU on a blocked EllAOp and on
      a SparseAOp, the card against the CPU;
  14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
@@ -54,6 +57,8 @@ fails (nonzero exit, no result line) on any fault:
      its two products (ell_spmm) and K1's full-width rounds, each timed
      and held against its plain version at these shapes (K1 also against
      the narrow kernel and torch.linalg.solve_ex at the W side's width);
+     W'A's one bucket timed beside its plain version and torch.sparse.mm,
+     and op.mm_tn checked by the profiler to run nothing but that launch;
      the sparse-side relative error (from plain products), ell_spmm's
      launches, and BPP's pivot rounds, K1 launches and K1 columns counted;
  15. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
@@ -79,6 +84,27 @@ runs only the studies of the flagship operand: AH' for each doc block of
 DOC_BLOCKS (how ops/ell._DOC_BLOCK was chosen), MU with its products
 through ell_spmm and through torch.sparse.mm, alternating, and one BPP
 run (3 iterations) and one MU run under torch.profiler.
+
+    python3 chip_smoke.py --ell
+
+runs only ell_spmm's layout study: the flagship's W'A bucket written
+transposed, by rows, and by rows then copied to (k, n); both products
+through the operand; P1's and P2's shapes in both layouts; then the
+flagship's BPP and MU profiles.
+
+    python3 chip_smoke.py --k2
+
+runs only the K2 study: a cluster barrier's and a DSMEM load's latency,
+cudaOccupancyMaxActiveClusters, the phase split of one step from a build
+with per-CTA stamps at 256 x 256 (f32 and bf16 A), 888 and 992, the
+wrapper's host cost, and the flatclust HALS path under torch.profiler.
+
+    python3 chip_smoke.py --pair DIR
+
+times both redesigned kernels, the flatclust HALS path and the flagship
+(products, MU, BPP) with the package of an archived tree at DIR and of
+this one, in the order DIR, this, this, DIR, each in a process of its own
+(`--times TREE`), and fails unless the flagship's products are bit-equal.
 
 There is no CPU fallback: without a card the script exits 1.
 """
@@ -161,6 +187,12 @@ FLAG_M, FLAG_N, FLAG_K, FLAG_NZ = 50_000, 1_000_000, 128, 80
 # steady iterations
 FLAG_MU_ITERS, FLAG_BPP_ITERS = (5, 25), (3, 23)
 FLAG_K1_CHECK = 65536   # columns of a full-width K1 round held to plain
+# the flagship BPP run recorded before W'A was written transposed
+# (PERF.md), which bit-equal products reproduce: iterations
+# -> ((pivot rounds, K1 launches, K1 columns), relative error)
+RECORDED_BPP = {1: ((21, 23, 6983098), 0.999090),
+                3: ((41, 47, 14706625), 0.998719),
+                23: ((181, 227, 61684791), 0.998003)}
 DOC_BLOCKS = (0, 32768, 65536, 131072)           # the --sparse sweep
 CLI_M, CLI_N, CLI_NZ = 30000, 20000, 80   # f32 dense image 2.4 GB > 2 GiB
 
@@ -262,14 +294,16 @@ def reset_counts() -> None:
     hals_step.launches = 0
     rank2_loop.launches = 0
     ell_spmm.launches = 0
+    ell_spmm.transposed_launches = 0
     ell_spmm.plain_cuda_calls = 0
     aop.kernel_products = 0
     aop.matmul_products = 0
 
 
 def read_counts() -> dict:
-    """Launches of K1, K2, K3 and ell_spmm, the columns K1 solved,
-    ell_spmm's plain-version calls on CUDA tensors, and the dense products
+    """Launches of K1, K2, K3 and ell_spmm (and ell_spmm's transposed
+    ones), the columns K1 solved, ell_spmm's plain-version calls on CUDA
+    tensors, and the dense products
     that went to K3 and to torch.matmul, since the last reset_counts()."""
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
@@ -277,6 +311,7 @@ def read_counts() -> dict:
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
             "K3": rank2_loop.launches, "ell_spmm": ell_spmm.launches,
+            "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
             "kernel_products": aop.kernel_products,
             "matmul_products": aop.matmul_products}
@@ -1266,6 +1301,19 @@ def phase_ell_spmm() -> dict:
                                  "plain version")
         worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
 
+    def launch(args, out0, rows, accumulate, transposed, label, tol):
+        """One launch in the given layout, against the plain version."""
+        want = kmod.ell_spmm_reference(*args, out0.clone(), rows, accumulate,
+                                       transposed)
+        before = kmod.launches
+        got = kmod.ell_spmm(*args, out0.clone(), rows, accumulate, transposed)
+        torch.cuda.synchronize()
+        if kmod.launches != before + 1:
+            raise AssertionError("ell_spmm did not launch its kernel")
+        check(f"{label} {'transposed' if transposed else 'row'} "
+              f"{'accumulate' if accumulate else 'store'}", got, want, tol)
+        return got
+
     for i, (g, L, B, k, vt, tt) in enumerate(ELL_RAGGED):
         idx, vals, table = ell_inputs(g, L, B, k, vt, tt, 0.3, seed=i)
         acc = torch.float64 if vt == "float64" else torch.float32
@@ -1274,18 +1322,18 @@ def phase_ell_spmm() -> dict:
         rows = torch.randperm(g + 7, generator=gen, device="cuda")[:g].to(
             torch.int32)
         out0 = torch.rand((g + 7, k), generator=gen, dtype=acc, device="cuda")
+        label = f"g={g} L={L} B={B} k={k} vals {vt} table {tt}"
+        tol = ELL_TOL[vt if vt == "float64" else "float32"]
         for accumulate in (False, True):
-            before = kmod.launches
-            got = kmod.ell_spmm(idx, vals, table, out0.clone(), rows,
-                                accumulate)
-            want = kmod.ell_spmm_reference(idx, vals, table, out0.clone(),
-                                           rows, accumulate)
-            torch.cuda.synchronize()
-            if kmod.launches != before + 1:
-                raise AssertionError("ell_spmm did not launch its kernel")
-            check(f"g={g} L={L} B={B} k={k} vals {vt} table {tt} "
-                  f"{'accumulate' if accumulate else 'store'}", got, want,
-                  ELL_TOL[vt if vt == "float64" else "float32"])
+            row = launch((idx, vals, table), out0, rows, accumulate, False,
+                         label, tol)
+            tr = launch((idx, vals, table), out0.T.contiguous(), rows,
+                        accumulate, True, label, tol)
+            if not torch.equal(tr, row.T):
+                raise AssertionError(f"ell_spmm {label}: the transposed mode "
+                                     "is not the row mode transposed")
+    log("[ell_spmm] row and transposed output bit-equal to each other on "
+        "every ragged bucket")
 
     probes = {}
     for p, (name, (G, L, B, k, vt, tt)) in enumerate(ELL_PROBES.items()):
@@ -1301,6 +1349,11 @@ def phase_ell_spmm() -> dict:
         got = kernel().clone()
         check(f"{name} G={G} L={L} B={B} k={k} vals {vt} table {tt}", got,
               plain_version(), ELL_TOL["float32"])
+        tr = launch((idx, vals, table), torch.zeros((k, G), device="cuda"),
+                    None, False, True, name, ELL_TOL["float32"])
+        if not torch.equal(tr, got.T):
+            raise AssertionError(f"ell_spmm {name}: the transposed mode is "
+                                 "not the row mode transposed")
         # the library call: torch.sparse.mm on the bucket as an f32 CSR
         # (duplicate ids summed) and the table in f32, built beforehand
         rows = torch.arange(G, device="cuda").repeat_interleave(L)
@@ -1326,8 +1379,9 @@ def phase_ell_spmm() -> dict:
                         "bound_ms": b_ms, "bound_by": b_by}
         log(f"[ell_spmm time] {name} G={G} L={L} B={B} k={k} vals {vt} "
             f"table {tt}: device ms per call kernel {ms:.4f} ({nnz / ms / 1e6:.2f}"
-            f" Gnnz/s, {nnz * k * table.element_size() / ms / 1e9:.1f} TB/s "
-            f"of gathered rows; back to back {ms_b2b:.4f}), plain {plain:.4f}, "
+            f" Gnnz/s, {nnz * k * table.element_size() / 1e9:.3f} GB of "
+            f"gathered rows at {nnz * k * table.element_size() / ms / 1e9:.2f}"
+            f" TB/s; back to back {ms_b2b:.4f}), plain {plain:.4f}, "
             f"library torch.sparse.mm on the bucket as an f32 CSR {library:.4f} "
             f"(back to back; max rel diff {lib_rel:.1e}); bound {b_ms:.4f} ms "
             f"({b_by})")
@@ -1632,6 +1686,7 @@ def phase_flagship(card: str) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     nnz = A.nnz
+    at_csr = transposed_csr(A)  # the library call's operand (W'A)
     del A
     per_iter = ell_launches_per_iteration(op)
     op_bytes = torch.cuda.memory_allocated()
@@ -1667,13 +1722,17 @@ def phase_flagship(card: str) -> dict:
     nt_ms = back_to_back_ms(lambda: op.mm_nt(H), 5)
     log(f"[flagship] products at k={FLAG_K}: W'A {tn_ms:.3f} ms, AH' "
         f"{nt_ms:.3f} ms ({nnz / ((tn_ms + nt_ms) / 2) / 1e6:.3f} Gnnz/s "
-        f"each on average)")
+        f"each on average; {nnz * FLAG_K * 4 / 1e9:.2f} GB of gathered "
+        f"table rows each, at {nnz * FLAG_K * 4 / tn_ms / 1e9:.2f} and "
+        f"{nnz * FLAG_K * 4 / nt_ms / 1e9:.2f} TB/s)")
+    wta = flagship_wta(op, W, at_csr)
+    del at_csr
     # K1's full-width rounds on the real Grams and right-hand sides
     k1_rounds = k1_round_ms({"H": (W.T @ W, op.mm_tn(W)),
                              "W": (H @ H.T, op.mm_nt(H).T)})
     del W, H
 
-    launches = k1_launches = 0
+    launches = wta_launches = k1_launches = 0
     rates, k1_stats = {}, {}
     for alg, iters in (("MU", FLAG_MU_ITERS), ("BPP", FLAG_BPP_ITERS)):
         opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
@@ -1711,11 +1770,16 @@ def phase_flagship(card: str) -> dict:
                           f"per round)" if alg == "BPP" else "")
             log(f"[flagship] {alg} {it} iteration(s): solve {walls[it]:.3f} "
                 f"s, rel err {rel[it]:.6f}, ell_spmm launches "
-                f"{counts['ell_spmm']}, K1 launches {counts['K1']}, plain "
+                f"{counts['ell_spmm']} ({counts['ell_spmm_transposed']} "
+                f"transposed: W'A), K1 launches {counts['K1']}, plain "
                 f"calls on cuda {counts['ell_plain_cuda']}{rounds_txt}")
             if counts["ell_spmm"] < per_iter * it or counts["ell_plain_cuda"]:
                 raise AssertionError(f"flagship {alg}: products bypassed "
                                      f"ell_spmm ({counts})")
+            # W'A is one transposed launch of the one column bucket
+            if counts["ell_spmm_transposed"] < it:
+                raise AssertionError(f"flagship {alg}: W'A was not written "
+                                     f"transposed ({counts})")
             want_k1 = 2 * it if alg == "BPP" else 0
             if counts["K1"] < want_k1 or (not want_k1 and counts["K1"]):
                 raise AssertionError(f"flagship {alg}: K1 launches {counts}")
@@ -1733,6 +1797,7 @@ def phase_flagship(card: str) -> dict:
                                 counts["K1_columns"])
             if it in iters:
                 launches += counts["ell_spmm"]
+                wta_launches += counts["ell_spmm_transposed"]
                 k1_launches += counts["K1"]
         lo, hi = iters[0], iters[-1]
         if not rel[hi] < rel[1]:
@@ -1747,13 +1812,108 @@ def phase_flagship(card: str) -> dict:
         log(f"[flagship] {alg} k={FLAG_K}: {rates[alg]:.4f} it/s "
             f"(({hi} - {lo}) iterations / ({walls[hi]:.3f} - {walls[lo]:.3f}) "
             f"s), first iteration {walls[1]:.3f} s{k1_txt} on {card}")
+        if alg == "BPP":
+            found = {it: (k1_stats[it], round(rel[it], 6))
+                     for it in RECORDED_BPP}
+            log("[flagship] BPP against the recorded run ((pivot rounds, K1 "
+                "launches, K1 columns), rel err per iteration count): "
+                + ("the same" if found == RECORDED_BPP
+                   else f"DIFFERENT: {found}, recorded {RECORDED_BPP}"))
     log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     del op
     torch.cuda.empty_cache()
-    return {"launches": launches, "rates": rates, "max_abs_err": worst_abs,
+    return {"launches": launches, "wta_launches": wta_launches,
+            "rates": rates, "max_abs_err": worst_abs,
             "k1_launches": k1_launches, "k1_rounds": k1_rounds,
-            "k1_stats": k1_stats}
+            "k1_stats": k1_stats, "wta": wta}
+
+
+def transposed_csr(A):
+    """A^T (n x m) as a CUDA f32 CSR holding the operand's bf16-rounded
+    values: torch.sparse.mm's operand for W'A, built beforehand."""
+    import torch
+
+    csc = A.tocsc()
+    vals = torch.from_numpy(csc.data.astype(np.float32)).to(
+        torch.bfloat16).float()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csc.indptr.astype(np.int64)),
+        torch.from_numpy(csc.indices.astype(np.int64)), vals,
+        (csc.shape[1], csc.shape[0])).cuda()
+
+
+def flagship_wta(op, W, at_csr) -> dict:
+    """W'A at the flagship: its one column bucket (every column has 78-80
+    entries, so the ladder makes one bucket of L = 80) as one transposed
+    ell_spmm launch, held against its plain version and timed beside it
+    and torch.sparse.mm; and a profiler check that op.mm_tn runs only the
+    kernel's launches (no strided copy after it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch.kernels import ell_spmm as kmod
+
+    if op.col_blocks is not None or len(op.col_buckets) != 1:
+        raise AssertionError(f"flagship W'A: {len(op.col_buckets or ())} "
+                             "column buckets, expected one")
+    ids, idx, vals = op.col_buckets[0]
+    W = W.contiguous()  # as mm_tn hands it to the kernel
+    (B, k), (g, L) = W.shape, idx.shape
+    out = torch.empty((k, FLAG_N), dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return kmod.ell_spmm(idx, vals, W, out, rows=ids, transposed=True)
+
+    def plain_version():
+        return kmod.ell_spmm_reference(idx, vals, W, out, rows=ids,
+                                       transposed=True)
+
+    got = kernel().clone()
+    want = plain_version().clone()
+    diff = float((got - want).abs().max())
+    rel = diff / float(want.abs().max())
+    if not (rel <= ELL_TOL["float32"] and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"flagship W'A bucket: relative {rel}")
+    lib = torch.sparse.mm(at_csr, W)
+    lib_rel = float((lib.T - got).abs().max() / got.abs().max())
+    if not lib_rel <= 1e-4:
+        raise AssertionError(f"flagship W'A: torch.sparse.mm differs by "
+                             f"{lib_rel}")
+    del got, want, lib
+    ms = back_to_back_ms(kernel, 10)
+    plain = back_to_back_ms(plain_version, 2)
+    library = back_to_back_ms(lambda: torch.sparse.mm(at_csr, W), 3)
+    nnz = int((idx < B).sum())
+    nbytes = (idx.numel() * 4 + vals.numel() * vals.element_size()
+              + W.numel() * 4 + out.numel() * 4)
+    b_ms, b_by = bound(2.0 * nnz * k, nbytes)
+    gathered = nnz * k * W.element_size()
+
+    # op.mm_tn on the card: nothing but the kernel's launches
+    before = kmod.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = op.mm_tn(W)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    launched = kmod.launches - before
+    if not names or any("ell_spmm_kernel" not in nm for nm in names) or \
+            len(names) != launched or not res.is_contiguous() or \
+            tuple(res.shape) != (k, FLAG_N):
+        raise AssertionError(f"flagship W'A: mm_tn ran {names} for "
+                             f"{launched} launches")
+    log(f"[flagship W'A] g={g} L={L} B={B} k={k}, bf16 vals, f32 table, "
+        f"transposed out: max|kernel - plain| {diff:.3e}, relative "
+        f"{rel:.3e}; device ms per call kernel {ms:.4f} ({nnz / ms / 1e6:.2f}"
+        f" Gnnz/s, {gathered / 1e9:.2f} GB of gathered rows at "
+        f"{gathered / ms / 1e9:.2f} TB/s), plain {plain:.4f}, library "
+        f"torch.sparse.mm on A^T as an f32 CSR {library:.4f} (max rel diff "
+        f"{lib_rel:.1e}); bound {b_ms:.4f} ms ({b_by}); op.mm_tn on the card "
+        f"ran {len(names)} kernel(s), all ell_spmm, and no copy")
+    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": diff}
 
 
 def phase_sparse_cli() -> None:
@@ -1833,12 +1993,10 @@ def sparse_study(card: str) -> None:
     torch.sparse.mm, alternating; two BPP runs and one MU run under
     torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from smallk_torch import NmfAlgorithm, NmfOptions, NmfStats
     from smallk_torch.engines.nmf import run_nmf
     from smallk_torch.ops.ell import EllAOp
-    from smallk_torch.solvers.solve import nmf_solve
 
     A, W0, H0 = flagship_problem()
     H = torch.from_numpy(H0).cuda()
@@ -1860,14 +2018,9 @@ def sparse_study(card: str) -> None:
     op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
     # torch.sparse.mm's operands, built beforehand: A and A^T as f32 CSR
     # holding the operand's bf16-rounded values
-    vals = torch.from_numpy(A.data.astype(np.float32)).to(
-        torch.bfloat16).float()
-    at_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(A.indptr.astype(np.int64)),
-        torch.from_numpy(A.indices.astype(np.int64)), vals,
-        (FLAG_N, FLAG_M)).cuda()
+    at_csr = transposed_csr(A)
     a_csr = at_csr.to_sparse_coo().t().coalesce().to_sparse_csr()
-    del A, vals
+    del A
 
     def mm_tn_library(self, W):
         return torch.sparse.mm(at_csr, W).T.contiguous()
@@ -1914,16 +2067,28 @@ def sparse_study(card: str) -> None:
     finally:
         EllAOp.mm_tn, EllAOp.mm_nt = methods
 
-    # the solve loop alone, on factors already on the card; BPP first, so
-    # that the profiler's start-up lands in its longer window, not in MU's.
-    # BPP's first iteration starts from an all-positive H (every entry
-    # passive, the dearest masked solve); the longer BPP run less the
-    # shorter one is the steady state.
+    profile_flagship(op, W0, H0)
+
+
+def profile_flagship(op, W0, H0) -> None:
+    """The solve loop alone under torch.profiler, on factors already on the
+    card: BPP for 3 and 23 iterations, then MU for 25.  BPP first, so that
+    the profiler's start-up lands in its longer window, not in MU's.  BPP's
+    first iteration starts from an all-positive H (every entry passive,
+    the dearest masked solve); the longer BPP run less the shorter one is
+    the steady state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import NmfAlgorithm, NmfOptions
+    from smallk_torch.solvers.solve import nmf_solve
+
     W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
     for alg, it in (("BPP", FLAG_BPP_ITERS[0]), ("BPP", FLAG_BPP_ITERS[-1]),
-                    ("MU", hi)):
-        opts = dataclasses.replace(mu, algorithm=NmfAlgorithm(alg),
-                                   max_iter=it)
+                    ("MU", FLAG_MU_ITERS[-1])):
+        opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
+                          height=FLAG_M, width=FLAG_N, k=FLAG_K, min_iter=1,
+                          max_iter=it, verbose=False, a_dtype="bfloat16")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1935,6 +2100,274 @@ def sparse_study(card: str) -> None:
                         "iteration(s)")
 
 
+def ell_study(card: str) -> None:
+    """--ell: ell_spmm's two layouts at the flagship and the probes' shapes.
+    The bucket ladder of both products; W'A's bucket (L = 80) written
+    transposed, written by rows, and written by rows then copied to (k, n)
+    as the previous design did; each product through the operand; P1's
+    and P2's shapes in both layouts; then the flagship's MU and BPP
+    profiles."""
+    import torch
+
+    from smallk_torch.kernels import ell_spmm as kmod
+    from smallk_torch.ops.ell import EllAOp
+
+    A, W0, H0 = flagship_problem()
+    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    del A
+    W = torch.from_numpy(W0).cuda().contiguous()
+    H = torch.from_numpy(H0).cuda()
+    ladder = {}
+    for _, bkts in op.row_blocks:
+        for _, idx, _ in bkts:
+            ladder[idx.shape[1]] = ladder.get(idx.shape[1], 0) + idx.shape[0]
+    log(f"[ell] flagship buckets: W'A {[tuple(i.shape) for _, i, _ in op.col_buckets]}"
+        f"; AH' {len(op.row_blocks)} doc blocks, rows per L "
+        f"{dict(sorted(ladder.items()))}")
+
+    ids, idx, vals = op.col_buckets[0]
+    k = W.shape[1]
+    out_t = torch.empty((k, FLAG_N), device="cuda")
+    out_r = torch.empty((FLAG_N, k), device="cuda")
+    for _ in range(2):
+        tr = back_to_back_ms(lambda: kmod.ell_spmm(
+            idx, vals, W, out_t, ids, transposed=True), 10)
+        row = back_to_back_ms(lambda: kmod.ell_spmm(
+            idx, vals, W, out_r, ids), 10)
+        copied = back_to_back_ms(lambda: kmod.ell_spmm(
+            idx, vals, W, out_r, ids).T.contiguous(), 10)
+        log(f"[ell] W'A bucket {tuple(idx.shape)}: transposed {tr:.4f} ms, "
+            f"row {row:.4f} ms, row + copy to (k, n) {copied:.4f} ms")
+    del out_t, out_r
+    for _ in range(2):
+        log(f"[ell] through the operand: AH' "
+            f"{back_to_back_ms(lambda: op.mm_nt(H), 5):.3f} ms, W'A "
+            f"{back_to_back_ms(lambda: op.mm_tn(W), 5):.3f} ms")
+
+    for name, (G, L, B, k, vt, tt) in ELL_PROBES.items():
+        idx, vals, table = ell_inputs(G, L, B, k, vt, tt, 0.0, seed=7)
+        out_r = torch.empty((G, k), device="cuda")
+        out_t = torch.empty((k, G), device="cuda")
+        row = device_ms(lambda: kmod.ell_spmm(idx, vals, table, out_r), 50)
+        tr = device_ms(lambda: kmod.ell_spmm(idx, vals, table, out_t,
+                                             transposed=True), 50)
+        log(f"[ell] {name} G={G} L={L} B={B} k={k} vals {vt} table {tt}: "
+            f"row {row:.4f} ms, transposed {tr:.4f} ms")
+    del W, H
+    profile_flagship(op, W0, H0)
+    log(f"[ell] on {card}")
+
+
+def k2_study(card: str) -> None:
+    """--k2: where a K2 step's time goes.  The cluster barrier's and a DSMEM
+    load's latency (the cluster probe), the clusters the card holds at
+    once, the stamped build's phase split per CTA at 256 x 256 (f32 and
+    bf16 A), 888 x 888 and 992 x 992, k = 16, beside the step's device
+    time with and without stamps; then the flatclust HALS path under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfProgressAlgorithm
+    from smallk_torch.engines.flatclust import run_flatclust
+    from smallk_torch.kernels import hals_step as k2
+
+    for _ in range(3):
+        cyc, ns, dsmem, local = k2.cluster_probe(4096)
+        log(f"[k2] cluster of {k2.CLUSTER}: barrier {cyc:.1f} cycles = "
+            f"{ns:.1f} ns; dependent DSMEM load {dsmem:.1f} cycles, local "
+            f"shared-memory load {local:.1f} cycles")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for side in (256, 888, 992):
+        log(f"[k2] {side}x{side} k={FLAT_K}: {k2.smem_bytes(side, side, FLAT_K)} "
+            f"bytes of shared memory a CTA; cudaOccupancyMaxActiveClusters "
+            f"{k2.max_active_clusters(side, side, FLAT_K)}")
+    for (m, n, k), a_dtype in (((256, 256, 16), f32), ((256, 256, 16), bf16),
+                               ((888, 888, 16), f32), ((992, 992, 16), f32)):
+        args = k2_inputs(m, n, k, a_dtype)
+        plain = device_ms(lambda: k2.hals_step(*args), 200)
+        stamped = device_ms(lambda: k2.hals_step(*args, stamped=True), 200)
+        for _ in range(3):
+            k2.hals_step(*args, stamped=True)
+        st = k2.read_stamps().double()
+        cyc, ns = st[..., 0], st[..., 1]
+        rate = float((cyc[0, -1] - cyc[0, 0]) / (ns[0, -1] - ns[0, 0]))
+        split = []
+        for s in range(1, len(k2.SEAMS)):
+            d_ns = ns[:, s] - ns[:, s - 1]
+            d_cyc = (cyc[:, s] - cyc[:, s - 1]) / rate
+            split.append(f"{k2.SEAMS[s]} {float(d_cyc.max()):.0f} ns "
+                         f"(CTA 0 {float(d_cyc[0]):.0f}, globaltimer max "
+                         f"{float(d_ns.max()):.0f})")
+        log(f"[k2] {m}x{n} k={k} A {str(a_dtype)[6:]}: device ms per step "
+            f"{plain:.4f} (stamped build {stamped:.4f}); one stamped step, "
+            f"{float(ns[:, -1].max() - ns[:, 0].min()):.0f} ns first stamp to "
+            f"last, SM clock {rate:.3f} GHz; per phase, slowest CTA: "
+            + "; ".join(split))
+
+    # the host's side of a step: the wrapper's cost per call (launches
+    # queued back to back, nothing waited for), and launch-to-finish
+    # latency (a launch, then a synchronize)
+    for side in (96, 256, 888):
+        args = k2_inputs(side, side, FLAT_K, f32)
+        k2.hals_step(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            k2.hals_step(*args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            k2.hals_step(*args)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e6)
+        log(f"[k2] {side}x{side} k={FLAT_K}: host {host_us:.1f} us per call "
+            f"({k2.smem_bytes(side, side, FLAT_K)} bytes of shared memory, "
+            f"opt-in {'set' if k2.smem_bytes(side, side, FLAT_K) > 48 * 1024 else 'not needed'}); "
+            f"launch to finish, median {float(np.median(lat)):.1f} us")
+
+    A, W0, H0 = flat_problem()
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.HALS,
+                      prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO,
+                      height=FLAT_M, width=FLAT_N, k=FLAT_K, min_iter=5,
+                      max_iter=200, tolcount=1, verbose=False,
+                      normalize=True, dtype="float32")
+    run_flatclust(A, W0, H0, opts, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_flatclust(A, W0, H0, opts, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_summary(prof, wall, "flatclust HALS, 200 iterations")
+    log(f"[k2] on {card}")
+
+
+def times_child(tree: str) -> int:
+    """--times TREE: the numbers `--pair` compares, with smallk_torch
+    imported from TREE (this tree's or an archived parent's), through entry
+    points both designs have; one JSON line last."""
+    import hashlib
+
+    sys.path.insert(0, tree)
+    import torch
+
+    import smallk_torch
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfProgressAlgorithm
+    from smallk_torch import NmfStats
+    from smallk_torch.common.device import setup
+    from smallk_torch.engines.flatclust import run_flatclust
+    from smallk_torch.kernels import ell_spmm as kmod
+    from smallk_torch.kernels import hals_step as k2
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers.solve import nmf_solve
+
+    if not smallk_torch.__file__.startswith(str(Path(tree).resolve())):
+        raise AssertionError(f"smallk_torch from {smallk_torch.__file__}")
+    setup("cuda")
+    res = {"tree": tree}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (m, n, k), a_dtype in (((256, 256, 16), f32), ((256, 256, 16), bf16),
+                               ((888, 888, 16), f32)):
+        args = k2_inputs(m, n, k, a_dtype)
+        res[f"K2 {m} {str(a_dtype)[6:]} ms"] = device_ms(
+            lambda: k2.hals_step(*args), 200)
+    A, W0, H0 = flat_problem()
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.HALS,
+                      prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO,
+                      height=FLAT_M, width=FLAT_N, k=FLAT_K, min_iter=5,
+                      max_iter=FLAT_ITERS, tolcount=1, verbose=False,
+                      normalize=True, dtype="float32")
+    run_flatclust(A, W0, H0, dataclasses.replace(opts, max_iter=200),
+                  device="cuda")
+    stats = NmfStats()
+    run_flatclust(A, W0, H0, opts, stats, device="cuda")
+    res["flatclust HALS it/s"] = stats.iteration_count / (
+        stats.elapsed_us / 1e6)
+    for name, (G, L, B, k, vt, tt) in ELL_PROBES.items():
+        idx, vals, table = ell_inputs(G, L, B, k, vt, tt, 0.0, seed=7)
+        out = torch.empty((G, k), device="cuda")
+        res[f"{name} ms"] = device_ms(
+            lambda: kmod.ell_spmm(idx, vals, table, out), 50)
+
+    A, W0, H0 = flagship_problem()
+    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    del A
+    W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
+    for name, fn, F in (("W'A", op.mm_tn, W), ("AH'", op.mm_nt, H)):
+        got = fn(F)
+        res[f"{name} sha256"] = hashlib.sha256(
+            got.cpu().numpy().tobytes()).hexdigest()[:16]
+        res[f"{name} shape"] = list(got.shape)
+        del got
+        res[f"{name} ms"] = back_to_back_ms(lambda: fn(F), 5)
+    # the solve loop alone on factors already on the card, from a
+    # synchronize to a synchronize: no host copy of the factors in the
+    # window (run_nmf's own timer holds W's and H's pageable copies, 0.54
+    # GB).  A 1-iteration warm-up, then each window `reps` times; the fit
+    # takes each window's median, as MU's short window can jump
+    for alg, iters, reps in (("MU", FLAG_MU_ITERS, 3),
+                             ("BPP", FLAG_BPP_ITERS, 1)):
+        walls = {it: [] for it in (1, *iters)}
+        for it in (1, *iters * reps):
+            W1, H1 = W.clone(), H.clone()
+            opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
+                              height=FLAG_M, width=FLAG_N, k=FLAG_K,
+                              min_iter=1, max_iter=it, verbose=False,
+                              a_dtype="bfloat16")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = nmf_solve(op, W1, H1, opts)
+            torch.cuda.synchronize()
+            walls[it].append(round(time.perf_counter() - t0, 6))
+            if out.iterations != it:
+                raise AssertionError(f"{alg}: {out.iterations} iterations")
+            if alg == "BPP":
+                res[f"BPP {it} rounds, rel err"] = [
+                    int(out.pivot_rounds),
+                    round(sparse_rel_err(op, out.W, out.H), 6)]
+            del out, W1, H1
+        lo, hi = iters
+        res[f"{alg} s per run of {tuple(walls)} iterations"] = walls
+        res[f"{alg} it/s"] = (hi - lo) / (float(np.median(walls[hi]))
+                                          - float(np.median(walls[lo])))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def pair(parent: str, card: str) -> None:
+    """--pair DIR: the redesigned kernels' numbers from an archived parent
+    tree at DIR and from this tree, in the order parent, change, change,
+    parent, each in a process of its own (`--times`), on one card; the
+    flagship's products must be bit-equal across the two."""
+    runs = []
+    for tree in (parent, str(ROOT), str(ROOT), parent):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--times", tree],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--times {tree} failed ({proc.returncode}):"
+                               f"\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        log(f"[pair] {'parent' if tree == parent else 'change'} in "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(runs[-1])}")
+    par, chg = (runs[0], runs[3]), (runs[1], runs[2])
+    for key in runs[0]:
+        if key == "tree":
+            continue
+        log(f"[pair] {key}: parent {par[0][key]}, {par[1][key]}; change "
+            f"{chg[0][key]}, {chg[1][key]}")
+    for key in ("W'A sha256", "AH' sha256"):
+        if len({r[key] for r in runs}) != 1:
+            raise AssertionError(f"{key} differs between the trees")
+    log(f"[pair] the flagship's products are bit-equal in both trees; on "
+        f"{card}")
+
+
 def main() -> int:
     import torch
 
@@ -1942,6 +2375,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--times"] and len(sys.argv) == 3:
+        return times_child(sys.argv[2])
     sys.path.insert(0, str(ROOT))
     from smallk_torch.common.device import setup
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
@@ -1962,14 +2397,19 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_hierclust()
         return 0
-    if sys.argv[1:] == ["--k1"]:
-        timed("K1 study", k1_study, card)
+    studies = {"--k1": k1_study, "--sparse": sparse_study,
+               "--ell": ell_study, "--k2": k2_study}
+    if len(sys.argv) == 2 and sys.argv[1] in studies:
+        timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
         return 0
-    if sys.argv[1:] == ["--sparse"]:
-        timed("sparse study", sparse_study, card)
+    if sys.argv[1:2] == ["--pair"] and len(sys.argv) == 3:
+        timed("pair", pair, sys.argv[2], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
         return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     k1 = timed("K1", phase_kernel)
     k2 = timed("K2", phase_k2)
     k3 = timed("K3", phase_k3)
@@ -2051,7 +2491,18 @@ def main() -> int:
         "launches": flagship["launches"],
         "max_abs_err": max(ell["max_abs_err"], flagship["max_abs_err"]),
         **ell["probes"][probe],
-    } for probe in ELL_PROBES]}))
+    } for probe in ELL_PROBES] + [{
+        # the flagship's W'A: its one bucket, written transposed
+        "name": f"ell_spmm (flagship W'A, g={FLAG_N} L=80 k={FLAG_K}, "
+                "transposed)",
+        "route": "cuda",
+        "source": ell_spmm.SOURCE,
+        "replaces": ell_spmm.REPLACES["P2"],
+        "launches": flagship["wta_launches"],
+        "max_abs_err": flagship["wta"]["max_abs_err"],
+        **{key: flagship["wta"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

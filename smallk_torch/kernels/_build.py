@@ -42,6 +42,9 @@ SIGNATURES = {
     "hals_step": {
         "smallk_hals_step_f32": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
         "smallk_hals_step_bf16": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
+        "smallk_hals_max_active_clusters": ((_I,) * 4, _I),
+        "smallk_cluster_probe": ((_P, _I, _P, _I), _I),
+        "smallk_hals_stamps": ((_P, _I, _I), _I),
         "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "rank2_loop": {
@@ -54,13 +57,13 @@ SIGNATURES = {
         "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "ell_spmm": {
-        **{f"smallk_ell_spmm_{pair}": ((_P,) * 5 + (_I,) * 6 + (_P, _I), _I)
+        **{f"smallk_ell_spmm_{pair}": ((_P,) * 5 + (_I,) * 8 + (_P, _I), _I)
            for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64")},
         "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -77,23 +80,25 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, sources, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(s) for s in sources)]
+def nvcc_command(nvcc: str, sources, out: Path, defines=()) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(out),
+            *(str(s) for s in sources)]
 
 
-def library_path(name: str) -> Path:
-    """Where library `name` lives once built: keyed by its sources' bytes
-    and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines=()) -> Path:
+    """Where library `name` (built with the macros `defines`) lives once
+    built: keyed by its sources' bytes and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for src in sorted(CSRC.glob(f"{name}.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile library `name` if its keyed file is missing; return the path."""
-    out = library_path(name)
+def build(name: str, defines=()) -> Path:
+    """Compile library `name` if its keyed file is missing; return the path.
+    `defines` are macros for a study's build (the default build has none)."""
+    out = library_path(name, defines)
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -102,7 +107,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        cmd = nvcc_command(find_nvcc(), [CSRC / f"{name}.cu"], Path(tmp))
+        cmd = nvcc_command(find_nvcc(), [CSRC / f"{name}.cu"], Path(tmp),
+                           defines)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -115,15 +121,16 @@ def build(name: str) -> Path:
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines=()) -> ctypes.CDLL:
     """Build (if needed) and load library `name` with its signatures set:
     pointers and the stream as c_void_p, so 64-bit values are not cut."""
-    lib = _loaded.get(name)
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name, defines)))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = restype
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib

@@ -14,7 +14,8 @@ card and its plain torch version on the CPU.  The kernel writes each
 bucket row straight to its major id and skips the sentinel, so neither
 the reference's appended zero table row nor its stacked outputs and
 inverse-permutation take are needed; `col_inv`/`row_inv` are kept on the
-host as the layout record.
+host as the layout record.  W'A is written in its (k, n) layout directly
+(the kernel's transposed mode), so no strided copy follows it.
 
 The host code that forms the buckets (`_target_lengths`,
 `_build_buckets`) is the reference's numpy code, copied, with one
@@ -248,32 +249,40 @@ class EllAOp:
         blocked partials add up in it and are rounded once."""
         return torch.float64 if self.dtype == torch.float64 else torch.float32
 
-    def _product(self, buckets, blocks, block_size, table, n_major):
-        """(n_major, k) in the accumulator dtype: every bucket's rows,
-        summed over the minor blocks in block order."""
-        out = torch.empty((n_major, table.shape[1]), dtype=self._acc_dtype(),
-                          device=table.device)
+    def _product(self, buckets, blocks, block_size, table, n_major,
+                 transposed=False):
+        """(n_major, k), or (k, n_major) when `transposed`, in the
+        accumulator dtype: every bucket's rows, summed over the minor
+        blocks in block order."""
+        k = table.shape[1]
+        out = torch.empty((k, n_major) if transposed else (n_major, k),
+                          dtype=self._acc_dtype(), device=table.device)
         if blocks is None:
             for ids, idx, vals in buckets:
-                ell_spmm(idx, vals, table, out, rows=ids)
+                ell_spmm(idx, vals, table, out, rows=ids,
+                         transposed=transposed)
             return out
         for b, (_inv, bkts) in enumerate(blocks):
             tab = table[b * block_size:(b + 1) * block_size]
             for ids, idx, vals in bkts:
-                ell_spmm(idx, vals, tab, out, rows=ids, accumulate=b > 0)
+                ell_spmm(idx, vals, tab, out, rows=ids, accumulate=b > 0,
+                         transposed=transposed)
         return out
 
     def mm_tn(self, W):
         """W^T A -> (k, n) in W's dtype (the factor-dtype contract: a
-        bf16-rounded product collapses BPP's sign tests to zero)."""
+        bf16-rounded product collapses BPP's sign tests to zero), written
+        in that layout by the kernel; a factor dtype other than the
+        accumulator's costs one contiguous rounding pass."""
         out = self._product(self.col_buckets, self.col_blocks,
                             self.col_block_size, W.contiguous(),
-                            self._shape[1])
-        return out.to(W.dtype).T.contiguous()
+                            self._shape[1], transposed=True)
+        return out.to(W.dtype)
 
     def mm_nt(self, H):
         """A H^T -> (m, k) in H's dtype; H is transposed once per product,
-        not once per block."""
+        not once per block: the kernel gathers whole k-wide rows of its
+        table, which H's own (k, n) layout would turn into strided reads."""
         out = self._product(self.row_buckets, self.row_blocks,
                             self.row_block_size, H.T.contiguous(),
                             self._shape[0])

@@ -211,6 +211,40 @@ def test_bf16_products_follow_the_factor_dtype(kind):
     assert top.col_sums().dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("blocks", [{}, dict(term_block=32)],
+                         ids=["monolithic", "term_blocked"])
+def test_mm_tn_writes_k_by_n_in_place(blocks, monkeypatch):
+    """W'A comes out of the kernel's transposed mode as the (k, n) tensor
+    the buckets were written into (no copy after it), equal to the JAX
+    package's mm_tn in f64 and, bit for bit, to the row-mode product
+    transposed; term-blocked families accumulate in the same layout."""
+    A = _random(70, 300, 0.05, seed=13)
+    W = np.random.RandomState(5).rand(70, 6)
+    top = EllAOp.from_scipy(A, torch.float64, device="cpu", **blocks)
+    jop = jell.EllAOp.from_scipy(A, jnp.float64, **blocks)
+    assert (top.col_blocks is not None) == bool(blocks)
+    written = []
+    kernel = tell.ell_spmm
+
+    def spy(idx, vals, table, out, rows=None, accumulate=False,
+            transposed=False):
+        assert transposed and out.shape == (6, 300)
+        written.append((out.data_ptr(), accumulate))
+        return kernel(idx, vals, table, out, rows, accumulate, transposed)
+
+    monkeypatch.setattr(tell, "ell_spmm", spy)
+    got = top.mm_tn(torch.from_numpy(W))
+    assert got.shape == (6, 300) and got.is_contiguous()
+    assert {p for p, _ in written} == {got.data_ptr()}
+    assert any(a for _, a in written) == bool(blocks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jop.mm_tn(
+        jnp.asarray(W))), rtol=F64_RTOL, atol=F64_RTOL)
+    monkeypatch.setattr(tell, "ell_spmm", kernel)
+    rows = top._product(top.col_buckets, top.col_blocks, top.col_block_size,
+                        torch.from_numpy(W), 300)
+    assert torch.equal(got, rows.T)
+
+
 def test_as_aop_sparse_branch():
     A = _random(40, 30, 0.1, seed=0)
     small = dict(device="cpu", densify_threshold_bytes=100)

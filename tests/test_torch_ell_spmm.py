@@ -165,15 +165,77 @@ def _bad_inputs(case):
     elif case == "meta_device":
         idx, vals, table, out = (t.to("meta") for t in (idx, vals, table, out))
         rows = rows.to("meta")
+    elif case == "transposed_row_layout":
+        return idx, vals, table, out, rows, False, True
+    elif case == "transposed_too_few_columns":
+        return idx, vals, table, out.T[:, :5], None, False, True
     return idx, vals, table, out, rows
 
 
 @pytest.mark.parametrize("case", ["idx_dtype", "vals_shape", "out_width",
                                   "rows_dtype", "rows_too_many",
-                                  "no_rows_too_few_out", "meta_device"])
+                                  "no_rows_too_few_out", "meta_device",
+                                  "transposed_row_layout",
+                                  "transposed_too_few_columns"])
 def test_wrapper_rejects_bad_inputs(case):
     with pytest.raises(ValueError):
         ell_spmm(*_bad_inputs(case))
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_transposed_reference_matches_numpy_loop(case, accumulate):
+    """Transposed mode: bucket row r lands in column rows[r] of a (k, n)
+    output; ids that are not consecutive, sentinels, an all-padding row."""
+    g_pad, L, B, k = CASES[case]
+    idx, vals, table, rows = _bucket(g_pad, L, B, k, seed=g_pad * L + 1,
+                                     n_rows=g_pad - 1)
+    n_out = int(rows.max()) + 3
+    out0 = np.random.RandomState(2).rand(n_out, k)
+    want = _numpy_loop(idx, vals, table, out0, rows, accumulate)
+    out = torch.from_numpy(out0.T.copy())
+    got = ell_spmm(*(torch.from_numpy(a) for a in (idx, vals, table)), out,
+                   rows=torch.from_numpy(rows), accumulate=accumulate,
+                   transposed=True)
+    assert got is out and out.shape == (k, n_out)
+    np.testing.assert_allclose(out.numpy(), want.T, rtol=F64_RTOL,
+                               atol=F64_RTOL)
+
+
+PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
+         ("float32", "bfloat16"), ("float64", "float64")]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "_".join(p))
+def test_transposed_equals_row_mode_bit_for_bit(pair, accumulate):
+    """The transposed mode writes the row mode's sums, bit for bit, for
+    every dtype pair, with and without rows (ids not consecutive)."""
+    vt, tt = (getattr(torch, p) for p in pair)
+    acc = torch.float64 if vt == torch.float64 else torch.float32
+    idx, vals, table, rows = _bucket(33, 20, 40, 12, seed=21, n_rows=30)
+    args = (torch.from_numpy(idx), torch.from_numpy(vals).to(vt),
+            torch.from_numpy(table).to(tt))
+    out0 = torch.from_numpy(np.random.RandomState(4).rand(40, 12)).to(acc)
+    for r in (torch.from_numpy(rows), None):
+        row = ell_spmm(*args, out0.clone(), r, accumulate)
+        tr = ell_spmm(*args, out0.T.contiguous(), r, accumulate,
+                      transposed=True)
+        assert tr.dtype == acc
+        assert torch.equal(tr, row.T)
+
+
+def test_transposed_sentinel_never_reads_the_table():
+    """Transposed mode: a sentinel contributes 0 even when table row 0 is
+    not finite, and each bucket row lands in its column."""
+    idx = np.array([[0, 2, 2], [2, 2, 2]], np.int32)
+    vals = np.array([[1.0, 5.0, 7.0], [3.0, 3.0, 3.0]])
+    table = np.array([[2.0, 4.0], [np.inf, np.nan]])
+    out = torch.full((2, 3), 9.0, dtype=torch.float64)
+    ell_spmm(*(torch.from_numpy(a) for a in (idx, vals, table)), out,
+             rows=torch.tensor([2, 0], dtype=torch.int32), transposed=True)
+    np.testing.assert_array_equal(out.numpy(), [[0.0, 9.0, 2.0],
+                                                [0.0, 9.0, 4.0]])
 
 
 def test_build_knows_the_library():
@@ -182,11 +244,15 @@ def test_build_knows_the_library():
     sigs = _build.SIGNATURES["ell_spmm"]
     for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64"):
         args, ret = sigs[f"smallk_ell_spmm_{pair}"]
-        # five pointers, six ints, the stream as a pointer, the device
-        assert args == (_build._P,) * 5 + (_build._I,) * 6 + (_build._P,
+        # five pointers; g, L, B, k, n_out, accumulate, vec, transposed;
+        # the stream as a pointer, the device
+        assert args == (_build._P,) * 5 + (_build._I,) * 8 + (_build._P,
                                                              _build._I)
         assert ret is _build._I
     assert set(kmod.REPLACES) == {"P1", "P2"}
+    text = (_build.CSRC / "ell_spmm.cu").read_text()
+    # no atomics: accumulate adds in launch order
+    assert "atomicAdd" not in text
 
 
 @pytest.mark.cuda
@@ -232,3 +298,46 @@ def test_cuda_rejects_other_dtype_pairs():
         ell_spmm(idx, vals.bfloat16(), table.bfloat16(), out)
     with pytest.raises(ValueError, match="out dtype"):
         ell_spmm(idx, vals.float(), table.float(), out.double())
+
+
+# (g_pad, L, B, k): the flagship's W'A length (80), P1/P2's (128), an
+# AH'-like one (200) and a ragged k
+LAYOUT_CASES = [(300, 80, 500, 128), (97, 128, 300, 128), (64, 200, 900, 128),
+                (50, 33, 60, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "_".join(p))
+def test_cuda_variants_match_plain(pair):
+    """Row and transposed output: each within the plain version's
+    tolerance, and the transposed sums equal to the row mode's bit for
+    bit (each entry is one fma chain over l in ascending order in both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    vt, tt = (getattr(torch, p) for p in pair)
+    acc = torch.float64 if vt == torch.float64 else torch.float32
+    tol = 1e-12 if vt == torch.float64 else 2e-5
+    for g_pad, L, B, k in LAYOUT_CASES:
+        idx, vals, table, rows = _bucket(g_pad, L, B, k, seed=L + k,
+                                         n_rows=g_pad - 2)
+        args = [torch.from_numpy(idx).cuda(),
+                torch.from_numpy(vals).to(vt).cuda(),
+                torch.from_numpy(table).to(tt).cuda()]
+        r = torch.from_numpy(rows).cuda()
+        out0 = torch.rand((int(rows.max()) + 3, k), dtype=acc, device="cuda")
+        for accumulate in (False, True):
+            got = {}
+            for transposed in (False, True):
+                o = out0.T.contiguous() if transposed else out0.clone()
+                want = ell_spmm_reference(*args, o.clone(), r, accumulate,
+                                          transposed)
+                before = (kmod.launches, kmod.transposed_launches)
+                got[transposed] = ell_spmm(*args, o, r, accumulate,
+                                           transposed)
+                torch.cuda.synchronize()
+                assert (kmod.launches, kmod.transposed_launches) == (
+                    before[0] + 1, before[1] + transposed)
+                err = (float((got[transposed] - want).abs().max())
+                       / float(want.abs().max()))
+                assert err <= tol, (g_pad, L, B, k, transposed, err)
+            assert torch.equal(got[True], got[False].T), (g_pad, L, B, k)

@@ -173,23 +173,57 @@ def test_zero_diagonal_follows_the_clamp():
 
 
 def test_hals_fits_derivation():
-    """The kernel's shared-memory layout, bounded by the reference's
-    envelope: never a shape that the TPU would not have sent to its
-    kernel."""
-    assert k2.smem_bytes(256, 256, 16) == 4 * 4 * 256 * 16 + 8 * (512 + 128)
+    """The kernel's per-CTA shared-memory layout (a cluster of 8: a CTA's
+    rows of W^T, its columns of H, and its rows of AH'^T or columns of W'A
+    in one slot, in f32 at odd strides; four k x k f64 Grams and 32
+    reduction doubles; the other CTAs' slices are read through DSMEM),
+    bounded by the reference's envelope: never a shape that the TPU would
+    not have sent to its kernel."""
+    assert k2.CLUSTER == 8
+    # 256 x 256, k = 16: slices of 32 rows and columns at stride 33
+    assert k2.smem_bytes(256, 256, 16) == 4 * 16 * 3 * 33 + 8 * (4 * 256 + 32)
+    # 3000 x 10, k = 4: strides 375 and 3
+    assert k2.smem_bytes(3000, 10, 4) == 4 * 4 * (375 + 3 + 375) + 8 * (
+        4 * 16 + 32)
     assert k2.hals_fits(256, 256, 16) and k2.hals_fits(256, 256, 16, 2)
-    # k = 16: shared memory binds first, at 888 x 888
-    assert k2.hals_fits(888, 888, 16) and not k2.hals_fits(889, 889, 16)
+    # k = 16: the envelope binds, at 992 x 992 in f32 (as the reference's
+    # own) and 1140 x 1140 in bf16; shared memory has room
+    assert k2.hals_fits(992, 992, 16) and not k2.hals_fits(993, 993, 16)
     assert jhals_fits(992, 992, 16) and not jhals_fits(993, 993, 16)
+    assert k2.smem_bytes(992, 992, 16) <= 48 * 1024
+    side16 = max(s for s in range(1, 1400) if jhals_fits(s, s, 16, 2))
+    assert side16 == 1140 and k2.hals_fits(side16, side16, 16, 2)
+    assert not k2.hals_fits(side16 + 1, side16 + 1, 16, 2)
     for m, n, k, isz in [(96, 80, 8, 4), (200, 130, 5, 2), (3000, 10, 4, 4),
-                         (1200, 1200, 2, 4), (2000, 900, 4, 2),
-                         (64, 64, 40, 4), (888, 888, 16, 2), (1, 1, 1, 4)]:
+                         (10, 3000, 4, 4), (1200, 1200, 2, 4),
+                         (2000, 900, 4, 2), (64, 64, 40, 4),
+                         (888, 888, 16, 2), (1, 1, 1, 4)]:
         if k2.hals_fits(m, n, k, isz):
             assert jhals_fits(m, n, k, isz)
             assert k2.smem_bytes(m, n, k) <= k2.MAX_SMEM
+    # shared memory refuses what the envelope would allow: at k = 100 the
+    # four f64 Grams alone are 320 KB
+    assert jhals_fits(64, 64, 100) and not k2.hals_fits(64, 64, 100)
     # the envelope alone refuses (1200, 1200): A and its upcast are 11.5 MB
     assert not jhals_fits(1200, 1200, 2) and not k2.hals_fits(1200, 1200, 2)
     assert not k2.hals_fits(0, 10, 2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 40, 64])
+def test_hals_fits_never_leaves_the_envelope(k):
+    """Over a grid of shapes and both A dtypes, every shape the kernel
+    admits is inside the reference's envelope and its shared memory."""
+    sides = sorted({1, 2, 7, 8, 9, 63, 64, 65, 255, 256, 500, 888, 992,
+                    993, 1140, 1141, 1500, 3000, 9000, 20000})
+    admitted = 0
+    for m in sides:
+        for n in sides:
+            for isz in (4, 2):
+                if k2.hals_fits(m, n, k, isz):
+                    admitted += 1
+                    assert jhals_fits(m, n, k, isz), (m, n, k, isz)
+                    assert k2.smem_bytes(m, n, k) <= k2.MAX_SMEM
+    assert admitted > 0
 
 
 def test_gate_stays_closed_off_the_card():
@@ -250,23 +284,45 @@ def test_build_targets_hopper():
         assert banned not in text
     # the clamp keeps +Inf: a select, never a max
     assert "smem_bytes" in text and "fmaxf(" not in text
+    # a cluster launch; the shared-memory opt-in on every launch that needs
+    # it, never cached per process; no atomics, no early return
+    assert "cudaLaunchAttributeClusterDimension" in text
+    assert "cudaLaunchKernelEx" in text
+    assert "static size_t" not in text and "opted_in" not in text
+    assert "atomicAdd" not in text
+    kernel = text[text.index("hals_step_kernel(const TA*"):
+                  text.index("// cluster barrier and DSMEM latency")]
+    assert "return;" not in kernel
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,bf16", [(256, 256, 16, False),
-                                        (256, 256, 16, True),
-                                        (96, 80, 8, False),
-                                        (200, 130, 5, False),
-                                        (888, 888, 16, False)])
-def test_cuda_kernel_matches_plain(m, n, k, bf16):
+@pytest.mark.parametrize("m,n,k,bf16,rescue", [
+    (256, 256, 16, False, False), (256, 256, 16, True, False),
+    (96, 80, 8, False, False), (200, 130, 5, False, False),
+    (888, 888, 16, False, False),
+    # the largest admitted squares at k = 16, f32 and bf16 A
+    (992, 992, 16, False, False), (1140, 1140, 16, True, False),
+    # slices wider than a CTA's threads; CTAs with no rows or columns
+    (3000, 10, 4, False, False), (10, 3000, 4, False, False),
+    (20000, 10, 4, False, False), (5, 3, 2, False, False),
+    # k not a multiple of 8 past one tile
+    (64, 64, 40, False, False),
+    (96, 80, 8, False, True)])
+def test_cuda_kernel_matches_plain(m, n, k, bf16, rescue):
     """The kernel against the plain version evaluated in f64 on the same
-    inputs (chip_smoke.py says why f64), with the reference's tolerances."""
+    inputs (chip_smoke.py says why f64), with the reference's tolerances;
+    `rescue` drives W's column 3 to all zeros (the eps fill).  A second
+    launch gives the same bits (fixed summation order, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     A, W, H = (t.cuda() for t in _t(*_inputs(m, n, k)))
     if bf16:
         A = A.to(torch.bfloat16)
     HHt, AHt = hals.init(DenseAOp(A), W, H)
+    if rescue:
+        W[:, 3] = 0.0
+        AHt[:, 3] = -1.0
+    assert k2.hals_fits(m, n, k, A.element_size())
     before = k2.launches
     out = k2.hals_step(A, W, H, HHt, AHt)
     assert k2.launches == before + 1
@@ -274,3 +330,6 @@ def test_cuda_kernel_matches_plain(m, n, k, bf16):
     assert bool(out[6]) == bool(ref[6])
     for a, b, tol in zip(out[:6], ref[:6], OUT_TOLS, strict=True):
         torch.testing.assert_close(a, b.float(), **tol)
+    again = k2.hals_step(A, W, H, HHt, AHt)
+    for a, b in zip(out, again, strict=True):
+        assert torch.equal(a, b)
