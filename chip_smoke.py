@@ -61,9 +61,22 @@ fails (nonzero exit, no result line) on any fault:
      and op.mm_tn checked by the profiler to run nothing but that launch;
      the sparse-side relative error (from plain products), ell_spmm's
      launches, and BPP's pivot rounds, K1 launches and K1 columns counted;
- 15. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
-     CLI on a 30000 x 20000 .mtx above the densify threshold (EllAOp);
- 16. the kernel table as one JSON line, the card line, and last the result
+ 15. sparse against dense: a planted 50,000 x 40,000 corpus (above the
+     densify threshold) clustered on its sparse operand and on the same
+     matrix as a DenseAOp: equal trees in f64 initdir mode, the f32
+     random-mode NMI within HIER_NMI_MARGIN of the dense run's;
+ 16. sparse hierclust at the flagship's size: the planted 50,000 x
+     1,000,000 corpus (bf16 A, f32 factors, 12 clusters) through the root's
+     EllAOp and the nodes' operands gathered on the card, a warm-up run
+     under the profiler (busy share) and the timed run with ell_spmm's
+     launches counted; the root's and a 1/8 node's products timed against
+     their plain version, the torch-ops formulation and torch.sparse.mm;
+ 17. BPP at k = 160 (the masked CG tier's) on the main path's operand, the
+     CG solves and steps counted, and f64 on a slice against the CPU;
+ 18. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
+     and hierclust CLIs on a 30000 x 20000 .mtx above the densify
+     threshold (EllAOp);
+ 19. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -98,6 +111,20 @@ runs only the K2 study: a cluster barrier's and a DSMEM load's latency,
 cudaOccupancyMaxActiveClusters, the phase split of one step from a build
 with per-CTA stamps at 256 x 256 (f32 and bf16 A), 888 and 992, the
 wrapper's host cost, and the flatclust HALS path under torch.profiler.
+
+    python3 chip_smoke.py --cols
+
+runs only the sparse hierclust operand study: at k = 2 on the 50,000 x
+1,000,000 corpus, the root's EllAOp, the gathered operand (long slices cut
+and uncut), the torch-ops formulation and torch.sparse.mm at the root and
+at a 1/8 node, then the gathered operand against the masked view of the
+root at shares 1/8 to 7/8 of the documents.
+
+    python3 chip_smoke.py --cg
+
+runs only the GJ/CG crossover: one full-width pivot round through K1 and
+through the CG tier (cold and warm-started), k = 32..128, n = 12,411,
+50,000 and 1,000,000.
 
     python3 chip_smoke.py --pair DIR
 
@@ -195,6 +222,27 @@ RECORDED_BPP = {1: ((21, 23, 6983098), 0.999090),
                 23: ((181, 227, 61684791), 0.998003)}
 DOC_BLOCKS = (0, 32768, 65536, 131072)           # the --sparse sweep
 CLI_M, CLI_N, CLI_NZ = 30000, 20000, 80   # f32 dense image 2.4 GB > 2 GiB
+
+# sparse hierclust at the flagship's size: a planted term-doc corpus of
+# 50,000 terms and 1,000,000 documents (bf16 dense image 100 GB, so sparse
+# on its own), HIER_TOPICS planted topics, seed 11; a node of 1/SPH_NODE of
+# the documents is timed beside the root
+SPH_M, SPH_N, SPH_TOPICS, SPH_NODE = 50_000, 1_000_000, 16, 8
+# --cols: shares of the documents at which the gathered operand is set
+# against the masked view of the root
+CUT_SHARES = (1 / 8, 1 / 4, 1 / 2, 3 / 4, 7 / 8)
+# sparse against dense: 50,000 x 40,000 (bf16 image 4 GB, sparse on its
+# own; dense it fits the card); the f64 initdir comparison at
+# SVD_INITDIR_K clusters reads at most SVD_INIT_FILES initializer pairs
+SVD_N, SVD_INITDIR_K, SVD_INIT_FILES = 40_000, 6, 40
+# BPP past the GJ kernel's rank limit (the CG tier) on the main path's
+# operand; its f64 card-vs-CPU check on a slice, to the CPU tests'
+# tolerance (tests/test_torch_nnls.py: forced-CG BPP against the JAX
+# package)
+BPP_WIDE_K, BPP_WIDE_ITERS, BPP_WIDE_SLICE = 160, 10, (2000, 1500)
+BPP_CG_RTOL = 1e-8
+# --cg: the GJ/CG crossover grid
+CG_SWEEP_K, CG_SWEEP_N = (32, 64, 96, 128), (12411, 50_000, 1_000_000)
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -909,6 +957,29 @@ def phase_cli() -> None:
                                  f"{proc.stdout}\n{proc.stderr}")
         W = np.loadtxt(os.path.join(td, "w.csv"), delimiter=",", ndmin=2)
         H = np.loadtxt(os.path.join(td, "h.csv"), delimiter=",", ndmin=2)
+        dic = os.path.join(td, "dict.txt")
+        with open(dic, "w") as f:
+            f.write("".join(f"term{i}\n" for i in range(m)))
+        clusters = 4
+        cmd = [sys.executable, "-m", "smallk_torch.cli.hierclust_cli",
+               "--matrixfile", mtx, "--dictfile", dic, "--clusters",
+               str(clusters), "--flat", "1", "--device", "cuda",
+               "--verbose", "0", "--seed", "1", "--outdir", td]
+        t0 = time.perf_counter()
+        hproc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                               text=True, timeout=600)
+        hwall = time.perf_counter() - t0
+        if hproc.returncode != 0:
+            raise AssertionError(f"sparse hierclust CLI exited "
+                                 f"{hproc.returncode}:\n{hproc.stdout}\n"
+                                 f"{hproc.stderr}")
+        with open(os.path.join(td, f"tree_{clusters}.xml")) as f:
+            nodes = f.read().count("<node id=")
+        flat = np.loadtxt(os.path.join(td, f"assignments_flat_{clusters}.csv"),
+                          delimiter=",", dtype=np.int64, ndmin=1, max_rows=1)
+    if nodes != 2 * (clusters - 1) or flat.shape != (n,):
+        raise AssertionError(f"sparse hierclust CLI: {nodes} tree nodes, "
+                             f"flat assignments {flat.shape}")
     if W.shape != (m, k) or H.shape != (k, n):
         raise AssertionError(f"CLI wrote W {W.shape}, H {H.shape}")
     tail = proc.stdout.strip().splitlines()[-1]
@@ -1033,15 +1104,21 @@ def phase_k3() -> dict:
                                  torch.matmul(H, A.to(torch.float32).T)), 10)
     parts = [device_ms(lambda: k3.wt_a(A, Wt), 20),
              device_ms(lambda: k3.h_at(A, H), 20)]
-    # the pair reads A once at the least (each input once), and does
-    # 2 x 4 m w operations
-    b_ms, b_by = bound(8.0 * HIER_M * HIER_N,
-                       A.numel() * A.element_size() + 16 * (HIER_M + HIER_N))
+    # the two are separate launches with a data dependency between them
+    # (W'A, the 2 x 2 H solve, then AH' with the new H: solvers/rank2.py),
+    # so each reads A once: a launch's bound is A plus its own factor in
+    # and product out, 4 m w operations; the pair's is the sum
+    a_bytes = A.numel() * A.element_size()
+    bounds = [bound(4.0 * HIER_M * HIER_N, a_bytes + 8 * (HIER_M + HIER_N))
+              for _ in parts]
+    b_ms, b_by = sum(b for b, _ in bounds), bounds[0][1]
     log(f"[K3 time] root products m={HIER_M} w={HIER_N} A bfloat16: device "
         f"ms wt_a + h_at {ms:.4f} (wt_a {parts[0]:.4f}, h_at {parts[1]:.4f}), "
         f"plain {plain:.4f}, library (torch.matmul after the upcast) "
-        f"{library:.4f}; bound {b_ms:.4f} ms ({b_by}; two separate reads of "
-        f"A: {2 * b_ms:.4f} ms)")
+        f"{library:.4f}; bound per launch {bounds[0][0]:.4f} ms ({b_by}: one "
+        f"read of A), so wt_a at {100 * bounds[0][0] / parts[0]:.1f}% and "
+        f"h_at at {100 * bounds[1][0] / parts[1]:.1f}% of its bound; the "
+        f"pair's bound {b_ms:.4f} ms")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
             "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
             "bound_by": b_by}
@@ -1478,18 +1555,17 @@ def flagship_problem():
 
 @contextlib.contextmanager
 def plain_ell():
-    """EllAOp's products through ell_spmm's plain version, bucket by bucket
-    and block by block as the kernel runs them (ell_spmm_reference on the
-    card, counted as plain calls)."""
-    from smallk_torch.kernels.ell_spmm import ell_spmm_reference
-    from smallk_torch.ops import ell
+    """EllAOp's and GatheredColsAOp's products through ell_spmm's plain
+    version, bucket by bucket and block by block as the kernel runs them
+    (ell_spmm_reference on the card, counted as plain calls)."""
+    from smallk_torch.kernels.ell_spmm import ell_spmm, ell_spmm_reference
+    from smallk_torch.ops import ell, ell_cols
 
-    kernel = ell.ell_spmm
-    ell.ell_spmm = ell_spmm_reference
+    ell.ell_spmm = ell_cols.ell_spmm = ell_spmm_reference
     try:
         yield
     finally:
-        ell.ell_spmm = kernel
+        ell.ell_spmm = ell_cols.ell_spmm = ell_spmm
 
 
 def sparse_rel_err(op, W, H) -> float:
@@ -1518,10 +1594,11 @@ def k1_round_ms(sides: dict) -> dict:
     (all of the W side's) are held against the plain version on the same
     columns (the columns are independent systems) with tolerance 0, for
     both device kernels.  At the W side's width it also times the narrow
-    kernel, the plain version and the library call, one
+    kernel; at both sides the plain version and the library call, one
     torch.linalg.solve_ex of the (n, k, k) batch of masked systems built
-    beforehand (3.3 GB at (128, 50,000); the H side's batch would be 64 GB
-    and is not measured).  A round with every entry passive (q = k, the
+    beforehand (3.3 GB at (128, 50,000)), on the first FLAG_K1_CHECK
+    columns and scaled by n / FLAG_K1_CHECK (the H side's whole batch
+    would be 64 GB).  A round with every entry passive (q = k, the
     first solve from a positive start) is timed beside it."""
     import torch
 
@@ -1566,29 +1643,34 @@ def k1_round_ms(sides: dict) -> dict:
         if n <= FLAG_K1_CHECK:
             res["narrow_ms"] = back_to_back_ms(
                 lambda: masked_gj._launch_narrow(LHS, RHS, passive), 3)
-            res["plain_ms"] = back_to_back_ms(
-                lambda: masked_gj_solve_reference(LHS, RHS, passive), 1)
-            p = passive.to(LHS.dtype).T.contiguous()          # (n, k)
-            M = LHS[None] * p[:, :, None]
-            M *= p[:, None, :]
-            M.diagonal(dim1=1, dim2=2).add_(1.0 - p)
-            b = (RHS.T * p)[:, :, None].contiguous()
-            X = masked_gj_solve(LHS, RHS, passive)
-            lib = torch.linalg.solve_ex(M, b)[0][:, :, 0].T
-            res["library_rel"] = float((lib - X).abs().max() / X.abs().max())
-            del X, lib
-            res["library_ms"] = back_to_back_ms(
-                lambda: torch.linalg.solve_ex(M, b), 2)
-            del M, b, p
-            if not res["library_rel"] <= 1e-2:  # another elimination order
-                raise AssertionError("K1 library solve differs by "
-                                     f"{res['library_rel']}")
+        # the plain version and the library call on the first c columns,
+        # scaled by n / c (the H side's whole batch would be 64 GB)
+        Rc, Pc = RHS[:, :c].contiguous(), passive[:, :c].contiguous()
+        scale = n / c
+        res["plain_ms"] = scale * back_to_back_ms(
+            lambda: masked_gj_solve_reference(LHS, Rc, Pc), 1)
+        p = Pc.to(LHS.dtype).T.contiguous()          # (c, k)
+        M = LHS[None] * p[:, :, None]
+        M *= p[:, None, :]
+        M.diagonal(dim1=1, dim2=2).add_(1.0 - p)
+        b = (Rc.T * p)[:, :, None].contiguous()
+        X = masked_gj_solve(LHS, Rc, Pc)
+        lib = torch.linalg.solve_ex(M, b)[0][:, :, 0].T
+        res["library_rel"] = float((lib - X).abs().max() / X.abs().max())
+        del X, lib
+        res["library_ms"] = scale * back_to_back_ms(
+            lambda: torch.linalg.solve_ex(M, b), 2)
+        del M, b, p, Rc, Pc
+        if not res["library_rel"] <= 1e-2:  # another elimination order
+            raise AssertionError("K1 library solve differs by "
+                                 f"{res['library_rel']}")
         out[side] = res
-        extra = (f"; narrow kernel {res['narrow_ms']:.2f}, plain "
-                 f"{res['plain_ms']:.2f}, library torch.linalg.solve_ex on "
-                 f"the (n, k, k) batch {res['library_ms']:.2f} (max rel diff "
-                 f"{res['library_rel']:.1e})" if "narrow_ms" in res else
-                 "; plain and library not measured (a 64 GB batch)")
+        scaled = f" (scaled from {c} columns by {scale:.3f})" if c < n else ""
+        extra = (f"; narrow kernel {res['narrow_ms']:.2f}" if "narrow_ms" in
+                 res else "") + (
+            f"; plain {res['plain_ms']:.2f}, library torch.linalg.solve_ex on "
+            f"the (n, k, k) batch {res['library_ms']:.2f}{scaled} (max rel "
+            f"diff {res['library_rel']:.1e})")
         log(f"[flagship K1] {side} side (k, {n}), device ms per full-width "
             f"round, half the entries passive: {res['ms']:.2f} (bound "
             f"{res['bound_ms']:.3f}, {res['bound_by']}){extra}; every entry "
@@ -1720,8 +1802,13 @@ def phase_flagship(card: str) -> dict:
         del got, want
     tn_ms = back_to_back_ms(lambda: op.mm_tn(W), 5)
     nt_ms = back_to_back_ms(lambda: op.mm_nt(H), 5)
+    # AH''s bound: 2 nnz k operations; values and ids once, H once, the
+    # (m, k) product once
+    nt_bound, nt_by = bound(2.0 * nnz * FLAG_K,
+                            nnz * (2 + 4) + 4 * FLAG_K * (FLAG_N + FLAG_M))
     log(f"[flagship] products at k={FLAG_K}: W'A {tn_ms:.3f} ms, AH' "
-        f"{nt_ms:.3f} ms ({nnz / ((tn_ms + nt_ms) / 2) / 1e6:.3f} Gnnz/s "
+        f"{nt_ms:.3f} ms (bound {nt_bound:.4f} ms, {nt_by}) "
+        f"({nnz / ((tn_ms + nt_ms) / 2) / 1e6:.3f} Gnnz/s "
         f"each on average; {nnz * FLAG_K * 4 / 1e9:.2f} GB of gathered "
         f"table rows each, at {nnz * FLAG_K * 4 / tn_ms / 1e9:.2f} and "
         f"{nnz * FLAG_K * 4 / nt_ms / 1e9:.2f} TB/s)")
@@ -1917,9 +2004,10 @@ def flagship_wta(op, W, at_csr) -> dict:
 
 
 def phase_sparse_cli() -> None:
-    """The nmf CLI on a 30000 x 20000 .mtx with 80 draws per column: its
-    f32 dense image (2.4 GB) is above the 2 GiB densify threshold, so
-    run_nmf takes an EllAOp."""
+    """The nmf and hierclust CLIs on a 30000 x 20000 .mtx with 80 draws per
+    column: its f32 dense image (2.4 GB) is above the 2 GiB densify
+    threshold, so run_nmf takes an EllAOp, and hierclust the EllAOp with
+    its nodes gathered on the card."""
     import scipy.sparse as sp
 
     from smallk_torch.io.matrix_market import write_matrix_market
@@ -1950,6 +2038,29 @@ def phase_sparse_cli() -> None:
                                  f"{proc.stdout}\n{proc.stderr}")
         W = np.loadtxt(os.path.join(td, "w.csv"), delimiter=",", ndmin=2)
         H = np.loadtxt(os.path.join(td, "h.csv"), delimiter=",", ndmin=2)
+        dic = os.path.join(td, "dict.txt")
+        with open(dic, "w") as f:
+            f.write("".join(f"term{i}\n" for i in range(m)))
+        clusters = 4
+        cmd = [sys.executable, "-m", "smallk_torch.cli.hierclust_cli",
+               "--matrixfile", mtx, "--dictfile", dic, "--clusters",
+               str(clusters), "--flat", "1", "--device", "cuda",
+               "--verbose", "0", "--seed", "1", "--outdir", td]
+        t0 = time.perf_counter()
+        hproc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                               text=True, timeout=600)
+        hwall = time.perf_counter() - t0
+        if hproc.returncode != 0:
+            raise AssertionError(f"sparse hierclust CLI exited "
+                                 f"{hproc.returncode}:\n{hproc.stdout}\n"
+                                 f"{hproc.stderr}")
+        with open(os.path.join(td, f"tree_{clusters}.xml")) as f:
+            nodes = f.read().count("<node id=")
+        flat = np.loadtxt(os.path.join(td, f"assignments_flat_{clusters}.csv"),
+                          delimiter=",", dtype=np.int64, ndmin=1, max_rows=1)
+    if nodes != 2 * (clusters - 1) or flat.shape != (n,):
+        raise AssertionError(f"sparse hierclust CLI: {nodes} tree nodes, "
+                             f"flat assignments {flat.shape}")
     if W.shape != (m, k) or H.shape != (k, n):
         raise AssertionError(f"sparse CLI wrote W {W.shape}, H {H.shape}")
     if not (np.isfinite(W).all() and np.isfinite(H).all()
@@ -1959,32 +2070,44 @@ def phase_sparse_cli() -> None:
     log(f"[cli] nmf_cli {m}x{n} nnz={A.nnz} (.mtx, EllAOp) k={k} BPP "
         f"--maxiter 20 --device cuda: rc 0 in {wall:.1f} s, w.csv {W.shape}, "
         f"h.csv {H.shape}; {tail}")
+    tail = " ".join(hproc.stdout.strip().splitlines()[-2:])
+    log(f"[cli] hierclust_cli on the same .mtx --clusters {clusters} --flat 1 "
+        f"--device cuda: rc 0 in {hwall:.1f} s, tree_{clusters}.xml with "
+        f"{nodes} nodes, flat assignments {flat.shape}; {tail}")
 
 
-def profile_summary(prof, wall: float, label: str) -> None:
+def profile_summary(prof, wall: float, label: str) -> float:
     """Device busy share of a profiled window and the kernels that took
-    its device time."""
-    events = [e for e in prof.events()
-              if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, -1.0
-    for a, b in spans:  # union of the device intervals
+    its device time; returns the busy share.  Read from the profiler's raw
+    records (building its per-event objects takes ~70 s per million
+    events on the host)."""
+    import torch
+
+    spans, by_name, host = [], {}, {}
+    calls = ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.duration_ns() > 0:
+                spans.append((e.start_ns(), e.end_ns()))
+                by_name[name] = by_name.get(name, 0) + e.duration_ns()
+        elif name in calls:
+            host[name] = host.get(name, 0) + 1
+    spans.sort()
+    busy, end = 0, -1
+    for a, b in spans:  # union of the device intervals, ns
         if b > end:
             busy += b - max(a, end)
             end = b
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     total = sum(by_name.values())
-    host = {e.key: e.count for e in prof.key_averages()
-            if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
-                         "cudaMemcpyAsync")}
+    share = busy / 1e9 / wall
     log(f"[profile] {label}: wall {wall:.4f} s (profiled); device busy "
-        f"{busy / 1e6:.4f} s = {100 * busy / 1e6 / wall:.2f}% of the wall "
-        f"(idle {100 - 100 * busy / 1e6 / wall:.2f}%); host calls {host}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {us / 1e3:10.3f} ms {100 * us / max(total, 1e-9):6.2f}"
+        f"{busy / 1e9:.4f} s = {100 * share:.2f}% of the wall (idle "
+        f"{100 - 100 * share:.2f}%); host calls {host}")
+    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[profile]   {ns / 1e6:10.3f} ms {100 * ns / max(total, 1):6.2f}"
             f"%  {name[:90]}")
+    return share
 
 
 def sparse_study(card: str) -> None:
@@ -2246,6 +2369,505 @@ def k2_study(card: str) -> None:
     log(f"[k2] on {card}")
 
 
+# ---------------------------------------------------------------------------
+# sparse hierclust (ops/ell_cols.py, ops/aop.MaskedAOp) and the CG tier
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """module.name set to value inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def sparse_corpus(n: int):
+    """The planted term-doc corpus at SPH_M terms and n documents, seed 11
+    (hierclust's bench corpus widened), with its generator's host
+    seconds."""
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+
+    t0 = time.perf_counter()
+    A, labels = synthetic_term_doc_corpus(SPH_M, n, SPH_TOPICS, seed=11)
+    return A, labels, time.perf_counter() - t0
+
+
+def subset_entries(cols, idx) -> dict:
+    """A column subset's nonzeros on the card (CscColumns.entries) with
+    their values in f32 and their count: what the torch-ops products and
+    torch.sparse.mm read."""
+    e = cols.entries(idx)
+    e["vals"] = cols.data[e["pos"]].float()
+    e["nnz"] = int(e["pos"].numel())
+    return e
+
+
+def torch_ops_products(e):
+    """The reference's XLA formulation of the subset products in torch ops
+    (smallk_tpu/ops/ell_cols.py:186-198): a gather of factor rows, then a
+    sorted segment sum (torch.segment_reduce), never a scatter-add."""
+    import torch
+
+    local_r, vals_r = e["local"][e["order"]], e["vals"][e["order"]]
+
+    def mm_tn(W):
+        g = W.index_select(0, e["terms"]) * e["vals"][:, None]
+        return torch.segment_reduce(g, "sum", lengths=e["lens"], axis=0).T
+
+    def mm_nt(H):
+        g = H.T.index_select(0, local_r) * vals_r[:, None]
+        return torch.segment_reduce(g, "sum", lengths=e["row_lens"], axis=0)
+
+    return mm_tn, mm_nt
+
+
+def library_products(e, m: int, w: int):
+    """torch.sparse.mm on the subset as f32 CSRs (A_sub^T for W'A, A_sub
+    for AH'), built beforehand."""
+    import torch
+
+    def crow(lens):
+        return torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+
+    at = torch.sparse_csr_tensor(crow(e["lens"]), e["terms"], e["vals"],
+                                 (w, m))
+    a = torch.sparse_csr_tensor(crow(e["row_lens"]), e["local"][e["order"]],
+                                e["vals"][e["order"]], (m, w))
+    return (lambda W: torch.sparse.mm(at, W).T,
+            lambda H: torch.sparse.mm(a, H.T.contiguous()))
+
+
+def wall_ms(fn, iters: int = 3) -> float:
+    """Median host-clock ms of fn() between synchronizes (for work that
+    syncs inside, or builds)."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def long_sum_tol(op, side: str) -> float:
+    """Relative tolerance between two f32 sums of a product's longest
+    chain of terms taken in other orders: ELL_TOL's f32 value (sums of up
+    to 128 terms), grown as the square root of the chain's length past
+    128, as the rounding of a long sum of positive terms grows."""
+    from smallk_torch.ops.ell_cols import GatheredColsAOp
+
+    if isinstance(op, GatheredColsAOp):
+        buckets, split = op.cols if side == "tn" else op.rows
+        longest = [idx.shape[1] for _, idx, _ in buckets]
+        if split is not None:
+            longest += [split[0].shape[1], split[3].shape[1]]
+    else:
+        fam = ((op.col_buckets, op.col_blocks) if side == "tn"
+               else (op.row_buckets, op.row_blocks))
+        buckets = fam[0] or [b for _, bk in fam[1] for b in bk]
+        longest = [idx.shape[1] for _, idx, _ in buckets]
+    return ELL_TOL["float32"] * max(1.0, (max(longest, default=1) / 128)
+                                    ** 0.5)
+
+
+def node_products(cols, idx, label: str, op=None, root_op=None) -> dict:
+    """One node's k = 2 products (f32 factors on the bf16 corpus) through
+    `op`'s ell_spmm launches (by default the gathered operand, whose build
+    is timed), held to their plain version, the torch-ops formulation and
+    torch.sparse.mm, and timed (CUDA events over calls back to back; the
+    plain version once, between synchronizes), with the launches a product
+    makes and its bound; given the root's operand, also the masked view's
+    time at this subset."""
+    import torch
+
+    from smallk_torch.kernels import ell_spmm as kmod
+    from smallk_torch.ops.aop import MaskedAOp
+
+    m, w = cols.shape[0], len(idx)
+    out = {}
+    if op is None:
+        out["build_ms"] = wall_ms(lambda: cols.gathered(idx))
+        op = cols.gathered(idx)
+    e = subset_entries(cols, idx)
+    out["nnz"] = e["nnz"]
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    W = torch.rand((m, 2), generator=gen, device="cuda")
+    H = torch.rand((2, w), generator=gen, device="cuda")
+    tops, lib = torch_ops_products(e), library_products(e, m, w)
+    for side, x, fn in (("tn", W, op.mm_tn), ("nt", H, op.mm_nt)):
+        before = kmod.launches
+        got = fn(x)
+        launches = kmod.launches - before
+        with plain_ell():
+            want = fn(x)
+            plain_ms = wall_ms(lambda: fn(x), 1)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        others = max(float((tops[side == "nt"](x) - want).abs().max()),
+                     float((lib[side == "nt"](x) - want).abs().max()))
+        tol = long_sum_tol(op, side) * scale
+        if not (err <= tol and others <= tol
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{label} {side}: kernel {err}, torch ops "
+                                 f"and library {others} from the plain "
+                                 f"version (tolerance {tol})")
+        n_out = w * 2 if side == "tn" else m * 2
+        n_tab = m * 2 if side == "tn" else w * 2
+        b_ms, b_by = bound(2.0 * e["nnz"] * 2,
+                           e["nnz"] * (4 + 2) + 4 * (n_tab + n_out))
+        out[side] = {"ell_ms": back_to_back_ms(lambda: fn(x), 5),
+                     "plain_ms": plain_ms,
+                     "ops_ms": back_to_back_ms(
+                         lambda: tops[side == "nt"](x), 3),
+                     "library_ms": back_to_back_ms(
+                         lambda: lib[side == "nt"](x), 5),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "launches": launches, "err": err}
+    if root_op is not None:
+        mask = torch.zeros(cols.shape[1], device="cuda")
+        mask[idx] = 1.0
+        masked = MaskedAOp(root_op, mask)
+        Hf = torch.zeros((2, cols.shape[1]), device="cuda")
+        Hf[:, idx] = H
+        out["masked_ms"] = back_to_back_ms(
+            lambda: (masked.mm_tn(W), masked.mm_nt(Hf)), 3)
+    t, n_ = out["tn"], out["nt"]
+    log(f"[cols] {label}: w={w} nnz={e['nnz']}"
+        + (f", gathered operand built in {out['build_ms']:.2f} ms"
+           if "build_ms" in out else "")
+        + f"; ms per product (W'A / AH'): ell_spmm {t['ell_ms']:.4f} / "
+        f"{n_['ell_ms']:.4f} ({t['launches']} / {n_['launches']} launches, "
+        f"max|kernel - plain| {t['err']:.2e} / {n_['err']:.2e}), plain "
+        f"{t['plain_ms']:.2f} / {n_['plain_ms']:.2f}, torch ops "
+        f"{t['ops_ms']:.4f} / {n_['ops_ms']:.4f}, torch.sparse.mm "
+        f"{t['library_ms']:.4f} / {n_['library_ms']:.4f}, bound "
+        f"{t['bound_ms']:.4f} / {n_['bound_ms']:.4f} ({t['bound_by']})"
+        + (f"; masked view of the root, both products {out['masked_ms']:.4f}"
+           if root_op is not None else ""))
+    return out
+
+
+def cols_study(card: str) -> None:
+    """The node operand's products at k = 2 on the 50,000 x 1,000,000
+    corpus: the root's EllAOp; at the root and at a node of 1/SPH_NODE of
+    the documents the gathered operand (its long slices cut, and uncut),
+    the torch-ops formulation and torch.sparse.mm (how ops/ell_cols chose
+    its formulation); then the gathered operand against the masked view of
+    the root across shares of the documents (why hierclust gathers every
+    node)."""
+    import torch
+
+    from smallk_torch.ops import ell_cols
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.ell_cols import CscColumns
+
+    A, _, gen_s = sparse_corpus(SPH_N)
+    t0 = time.perf_counter()
+    a_op = as_aop(A, dtype="bfloat16", device="cuda")
+    ell_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    csc_s = time.perf_counter() - t0
+    log(f"[cols] corpus {SPH_M}x{SPH_N}, {A.nnz} nonzeros: generator "
+        f"{gen_s:.2f} s, EllAOp build {ell_s:.2f} s, CSC copy {csc_s:.2f} s "
+        f"(host seconds) on {card}")
+    everything = torch.arange(SPH_N, device="cuda")
+    perm = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)).cuda()
+    node_products(cols, everything, "root, the EllAOp", op=a_op)
+    for label, idx in (("root", everything),
+                       (f"1/{SPH_NODE} node", perm[:SPH_N // SPH_NODE])):
+        node_products(cols, idx, f"{label}, gathered")
+        # the same operand with no slice cut into pieces
+        with patched(ell_cols, "_MAX_LEN", 1 << 30):
+            node_products(cols, idx, f"{label}, gathered, slices uncut")
+    for share in CUT_SHARES:
+        idx = perm[:int(share * SPH_N)]
+        node_products(cols, idx, f"node of {share:g} of the documents",
+                      root_op=a_op)
+
+
+def phase_sparse_hierclust(card: str) -> dict:
+    """Hierclust on the planted 50,000 x 1,000,000 corpus (bf16 A, above
+    the densify threshold), f32 factors, HIER_K clusters, as the
+    Reuters-shape phase runs it: a warm-up run with another seed under the
+    profiler (the device's busy share), the timed run with the launches
+    counted, and the node products timed at the root and at a 1/SPH_NODE
+    node."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import ClustStats, Random
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.engines.tree import _host
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.ell_cols import CscColumns
+
+    A, labels, gen_s = sparse_corpus(SPH_N)
+    t0 = time.perf_counter()
+    a_op = as_aop(A, dtype="bfloat16", device="cuda")
+    ell_s = time.perf_counter() - t0
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, wstats = hc.clust_hier(a_op, opts, Random(1), host_A=A)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    busy = profile_summary(prof, warm, f"sparse hierclust warm-up (seed 1), "
+                           f"iter_count {wstats.iter_count}")
+    del prof
+    if not busy > 0:
+        raise AssertionError("the profiler saw no device time")
+
+    stats = ClustStats()
+    reset_counts()
+    hc.gathered_operands = hc.masked_operands = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, stats = hc.clust_hier(a_op, opts, Random(2), stats, host_A=A)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tiers = (hc.gathered_operands, hc.masked_operands)
+    leaves = sum(tree.is_leaf)
+    score = nmi(tree.assignments, labels)
+    log(f"[sparse hierclust] {SPH_M}x{SPH_N} ({A.nnz} nonzeros) bf16 A, f32 "
+        f"factors, {HIER_K} clusters: generator {gen_s:.2f} s, EllAOp build "
+        f"{ell_s:.2f} s (host); wall {wall:.4f} s (its CSC copy included), "
+        f"nmf_count {stats.nmf_count}, converged "
+        f"{stats.nmf_count - stats.max_count}, iter_count {stats.iter_count},"
+        f" {stats.iter_count / wall:.1f} rank-2 it/s, NMI {score:.4f}, leaves "
+        f"{leaves}, outliers {len(tree.outliers)}, ell_spmm launches "
+        f"{counts['ell_spmm']} (transposed "
+        f"{counts['ell_spmm_transposed']}), node operands gathered/masked "
+        f"{tiers[0]}/{tiers[1]}, dense products {counts['kernel_products']} "
+        f"+ {counts['matmul_products']}; warm-up wall {warm:.4f} s "
+        f"(profiled), device busy {100 * busy:.2f}% of it; on {card}")
+    # TrialSplit may drop outlier documents, which stay unassigned as the
+    # reference leaves them (printed above)
+    if leaves != HIER_K:
+        raise AssertionError(f"sparse hierclust: {leaves} leaves")
+    for q, node in enumerate(tree.nodes):
+        if node.topic_vector is not None:
+            tv = _host(node.topic_vector)
+            if not np.isfinite(tv).all() or (tv < 0).any():
+                raise AssertionError(f"node {q}: topic vector not finite "
+                                     "and nonnegative")
+    if counts["ell_spmm"] < 2 * stats.iter_count or counts["ell_plain_cuda"]:
+        raise AssertionError(f"sparse hierclust bypassed ell_spmm: {counts}")
+    if counts["matmul_products"] or counts["kernel_products"]:
+        raise AssertionError(f"sparse hierclust made dense products: {counts}")
+
+    # the node products at the root and at a 1/SPH_NODE node
+    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
+    root = node_products(cols, torch.arange(SPH_N, device="cuda"),
+                         "sparse hierclust root, the EllAOp", op=a_op)
+    idx = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)[
+        :SPH_N // SPH_NODE]).cuda()
+    node = node_products(cols, idx, f"sparse hierclust 1/{SPH_NODE} node")
+    transposed = counts["ell_spmm_transposed"]
+    return {"launches": {"tn": transposed,
+                         "nt": counts["ell_spmm"] - transposed},
+            "wall": wall, "root": root, "node": node, "nmi": score,
+            "busy": busy}
+
+
+def phase_sparse_dense(card: str) -> None:
+    """The planted 50,000 x 40,000 corpus (above the densify threshold, so
+    sparse on its own) against the same matrix as a prebuilt DenseAOp on
+    the card: in f64 initdir mode the trees are equal (assignments, and
+    topic vectors to HIER_PRIORITY_TOL); in f32 random mode the sparse
+    run's NMI trails the dense run's by at most HIER_NMI_MARGIN."""
+    import torch
+
+    from smallk_torch import Random
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.engines.tree import _host
+    from smallk_torch.ops.aop import as_aop
+
+    A, labels, _ = sparse_corpus(SVD_N)
+    everything = 1 << 40
+    rng = np.random.RandomState(9)
+    with tempfile.TemporaryDirectory() as initdir:
+        for i in range(1, SVD_INIT_FILES + 1):
+            np.savetxt(os.path.join(initdir, f"Winit_{i}.csv"),
+                       rng.rand(SPH_M, 2), delimiter=",", fmt="%.17g")
+            np.savetxt(os.path.join(initdir, f"Hinit_{i}.csv"),
+                       rng.rand(2, SVD_N), delimiter=",", fmt="%.17g")
+        opts = hier_opts(SVD_INITDIR_K, "float64", initdir)
+        trees = {}
+        for kind in ("sparse", "dense"):
+            src = A if kind == "sparse" else as_aop(
+                A, "float64", device="cuda", densify_threshold_bytes=everything)
+            hc.masked_operands = 0
+            trees[kind] = hc.clust_hier(src, opts, Random(1), host_A=A)
+            trees[kind] += (hc.masked_operands,)
+            del src
+            torch.cuda.empty_cache()
+    (ts, ss, ms_), (td, sd, _) = trees["sparse"], trees["dense"]
+    worst = 0.0
+    for a, b in zip(ts.nodes, td.nodes):
+        if (a.topic_vector is None) != (b.topic_vector is None):
+            raise AssertionError("sparse and dense trees differ in shape")
+        if a.topic_vector is not None:
+            worst = max(worst, float(np.abs(_host(a.topic_vector)
+                                            - _host(b.topic_vector)).max()))
+    same = np.array_equal(ts.assignments, td.assignments)
+    log(f"[sparse vs dense f64] {SPH_M}x{SVD_N} initdir, {SVD_INITDIR_K} "
+        f"clusters: assignments equal {same}, max|d topic vector| "
+        f"{worst:.3e} (tolerance {HIER_PRIORITY_TOL:g}), iterations "
+        f"{ss.iter_count}/{sd.iter_count}, masked node operands {ms_}")
+    if not same or worst > HIER_PRIORITY_TOL or not ms_:
+        raise AssertionError("sparse and dense f64 initdir trees differ")
+
+    opts = hier_opts(HIER_K, "float32")
+    scores = {}
+    for kind in ("sparse", "dense"):
+        src = A if kind == "sparse" else as_aop(
+            A, "float32", device="cuda", densify_threshold_bytes=everything)
+        reset_counts()
+        hc.gathered_operands = 0
+        tree, stats = hc.clust_hier(src, opts, Random(2))
+        counts = read_counts()
+        scores[kind] = (nmi(tree.assignments, labels), stats.iter_count,
+                        counts, hc.gathered_operands, tree.assignments)
+        del src
+        torch.cuda.empty_cache()
+    (ns, its, cs, gs, asg), (nd, itd, cd, _, adn) = (scores["sparse"],
+                                                     scores["dense"])
+    log(f"[sparse vs dense f32] {SPH_M}x{SVD_N} random mode, {HIER_K} "
+        f"clusters: NMI sparse {ns:.4f} (ell_spmm launches "
+        f"{cs['ell_spmm']}, gathered node operands {gs}), dense {nd:.4f} "
+        f"(K3 launches {cd['K3']}); iterations {its}/{itd}, assignments "
+        f"agree on {100 * np.mean(asg == adn):.2f}% of the documents")
+    if ns < nd - HIER_NMI_MARGIN or not gs or cs["matmul_products"] \
+            or cd["matmul_products"] or not cd["K3"]:
+        raise AssertionError("sparse f32 hierclust trails the dense run or "
+                             "took the wrong products")
+
+
+def phase_bpp_wide(card: str) -> dict:
+    """BPP at k = BPP_WIDE_K (> 128, the CG tier's) on the main path's
+    Reuters-shape operand: BPP_WIDE_ITERS fixed iterations on the card
+    with the CG solves and steps counted, no K1 launch; and f64 on a slice,
+    3 iterations, the card against the CPU with the CG tier forced."""
+    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfStats, Random,
+                              random_matrix, random_sparse_matrix)
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.solvers import nnls
+
+    k = BPP_WIDE_K
+    rng = Random(2024)
+    A = random_sparse_matrix(rng, M, N, nz_per_col=NZ_PER_COL,
+                             dtype=np.float32)
+    W0 = random_matrix(M, k, rng, dtype=np.float32)
+    H0 = random_matrix(k, N, rng, dtype=np.float32)
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.BPP, height=M,
+                      width=N, k=k, min_iter=1, max_iter=BPP_WIDE_ITERS,
+                      verbose=False, a_dtype="bfloat16")
+    W1, H1, ok1 = run_nmf(A, W0, H0, dataclasses.replace(opts, max_iter=1),
+                          device="cuda")
+    stats = NmfStats()
+    reset_counts()
+    nnls.cg_solves = nnls.cg_steps = 0
+    W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
+    counts = read_counts()
+    solves, steps = nnls.cg_solves, nnls.cg_steps
+    A64 = A.toarray()
+    rel, rel1 = rel_err(A64, W, H), rel_err(A64, W1, H1)
+    its = stats.iteration_count / (stats.elapsed_us / 1e6)
+    log(f"[bpp k={k}] {M}x{N} bf16 A, f32 factors, {BPP_WIDE_ITERS} "
+        f"iterations: success={ok}, {its:.3f} it/s, pivot rounds "
+        f"{stats.pivot_rounds}, CG solves {solves}, CG steps {steps}, K1 "
+        f"launches {counts['K1']}, rel err {rel:.6f} (after 1 iteration "
+        f"{rel1:.6f}) on {card}")
+    if not (ok and ok1) or stats.iteration_count != BPP_WIDE_ITERS:
+        raise AssertionError("BPP through the CG tier failed")
+    for name, F in (("W", W), ("H", H)):
+        if not np.isfinite(F).all() or (F < 0).any():
+            raise AssertionError(f"{name} is not finite and nonnegative")
+    if not rel < rel1 or counts["K1"] or solves < 2 * BPP_WIDE_ITERS:
+        raise AssertionError(f"BPP k={k}: rel err {rel} (1 iteration "
+                             f"{rel1}), K1 {counts['K1']}, CG solves {solves}")
+
+    m, n = BPP_WIDE_SLICE
+    A_s = A64[:m, :n]
+    opts64 = dataclasses.replace(opts, height=m, width=n, max_iter=3,
+                                 dtype="float64", a_dtype=None)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        nnls.set_masked_solver("cg" if device == "cpu" else "auto")
+        try:
+            runs[device] = run_nmf(A_s, W0[:m].astype(np.float64),
+                                   H0[:, :n].astype(np.float64), opts64,
+                                   device=device)
+        finally:
+            nnls.set_masked_solver("auto")
+    (Wc, Hc, okc), (Wh, Hh, okh) = runs["cuda"], runs["cpu"]
+    dW = float(np.abs(Wc - Wh).max() / np.abs(Wh).max())
+    dH = float(np.abs(Hc - Hh).max() / np.abs(Hh).max())
+    log(f"[bpp k={k} f64] {m}x{n} slice, 3 iterations: cuda (CG by the rank "
+        f"rule) vs cpu (CG forced) max relative |dW| {dW:.3e}, |dH| "
+        f"{dH:.3e} (tolerance {BPP_CG_RTOL:g})")
+    if not (okc and okh) or max(dW, dH) > BPP_CG_RTOL:
+        raise AssertionError("f64 CG BPP differs between the card and CPU")
+    return {"it_per_s": its, "cg_solves": solves, "cg_steps": steps}
+
+
+def cg_study(card: str) -> None:
+    """The card's GJ/CG crossover: one full-width pivot round, K1 against
+    the CG tier cold and warm-started from the previous round's X, at
+    CG_SWEEP_K x CG_SWEEP_N, on synthetic systems (LHS = B B' + 0.1 I,
+    half the entries passive, then 2% of them toggled as a pivot round
+    toggles them), f32."""
+    import torch
+
+    from smallk_torch.kernels import masked_gj
+    from smallk_torch.solvers import nnls
+
+    log(f"[cg] one full-width round, f32, ms (host clock between "
+        f"synchronizes, median of 3; CG syncs every {nnls._CG_CHECK_EVERY} "
+        f"steps) on {card}")
+    for k in CG_SWEEP_K:
+        for n in CG_SWEEP_N:
+            gen = torch.Generator(device="cuda").manual_seed(k * n)
+            B = torch.rand((k, 2 * k), generator=gen, device="cuda")
+            LHS = B @ B.T + 0.1 * torch.eye(k, device="cuda")
+            RHS = B @ torch.rand((2 * k, n), generator=gen, device="cuda")
+            p0 = torch.rand((k, n), generator=gen, device="cuda") > 0.5
+            p1 = p0 ^ (torch.rand((k, n), generator=gen, device="cuda")
+                       < 0.02)
+            X0 = masked_gj.masked_gj_solve(LHS, RHS, p0)
+            gj = masked_gj.masked_gj_solve(LHS, RHS, p1)
+            t_gj = wall_ms(lambda: masked_gj.masked_gj_solve(LHS, RHS, p1))
+            row = {}
+            for start, x0 in (("cold", None), ("warm", X0)):
+                before = nnls.cg_steps
+                x = nnls._cg_solve_block(LHS, RHS, p1, x0)
+                steps = nnls.cg_steps - before
+                err = float((x - gj).abs().max() / gj.abs().max())
+                row[start] = (wall_ms(
+                    lambda: nnls._cg_solve_block(LHS, RHS, p1, x0)), steps,
+                    err)
+            (c_ms, c_st, c_err), (w_ms, w_st, w_err) = row["cold"], row["warm"]
+            log(f"[cg] k={k} n={n}: K1 {t_gj:.3f}, CG cold {c_ms:.3f} "
+                f"({c_st} steps, max rel diff to K1 {c_err:.1e}), CG warm "
+                f"{w_ms:.3f} ({w_st} steps, {w_err:.1e}); K1/CG cold "
+                f"{t_gj / c_ms:.2f}x, K1/CG warm {t_gj / w_ms:.2f}x")
+            del B, LHS, RHS, p0, p1, X0, gj
+            torch.cuda.empty_cache()
+
+
 def times_child(tree: str) -> int:
     """--times TREE: the numbers `--pair` compares, with smallk_torch
     imported from TREE (this tree's or an archived parent's), through entry
@@ -2398,7 +3020,8 @@ def main() -> int:
         profile_hierclust()
         return 0
     studies = {"--k1": k1_study, "--sparse": sparse_study,
-               "--ell": ell_study, "--k2": k2_study}
+               "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
+               "--cg": cg_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -2423,6 +3046,9 @@ def main() -> int:
     timed("hier parity", phase_hier_parity)
     hier_path = timed("hierclust", phase_hierclust, card)
     flagship = timed("flagship", phase_flagship, card)
+    timed("sparse vs dense", phase_sparse_dense, card)
+    sparse_hier = timed("sparse hierclust", phase_sparse_hierclust, card)
+    timed("bpp wide", phase_bpp_wide, card)
     with ThreadPoolExecutor(4) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()
         for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
@@ -2502,7 +3128,23 @@ def main() -> int:
         "max_abs_err": flagship["wta"]["max_abs_err"],
         **{key: flagship["wta"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }]}))
+    }] + [{
+        # the sparse hierclust root's products at k = 2 (one-column-a-lane
+        # path); launches: that run's transposed (W'A) or row-mode (AH')
+        # ones, at every node
+        "name": f"ell_spmm (sparse hierclust root {side}, k=2, m={SPH_M} "
+                f"n={SPH_N})",
+        "route": "cuda",
+        "source": ell_spmm.SOURCE,
+        "replaces": ell_spmm.REPLACES["P2"],
+        "launches": sparse_hier["launches"][side],
+        "max_abs_err": sparse_hier["root"][side]["err"],
+        "ms": sparse_hier["root"][side]["ell_ms"],
+        "plain_ms": sparse_hier["root"][side]["plain_ms"],
+        "bound_ms": sparse_hier["root"][side]["bound_ms"],
+        "bound_by": sparse_hier["root"][side]["bound_by"],
+        "library_ms": sparse_hier["root"][side]["library_ms"],
+    } for side in ("tn", "nt")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

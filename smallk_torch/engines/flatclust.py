@@ -19,6 +19,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 
 from ..common.options import (
     ClustOptions,
@@ -29,6 +30,7 @@ from ..common.options import (
     OutputFormat,
 )
 from ..io.writers import make_flatclust_writer
+from ..ops.aop import as_aop
 from .assignments import (
     compute_assignments,
     compute_fuzzy_assignments,
@@ -114,12 +116,18 @@ def run_hier_nmf2(A, opts: ClustOptions, rng, stats=None,
     from .hierclust import clust_flat, clust_hier
 
     stats = stats if stats is not None else ClustStats()
-    tree, stats = clust_hier(A, opts, rng, stats,
-                             checkpoint_path=checkpoint_path, device=device)
+    # one operand for both phases; the host matrix rides along for the
+    # tree's node operands and initdir row support
+    host_A = A if sp.issparse(A) or isinstance(A, np.ndarray) else None
+    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
+                  device=device)
+    tree, stats = clust_hier(a_op, opts, rng, stats,
+                             checkpoint_path=checkpoint_path, host_A=host_A,
+                             device=device)
 
     flat = None
     if opts.flat:
-        W, H, ok = clust_flat(A, tree, opts, rng, device=device)
+        W, H, ok = clust_flat(a_op, tree, opts, rng, device=device)
         flat = {
             "W": W,
             "H": H,

@@ -5,10 +5,19 @@ Reference: hierclust/include/clust_hier_generic.hpp (ClustHier :77-238,
 TrialSplit :245-376, ActualSplit :383-517), hierclust/include/
 clust_flat_generic.hpp (ClustFlat).
 
-Each node is factored on the dense A's columns at its document subset, at
-the subset's exact width (one `index_select` on the device); the full A
-serves the root.  The rank-2 solve's two A-products of an f32 factor go to
-K3 (ops.aop), so a bf16 A is never upcast.  Tree bookkeeping and document
+Each node is factored on A's columns at its document subset, at the
+subset's exact width; the full operand serves the root.  On a dense A the
+subset is one `index_select` on the device, and the rank-2 solve's two
+A-products of an f32 factor go to K3 (ops.aop), so a bf16 A is never
+upcast.  A sparse A too large to densify is the root's bucketed-ELL
+operand (ops/ell.py) plus its CSC arrays on the device
+(ops/ell_cols.CscColumns), from which each node's operand is gathered on
+the device at any width (on an H100 the gathered operand's two products
+took 0.9-4.3 ms at every share of the documents from 1/8 to 7/8, the
+masked view of the root 151 ms: chip_smoke.py --cols, PERF.md); an
+initdir run and a prebuilt sparse operand without its host matrix solve
+every node on the full-width masked view (ops/aop.MaskedAOp) instead, as
+the reference's initdir runs do.  Tree bookkeeping and document
 partitioning are host-side numpy; a node's W and H stay on the device,
 and the host reads back its split labels and priority.
 
@@ -19,11 +28,10 @@ reproduce the reference's threefry draws, so random-mode trees match the
 reference statistically, not bit for bit; initdir mode matches it exactly.
 
 Not ported (ROADMAP slice 9): the bucket ladder and zero padding (exact
-widths compile nothing), the multi-split chain (hier_chain.py), pair
-batching, speculation, the prefetch pool, bit-packed results and the
-dispatch-budget segmentation (workarounds for a high-latency TPU link),
-the sparse CscChunks path (a sparse operand raises NotImplementedError,
-ROADMAP slice 11), MaskedAOp and `mesh`.
+widths compile nothing), the chunk ladder of the sparse subsets, the
+multi-split chain (hier_chain.py), pair batching, speculation, the
+prefetch pool, bit-packed results and the dispatch-budget segmentation
+(workarounds for a high-latency TPU link), and `mesh`.
 """
 
 from __future__ import annotations
@@ -42,14 +50,20 @@ from ..common.device import setup, torch_dtype
 from ..common.options import ClustOptions, ClustStats
 from ..common.rng import Random, random_matrix
 from ..io.delimited import load_delimited
-from ..ops.aop import DenseAOp, SparseAOp, as_aop, densifies
+from ..ops.aop import DenseAOp, MaskedAOp, as_aop
 from ..ops.dense import gemm_nt, gram
-from ..ops.ell import EllAOp
+from ..ops.ell_cols import CscColumns
 from ..solvers.nnls import nnls_hals
 from ..solvers.rank2 import spectral_init_rank2
 from ..solvers.solve import nmf_solve, reference_pg1
 from .priority import compute_priority, compute_priority_device
 from .tree import DeviceColumn, Tree, _host
+
+
+# node operands built since the last reset, by tier; the only places they
+# grow are in `_Rank2Runner._subset`
+gathered_operands = 0
+masked_operands = 0
 
 
 class _InitializerSource:
@@ -155,13 +169,16 @@ class _Rank2Runner:
     ladder (clust_hier_generic.hpp:123-151, 435-472)."""
 
     def __init__(self, a_op, opts: ClustOptions, inits: _InitializerSource,
-                 stats: ClustStats, dtype, host_A=None):
+                 stats: ClustStats, dtype, host_A=None, cols=None):
         self.a_op = a_op
         self.opts = opts
         self.inits = inits
         self.stats = stats
         self.dtype = dtype
-        self.device = a_op.A.device
+        self.device = a_op.device
+        # a sparse operand's CSC arrays on the device (every node but the
+        # root gathers its operand from them), or None
+        self.cols = cols
         # host-side A (scipy/ndarray), initdir runs only: provides each
         # subset's row support for the reference's compacted-W0 semantics
         self.host_A = host_A
@@ -184,13 +201,24 @@ class _Rank2Runner:
                                device=self.device)
 
     def _subset(self, subset):
-        """(operand, index tensor) for a node: A's columns at `subset`, or
-        the full operand for the root (subset None)."""
+        """(operand, index tensor, masked) for a node: A's columns at
+        `subset` at its exact width, or (masked: a sparse operand with no
+        columns to gather from) the full-width view with every other column
+        masked out; the full operand for the root (subset None)."""
+        global gathered_operands, masked_operands
         if subset is None:
-            return self.a_op, None
+            return self.a_op, None, False
         idx = torch.as_tensor(np.asarray(subset), dtype=torch.long,
                               device=self.device)
-        return DenseAOp(self.a_op.A.index_select(1, idx)), idx
+        if isinstance(self.a_op, DenseAOp):
+            return DenseAOp(self.a_op.A.index_select(1, idx)), idx, False
+        if self.cols is not None:
+            gathered_operands += 1
+            return self.cols.gathered(idx), idx, False
+        masked_operands += 1
+        mask = torch.zeros(self.n, dtype=self.dtype, device=self.device)
+        mask[idx] = 1.0
+        return MaskedAOp(self.a_op, mask), idx, True
 
     def _record(self, success, iterations):
         if success:
@@ -210,7 +238,7 @@ class _Rank2Runner:
         if self.inits.initdir:
             return self._solve_hostinit(subset, w_parent, max_attempts)
 
-        op, idx = self._subset(subset)
+        op, idx, masked = self._subset(subset)
         wp = self._wp(w_parent)
         for attempt in range(max_attempts):
             gen = torch.Generator(device=self.device)
@@ -218,12 +246,14 @@ class _Rank2Runner:
 
             def draw(gen=gen):
                 # H is drawn at full width then gathered, as the reference
-                # draws it (hierclust.py:309-314)
+                # draws it (hierclust.py:309-314); the masked view keeps it
+                # whole (its other columns never reach the solution)
                 W0 = torch.rand((self.m, 2), generator=gen, dtype=self.dtype,
                                 device=self.device)
                 H0 = torch.rand((2, self.n), generator=gen, dtype=self.dtype,
                                 device=self.device)
-                return W0, (H0 if idx is None else H0.index_select(1, idx))
+                gather = idx is not None and not masked
+                return W0, (H0.index_select(1, idx) if gather else H0)
 
             # spectral start on the first attempt only: a retry means that
             # basin failed and the reference's random restart is the escape
@@ -231,6 +261,8 @@ class _Rank2Runner:
             W, H, success, iters = _solve_from_draw(
                 op, draw, self.quiet_opts, init, self.restarts)
             if self._record(success, iters):
+                if masked:
+                    H = H.index_select(1, idx)
                 left = H[0, :] > H[1, :]
                 pr = compute_priority_device(wp, W)
                 split = torch.any(left) & torch.any(~left)
@@ -262,13 +294,13 @@ class _Rank2Runner:
                 row_support[np.unique(sub.tocoo().row)] = True
             else:
                 row_support = np.any(np.asarray(sub) != 0, axis=1)
-        op, _ = self._subset(subset)
+        op, _, masked = self._subset(subset)
 
         for _ in range(max_attempts):
             W0, H0 = self.inits.next()
             if row_support is not None and not row_support.all():
                 W0 = np.where(row_support[:, None], W0, 0.0)
-            if subset is not None:
+            if subset is not None and not masked:
                 H0 = H0[:, np.asarray(subset)]
             res = nmf_solve(
                 op, torch.as_tensor(W0, dtype=self.dtype, device=self.device),
@@ -278,6 +310,8 @@ class _Rank2Runner:
             if self._record(bool(res.success), int(res.iterations)):
                 W = res.W.cpu().numpy()
                 H = res.H.cpu().numpy()
+                if masked:
+                    H = H[:, np.asarray(subset)]
                 left = H[0, :] > H[1, :]
                 priority = -1.0
                 if left.any() and (~left).any() and w_parent is not None:
@@ -418,20 +452,23 @@ def _load_hier_checkpoint(path, node_count, config):
             int(arrs["iter_count"]), root, int(arrs["init_counter"]))
 
 
-def _dense_operand(A, opts: ClustOptions, device) -> DenseAOp:
-    """A as the dense operand every node gathers its columns from; a
-    sparse operand (a prebuilt one, or a matrix above the densify
-    threshold) raises before anything is built: hierclust on it is
-    ROADMAP slice 11."""
+def _operand(A, opts: ClustOptions, device, host_A=None):
+    """(a_op, cols): the operand the root is factored on, and for a sparse
+    one the CSC arrays on the card that the other nodes gather from (None for
+    a dense operand and in initdir mode, whose nodes solve on the masked
+    view as the reference's do).  A host matrix is densified on `device`
+    when its dense image fits the densify threshold, else it becomes a
+    bucketed-ELL operand; a prebuilt operand comes back as it is, and a
+    sparse one takes its columns from the scipy `host_A`, if given."""
     dtype = opts.nmf_opts.a_dtype or opts.nmf_opts.dtype
-    prebuilt = isinstance(A, (EllAOp, SparseAOp))
-    if prebuilt or (sp.issparse(A) and not densifies(A, dtype)):
-        raise NotImplementedError(
-            f"hierclust on a {type(A).__name__} of {A.shape[0]}x"
-            f"{A.shape[1]}{'' if prebuilt else ' above the densify threshold'}"
-            ": sparse hierclust (column-subset gathers on a sparse operand) "
-            "is ROADMAP slice 11 of the port")
-    return as_aop(A, dtype=dtype, device=device)
+    a_op = as_aop(A, dtype=dtype, device=device)
+    host = A if sp.issparse(A) else host_A
+    cols = None
+    if (not isinstance(a_op, DenseAOp) and sp.issparse(host)
+            and not opts.initdir):
+        cols = CscColumns.from_scipy(host, dtype=a_op.dtype,
+                                     device=a_op.device)
+    return a_op, cols
 
 
 def clust_hier(A, opts: ClustOptions, rng: Random,
@@ -440,7 +477,9 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
                host_A=None, *, device="cuda",
                _interrupt_after: int | None = None):
     """Build the hierarchical clustering tree on `device` (the card unless
-    the caller asks for the CPU; a prebuilt DenseAOp keeps its own).
+    the caller asks for the CPU; a prebuilt operand keeps its own).
+    `host_A`, the host matrix of a prebuilt operand, gives a sparse one its
+    gathered node operands and initdir runs their row support.
 
     Reference: ClustHier (clust_hier_generic.hpp:77-238).
     Returns (tree, stats).
@@ -454,8 +493,8 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     stats = stats if stats is not None else ClustStats()
     opts.validate()
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op = _dense_operand(A, opts, device)
-    setup(a_op.A.device)
+    a_op, cols = _operand(A, opts, device, host_A)
+    setup(a_op.device)
     m, n = a_op.shape
 
     num_clusters = opts.num_clusters
@@ -468,7 +507,8 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
             host_A = A.tocsc()
         elif isinstance(A, np.ndarray):
             host_A = A
-    runner = _Rank2Runner(a_op, opts, inits, stats, dtype, host_A=host_A)
+    runner = _Rank2Runner(a_op, opts, inits, stats, dtype, host_A=host_A,
+                          cols=cols)
 
     W = left = None
     start_i = 0
@@ -557,14 +597,16 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
 
 def clust_flat(A, tree: Tree, opts: ClustOptions, rng: Random, *,
                device="cuda"):
-    """Flat refinement: W from the k leaf topic vectors, H by NNLS-HALS.
+    """Flat refinement: W from the k leaf topic vectors, H by NNLS-HALS on
+    the whole operand (a sparse one's bucketed ELL).
 
     Reference: ClustFlat (clust_flat_generic.hpp:15-76), <= 3 attempts with
     fresh random H.  Returns host (W (m,k), H (k,n), success).
     """
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op = _dense_operand(A, opts, device)
-    dev = setup(a_op.A.device)
+    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
+                  device=device)
+    dev = setup(a_op.device)
     m, n = a_op.shape
     k = opts.num_clusters
 

@@ -10,7 +10,7 @@ reference's `jnp.matmul(..., preferred_element_type=_pet(W)).astype(W.dtype)`
 contract).  With bf16 A and f32 factors, a bf16 result would feed the NNLS
 sign tests 8-bit products and collapse BPP to zero.
 
-Three operands:
+Three operands, and a view:
   - DenseAOp: A as an (m, n) tensor.  Which code computes a product is a
     dispatch by device, dtype and shape: a k = 2 product of an f32 factor
     on a CUDA A in f32 or bf16 goes to K3 (kernels/rank2_loop.py: `wt_a`,
@@ -27,6 +27,8 @@ Three operands:
     it and the pad-multiple options keep the reference's `as_aop` API,
     which the tests hold the port to, and are what a sharded operand
     will split (ROADMAP slice 15).
+  - MaskedAOp: a column-masked view of any of them (hierclust's
+    full-width node solves).
 """
 
 from __future__ import annotations
@@ -65,6 +67,10 @@ class DenseAOp:
     @property
     def dtype(self):
         return self.A.dtype
+
+    @property
+    def device(self):
+        return self.A.device
 
     def mm_tn(self, W):
         global kernel_products, matmul_products
@@ -163,6 +169,10 @@ class SparseAOp:
         return self.c_vals.dtype
 
     @property
+    def device(self):
+        return self.c_vals.device
+
+    @property
     def nnz(self):
         return self.c_vals.shape[0]
 
@@ -196,6 +206,47 @@ class SparseAOp:
         return out.index_add_(0, self.c_cols, self.c_vals)
 
 
+class MaskedAOp:
+    """Column-masked view of another operand: A' = A diag(mask) — port of
+    smallk_tpu/ops/aop.py:MaskedAOp, without the `_t` variants.
+
+    Masking commutes with both products, so nothing is built:
+      W^T (A diag(m)) = (W^T A) * m[None, :]
+      (A diag(m)) H^T = A (H * m[None, :])^T
+    A masked column behaves as a removed one for every solver: its W'A
+    column is 0, so the rank-2 H update zeroes it and it adds nothing to
+    A H^T.  Hierclust solves a node on it when it has no column table to
+    gather the node's operand from (ops/ell_cols.py): in initdir mode, and
+    for a prebuilt sparse operand that comes with no host matrix.
+    """
+
+    def __init__(self, base, mask):
+        self.base = base
+        self.mask = mask  # (n,), 0 or 1, in a factor-compatible dtype
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def mm_tn(self, W):
+        return self.base.mm_tn(W) * self.mask.to(W.dtype)[None, :]
+
+    def mm_nt(self, H):
+        return self.base.mm_nt(H * self.mask.to(H.dtype)[None, :])
+
+    def col_sums(self):
+        sums = self.base.col_sums()
+        return sums * self.mask.to(sums.dtype)
+
+
 _SPARSE_FORMATS = ("ell", "coo")
 DENSIFY_THRESHOLD_BYTES = 2 << 30
 
@@ -222,7 +273,7 @@ def as_aop(A, dtype=torch.float32, *, device="cuda",
     Larger ones become an `EllAOp` (bucketed ELL, buckets padded to
     `ell_pad_multiple` rows), or a `SparseAOp` for sparse_format="coo".
     """
-    if isinstance(A, (DenseAOp, SparseAOp, EllAOp)):
+    if isinstance(A, (DenseAOp, SparseAOp, MaskedAOp, EllAOp)):
         return A
     if sparse_format not in _SPARSE_FORMATS:
         raise ValueError(f"sparse_format {sparse_format!r}; expected one of "

@@ -244,6 +244,10 @@ class EllAOp:
             return self.col_blocks[0][1][0][2].dtype
         return torch.float32
 
+    @property
+    def device(self):
+        return (self.col_buckets or self.col_blocks[0][1])[0][1].device
+
     def _acc_dtype(self):
         """f32/f64 sums, as the reference's einsum preferred_element_type:
         blocked partials add up in it and are rounded once."""
@@ -291,7 +295,6 @@ class EllAOp:
     def col_sums(self):
         """Column sums in A's storage dtype, summed in the accumulator
         dtype and rounded once."""
-        acc = self._acc_dtype()
-        dev = (self.col_buckets or self.col_blocks[0][1])[0][1].device
-        ones = torch.ones((self._shape[0], 1), dtype=acc, device=dev)
+        ones = torch.ones((self._shape[0], 1), dtype=self._acc_dtype(),
+                          device=self.device)
         return self.mm_tn(ones)[0].to(self.dtype)

@@ -5,12 +5,14 @@ masked SPD subproblem,
 
     M = (p p^T) .* LHS + diag(1 - p),   M x = p .* rhs,
 
-is solved by the masked Gauss-Jordan kernel (kernels/masked_gj.py), a whole
-batch of columns at once; the pivot rules (PBAR = 3, Ninf counters, the
-backup single-bit toggle) and the tolerance-based sign tests are the
-reference's, line for line.  The pivot loop is a host loop: one host sync
-per round.  Where the right-hand side is large a round solves only the
-columns that still pivot.
+is solved a whole batch of columns at once: by the masked Gauss-Jordan
+kernel (kernels/masked_gj.py) up to its rank limit, and above it on the
+card by the warm-started, Jacobi-preconditioned masked conjugate gradient
+(`_cg_solve_block`, torch ops, as the reference's is XLA code).  The pivot
+rules (PBAR = 3, Ninf counters, the backup single-bit toggle) and the
+tolerance-based sign tests are the reference's, line for line.  The pivot
+loop is a host loop: one host sync per round.  Where the right-hand side
+is large a round solves only the columns that still pivot.
 
 `nnls_hals` is the fixed-W NNLS by HALS row sweeps that hierclust's flat
 refinement calls.
@@ -40,16 +42,127 @@ PBAR = 3
 _NARROW_MIN_ENTRIES = 1 << 23
 
 
-def _masked_solve(LHS, RHS, passive):
-    """All columns' masked solves through the K1 kernel (its plain version
-    for CPU tensors).  The reference's CG, Cholesky and compact tiers are
-    not ported; a CUDA solve above the kernel's rank limit raises."""
-    if LHS.is_cuda and RHS.shape[0] > masked_gj.MAX_K:
-        raise NotImplementedError(
-            f"k={RHS.shape[0]} > {masked_gj.MAX_K}: masked solves above the "
-            "GJ kernel's rank limit need the CG tier (ROADMAP queue 1, "
-            "item 4: the masked-solve tiers)")
+# Masked-solve tier: "auto" sends a CUDA solve above the GJ kernel's rank
+# limit to CG and every other solve to the GJ kernel (its plain version on
+# CPU tensors); "cg" sends every solve to CG (tests use it to reach the CG
+# tier on the CPU, as the reference's `set_masked_solver("cg")` does).
+MASKED_SOLVER = "auto"
+
+# CG step cap: k + this.  Exact arithmetic needs <= |passive support| + 1
+# steps; the slack absorbs rounding.  Module-level so that a test can
+# strangle the cap and reach the cap-out poison (the reference's value).
+_CG_EXTRA_STEPS = 16
+# CG steps between two looks at the residuals (each look is one host sync):
+# a solve that converges in s steps syncs ceil(s / _CG_CHECK_EVERY) + 1
+# times.  Columns freeze on the device, so the steps run past convergence
+# change nothing.
+_CG_CHECK_EVERY = 8
+
+# CG solves and CG steps since the last reset; the only place they grow is
+# `_cg_solve_block`
+cg_solves = 0
+cg_steps = 0
+
+
+def set_masked_solver(name: str) -> None:
+    global MASKED_SOLVER
+    if name not in ("auto", "cg"):
+        raise ValueError("masked solver must be 'auto' or 'cg'")
+    MASKED_SOLVER = name
+
+
+def _routes_to_cg(LHS, k: int) -> bool:
+    return MASKED_SOLVER == "cg" or (LHS.is_cuda and k > masked_gj.MAX_K)
+
+
+def _masked_solve(LHS, RHS, passive, x0=None):
+    """All columns' masked solves: the CG tier where `_routes_to_cg`, else
+    the K1 kernel (its plain version for CPU tensors).  `x0`, a warm start,
+    is read by the CG tier only."""
+    if _routes_to_cg(LHS, RHS.shape[0]):
+        return _cg_solve_block(LHS, RHS, passive, x0)
     return masked_gj.masked_gj_solve(LHS, RHS, passive)
+
+
+def _cg_solve_block(LHS, RHS, passive, x0=None):
+    """Masked SPD solve by Jacobi-preconditioned conjugate gradient — port
+    of smallk_tpu/solvers/nnls.py:_cg_solve_block.
+
+    The system is the GJ tier's, M x = b with M = (p p^T) .* LHS +
+    diag(1 - p) and b = p .* rhs, for all n columns at once; a step is one
+    (k, k) x (k, n) GEMM against the shared LHS.  Dead topics (a Gram
+    diagonal <= k eps (max|LHS| + 1)) are forced non-passive.  It iterates
+    in f32 at least and returns LHS's dtype.  Every carried vector is zero
+    off the passive support, so the identity block never enters a product.
+
+    Columns freeze on the device at a relative residual of 64 eps; the
+    loop stops when none is live or after k + _CG_EXTRA_STEPS steps, and
+    looks at the residuals every _CG_CHECK_EVERY steps (its only host
+    syncs).  Warm start: `x0` on the passive support; a column holding a
+    non-finite value starts cold.  A column that capped out far above the
+    backward-stable floor eps (|LHS| |x| + |b|) comes back NaN, so the
+    caller's finiteness gate fails the attempt instead of feeding an
+    approximate x to the pivot sign tests.
+    """
+    global cg_solves, cg_steps
+    k, n = RHS.shape
+    dtype = torch.promote_types(torch.promote_types(LHS.dtype, RHS.dtype),
+                                torch.float32)
+    out_dtype = LHS.dtype
+    LHS = LHS.to(dtype)
+    eps = torch.finfo(dtype).eps
+    diag = torch.diagonal(LHS)
+    tiny = k * eps * (torch.max(torch.abs(LHS)) + 1.0)
+    alive = diag > tiny
+    pf = passive & alive[:, None]
+    dinv = torch.where(alive, 1.0 / torch.where(alive, diag, 1.0),
+                       1.0)[:, None]
+    b = torch.where(pf, RHS, 0).to(dtype)
+
+    def matvec(v):
+        return torch.where(pf, gemm(LHS, v), 0)
+
+    bb = torch.sum(b * b, dim=0)
+    tol2 = (64.0 * eps) ** 2 * bb
+    max_steps = k + _CG_EXTRA_STEPS
+
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = torch.where(pf, x0.to(dtype), 0)
+        x = torch.where(torch.isfinite(x), x, 0)
+        r = torch.where(pf, b - gemm(LHS, x), 0)
+    pd = r * dinv
+    rz = torch.sum(r * pd, dim=0)
+    rr = torch.sum(r * r, dim=0)
+
+    it = 0
+    while it < max_steps and bool(torch.any(rr > tol2)):
+        for _ in range(min(_CG_CHECK_EVERY, max_steps - it)):
+            live = (rr > tol2)[None, :]
+            Mp = matvec(pd)
+            pMp = torch.sum(pd * Mp, dim=0)
+            alpha = torch.where(pMp > 0,
+                                rz / torch.where(pMp > 0, pMp, 1.0), 0.0)
+            x = torch.where(live, x + alpha[None, :] * pd, x)
+            r = torch.where(live, r - alpha[None, :] * Mp, r)
+            rz_new = torch.sum(r * r * dinv, dim=0)
+            beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0),
+                               0.0)
+            pd = torch.where(live, r * dinv + beta[None, :] * pd, pd)
+            rz = torch.where(live[0], rz_new, rz)
+            rr = torch.where(live[0], torch.sum(r * r, dim=0), rr)
+            it += 1
+    cg_solves += 1
+    cg_steps += it
+
+    floor = eps * (
+        torch.sqrt(torch.sum(gemm(torch.abs(LHS), torch.abs(x)) ** 2, dim=0))
+        + torch.sqrt(bb))
+    capped = (rr > tol2) & (torch.sqrt(rr) > 256.0 * k * floor)
+    x = torch.where(capped[None, :], torch.nan, x)
+    return torch.where(pf, x, 0).to(out_dtype)
 
 
 def _pivot_cols(P, Ninf, nonopt, infeas, not_good, sel):
@@ -122,7 +235,9 @@ def nnls_blockpivot(LHS, RHS, Xinit):
         return 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)  # (k, n)
 
     passive = (Xinit > 0).contiguous()
-    X = _masked_solve(LHS, RHS, passive)
+    # the CG tier starts each solve from the last X (the reference's x0)
+    cg = _routes_to_cg(LHS, k)
+    X = _masked_solve(LHS, RHS, passive, x0=Xinit if cg else None)
     Y = gemm(LHS, X) - RHS
 
     P = torch.full((n,), PBAR, dtype=torch.int32, device=RHS.device)
@@ -150,7 +265,8 @@ def nnls_blockpivot(LHS, RHS, Xinit):
             passive_s = _update_passive(passive.index_select(1, ids),
                                         nonopt_s, infeas_s,
                                         cols1, cols2, cols3).contiguous()
-            Xs = _masked_solve(LHS, RHS_s, passive_s)
+            Xs = _masked_solve(LHS, RHS_s, passive_s,
+                               x0=X.index_select(1, ids) if cg else None)
             Ys = gemm(LHS, Xs) - RHS_s
             X[:, ids] = Xs
             Y[:, ids] = Ys
@@ -173,7 +289,7 @@ def nnls_blockpivot(LHS, RHS, Xinit):
 
             # solve every column with the updated passive sets; keep the
             # non-optimal ones
-            Xs = _masked_solve(LHS, RHS, passive)
+            Xs = _masked_solve(LHS, RHS, passive, x0=X if cg else None)
             Ys = gemm(LHS, Xs) - RHS
             mask = notopt_col[None, :]
             X = torch.where(mask, Xs, X)

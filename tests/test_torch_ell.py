@@ -340,12 +340,36 @@ def test_nmf_cli_on_a_sparse_operand(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["ell", "coo"])
-def test_hierclust_on_a_sparse_operand_names_slice_11(kind):
+def test_hierclust_on_a_sparse_operand_names_slice_11(kind, tmp_path):
+    """Hierclust on a prebuilt sparse operand (ROADMAP slice 11, which
+    raised before it was ported) clusters: with no host matrix every node
+    solves on the masked view, and clust_hier and run_hier_nmf2 (tree and
+    flat refinement) equal the JAX package's on its operand of the same
+    kind, in f64 initdir mode (the same initializers)."""
+    from smallk_tpu.common.rng import Random as JRandom
+    from smallk_tpu.engines.flatclust import run_hier_nmf2 as jrun_hier_nmf2
+    from smallk_tpu.engines.hierclust import clust_hier as jclust_hier
+    from smallk_torch.interop import options_from_reference
+    from test_hier_oracle import _clust_opts, _write_initdir
+    from test_torch_hierclust import _assert_same_tree
+
     A = _random(40, 30, 0.2, seed=7)
-    op = as_aop(A, torch.float32, device="cpu", densify_threshold_bytes=0,
+    op = as_aop(A, torch.float64, device="cpu", densify_threshold_bytes=0,
                 sparse_format=kind)
-    opts = topt.ClustOptions(num_clusters=3, verbose=False, flat=True)
-    for call in (functools.partial(clust_hier, op, opts, Random(1)),
-                 functools.partial(run_hier_nmf2, op, opts, Random(1))):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            call(device="cpu")
+    jop = (jell.EllAOp.from_scipy(A, dtype=jnp.float64) if kind == "ell"
+           else JSparseAOp.from_scipy(A, dtype=jnp.float64))
+    jopts = _clust_opts(3, _write_initdir(tmp_path, 40, 30, 30, seed=2))
+    jopts = type(jopts)(**{**jopts.__dict__, "flat": True})
+    opts = options_from_reference(jopts)
+    jtree, jstats = jclust_hier(jop, jopts, JRandom(1))
+    tree, stats = clust_hier(op, opts, Random(1), device="cpu")
+    _assert_same_tree(tree, jtree)
+    assert (stats.nmf_count, stats.iter_count) == (jstats.nmf_count,
+                                                   jstats.iter_count)
+    jtree, _, jflat = jrun_hier_nmf2(jop, jopts, JRandom(1))
+    tree, _, flat = run_hier_nmf2(op, opts, Random(1), device="cpu")
+    _assert_same_tree(tree, jtree)
+    assert flat["success"] and jflat["success"]
+    for key in ("W", "H"):
+        np.testing.assert_allclose(flat[key], np.asarray(jflat[key]),
+                                   rtol=SOLVE_RTOL, atol=SOLVE_ATOL)

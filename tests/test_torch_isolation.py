@@ -68,6 +68,7 @@ import importlib, pkgutil, sys
 import smallk_torch
 mods = [m.name for m in pkgutil.walk_packages(smallk_torch.__path__,
                                               "smallk_torch.")]
+assert "smallk_torch.ops.ell_cols" in mods, mods
 for name in mods:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules

@@ -119,8 +119,8 @@ def test_pivot_rules_match_reference(seed):
 
 
 def test_rank_above_kernel_limit_uses_plain_version_on_cpu():
-    """k > 128 is the CG tier's on the card (not ported, raises there); on
-    CPU tensors the plain GJ solves it."""
+    """k > 128 is the CG tier's on the card (tests/test_torch_cg.py); on
+    CPU tensors the plain GJ solves it unless CG is forced."""
     LHS, RHS, Xinit = _problem(130, 6, 5, cols=2)
     X, Y, ok, _ = _port(LHS, RHS, Xinit)
     assert ok and (X >= 0).all()

@@ -105,26 +105,46 @@ def test_as_aop_inputs(kind):
     assert as_aop(aop, device="cpu") is aop
 
 
-def test_sparse_above_threshold_is_not_ported(monkeypatch):
-    """What is still not ported above the densify threshold, hierclust on
-    a sparse operand (ROADMAP slice 11), raises before any operand is
-    built: a 50,000 x 20,000 f32 dense image (4 GB) exceeds 2 GiB."""
-    from smallk_torch.common.options import ClustOptions
+def test_sparse_above_threshold_is_not_ported(tmp_path):
+    """Hierclust on a scipy matrix above the densify threshold (a 50,000 x
+    20,000 f64 dense image, 8 GB, exceeds 2 GiB), which raised until
+    ROADMAP slice 11 was ported, now clusters on the bucketed-ELL operand:
+    clust_hier and run_hier_nmf2 equal the JAX package's runs on the same
+    input in f64 initdir mode (tree, and flat W and H to 1e-12), each
+    factorization held to 30 iterations to bound the test's time."""
+    from smallk_tpu.common import options as jopt
+    from smallk_tpu.common.rng import Random as JRandom
+    from smallk_tpu.engines.flatclust import run_hier_nmf2 as jrun_hier_nmf2
+    from smallk_tpu.engines.hierclust import clust_hier as jclust_hier
     from smallk_torch.common.rng import Random
     from smallk_torch.engines.flatclust import run_hier_nmf2
     from smallk_torch.engines.hierclust import clust_hier
-    from smallk_torch.ops import aop as aop_mod
+    from smallk_torch.interop import options_from_reference
 
-    def no_build(*args, **kw):
-        raise AssertionError("a sparse operand was built")
-
-    monkeypatch.setattr(aop_mod.EllAOp, "from_scipy", no_build)
-    monkeypatch.setattr(aop_mod.SparseAOp, "from_scipy", no_build)
     A = sp.random(50_000, 20_000, density=1e-6, random_state=0, format="csc")
-    opts = ClustOptions(num_clusters=3, verbose=False, flat=True)
-    for call in (clust_hier, run_hier_nmf2):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            call(A, opts, Random(1), device="cpu")
+    rng = np.random.RandomState(1)
+    for i in range(1, 13):
+        np.savetxt(tmp_path / f"Winit_{i}.csv", rng.rand(50_000, 2),
+                   delimiter=",", fmt="%.17g")
+        np.savetxt(tmp_path / f"Hinit_{i}.csv", rng.rand(2, 20_000),
+                   delimiter=",", fmt="%.17g")
+    jopts = jopt.ClustOptions(
+        num_clusters=3, verbose=False, flat=True, initdir=str(tmp_path),
+        nmf_opts=jopt.NmfOptions(dtype="float64", verbose=False,
+                                 max_iter=30))
+    opts = options_from_reference(jopts)
+    jtree, jstats = jclust_hier(A, jopts, JRandom(1))
+    tree, stats = clust_hier(A, opts, Random(1), device="cpu")
+    np.testing.assert_array_equal(tree.assignments, jtree.assignments)
+    assert (stats.nmf_count, stats.iter_count) == (jstats.nmf_count,
+                                                   jstats.iter_count)
+    jtree, _, jflat = jrun_hier_nmf2(A, jopts, JRandom(1))
+    tree, _, flat = run_hier_nmf2(A, opts, Random(1), device="cpu")
+    np.testing.assert_array_equal(tree.assignments, jtree.assignments)
+    assert flat["success"] and jflat["success"]
+    for key in ("W", "H"):
+        np.testing.assert_allclose(flat[key], np.asarray(jflat[key]),
+                                   rtol=0, atol=1e-12)
 
 
 def test_sparse_above_threshold_becomes_ell():
