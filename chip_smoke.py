@@ -45,10 +45,12 @@ fails (nonzero exit, no result line) on any fault:
      reference, with K3's launches and the products' branches counted;
  12. ell_spmm, the ELL gather-SpMM kernel, against its plain version on
      ragged buckets with sentinels (every dtype pair, store and
-     accumulate, row and transposed output) and at the shapes of P1
-     (scripts/tpu_batch29.py) and P2 (scripts/tpu_batch33.py), the
-     transposed output bit-equal to the row output transposed; kernel,
-     plain and torch.sparse.mm times;
+     accumulate, row and transposed output), on its narrow-k and long-row
+     launch plans (k = 1, 2, 3, 8, 16, 128, rows of skewed lengths up to
+     131,072 entries, against the plain version evaluated in f64; two
+     launches bit-equal) and at the shapes of P1 (scripts/tpu_batch29.py)
+     and P2 (scripts/tpu_batch33.py), the transposed output bit-equal to
+     the row output transposed; kernel, plain and torch.sparse.mm times;
  13. sparse parity in f64: run_nmf BPP and MU on a blocked EllAOp and on
      a SparseAOp, the card against the CPU;
  14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
@@ -100,10 +102,12 @@ run (3 iterations) and one MU run under torch.profiler.
 
     python3 chip_smoke.py --ell
 
-runs only ell_spmm's layout study: the flagship's W'A bucket written
-transposed, by rows, and by rows then copied to (k, n); both products
-through the operand; P1's and P2's shapes in both layouts; then the
-flagship's BPP and MU profiles.
+runs only ell_spmm: phase 12 above, then its launch plan against
+ELL_VARIANTS of it (rows sharing a warp or not, other chain lengths for
+long rows, no split, and a warp's broadcast walk in place of groups of
+lanes at k = 8 and 16) at the sparse hierclust root's EllAOp products,
+each variant launched from descriptors of its own and timed alone on the
+device and back to back.
 
     python3 chip_smoke.py --k2
 
@@ -128,10 +132,13 @@ through the CG tier (cold and warm-started), k = 32..128, n = 12,411,
 
     python3 chip_smoke.py --pair DIR
 
-times both redesigned kernels, the flatclust HALS path and the flagship
-(products, MU, BPP) with the package of an archived tree at DIR and of
-this one, in the order DIR, this, this, DIR, each in a process of its own
-(`--times TREE`), and fails unless the flagship's products are bit-equal.
+times K2, P1, P2, the flatclust HALS path, the flagship (products, MU,
+BPP) and sparse hierclust at 50,000 x 1,000,000 (the k = 2 products at
+the root's EllAOp and at a 1/8 node, and the clustering's wall) with the
+package of an archived tree at DIR and of this one, in the order DIR,
+this, this, DIR, each in a process of its own (`--times TREE`), and
+fails unless the flagship's products are bit-equal and every sparse
+hierclust run has 12 leaves.
 
 There is no CPU fallback: without a card the script exits 1.
 """
@@ -205,6 +212,22 @@ ELL_RAGGED = [(1, 1, 1, 1, "float32", "float32"),
               (300, 17, 999, 130, "float32", "float32"),
               (777, 40, 5000, 128, "float64", "float64"),
               (100, 9, 300, 3, "float64", "float64")]
+# the narrow-k and long-row plans (kernels/ell_spmm.launch_plan): every
+# k of ELL_NARROW_K at every bucket length of ELL_NARROW_L, g rows of
+# skewed lengths (row 0 full, the others L u^3) over B table rows, every
+# dtype pair; held against the plain version evaluated in f64
+ELL_NARROW_K = (1, 2, 3, 8, 16, 128)
+ELL_NARROW_L = {8: 5000, 100: 2000, 1024: 1024, 4096: 256, 32768: 32,
+                131072: 8}  # L -> g
+ELL_NARROW_B = 50_000
+ELL_PAIRS = (("float32", "float32"), ("bfloat16", "float32"),
+             ("float32", "bfloat16"), ("float64", "float64"))
+# --ell: the launch plan (kernels/ell_spmm.launch_plan) against what it
+# was chosen over, per k of the sparse hierclust root's products
+ELL_VARIANTS = {2: ("plan", "a warp a row", "chain 64", "chain 128",
+                    "chain 256", "no split"),
+                8: ("plan", "warp broadcast"),
+                16: ("plan", "warp broadcast")}
 SP_M, SP_N, SP_K = 600, 3000, 8        # f64 sparse parity, blocked EllAOp
 # the flagship: rank-128 NMF on a 50,000-term x 1,000,000-document corpus
 # with 80 draws per column, bf16 A, f32 factors (bench.py:164-195), uncut
@@ -1357,10 +1380,107 @@ def ell_inputs(g: int, L: int, B: int, k: int, vals_dtype: str,
     return idx, vals, table
 
 
+def ell_skewed_inputs(g: int, L: int, B: int, k: int, vals_dtype: str,
+                      table_dtype: str, seed: int):
+    """A bucket on the card whose rows have skewed lengths: row 0 all L
+    entries, row r > 0 the first max(1, L u^3) (u uniform), the rest and a
+    tenth of the others the sentinel B; values and a table in [0, 1)."""
+    import torch
+
+    idx, vals, table = ell_inputs(g, L, B, k, vals_dtype, table_dtype, 0.1,
+                                  seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    lens = (L * torch.rand(g, generator=gen, device="cuda",
+                           dtype=torch.float64) ** 3).long().clamp(min=1)
+    lens[0] = L
+    pad = torch.arange(L, device="cuda")[None, :] >= lens[:, None]
+    idx[pad] = B
+    return idx, vals.masked_fill(pad, 0), table
+
+
+def ell_narrow_checks() -> tuple[float, float]:
+    """The narrow-k and long-row plans against the plain version evaluated
+    in f64, within ELL_TOL, every dtype pair, store and accumulate; one
+    line per (k, L) with the worst relative distance and the f32 plain
+    version's own distance to f64 beside it.  Row and transposed output
+    bit-equal, and two launches bit-equal.  Returns the worst absolute and
+    relative distances."""
+    import torch
+
+    from smallk_torch.kernels import ell_spmm as kmod
+
+    worst_abs = worst_rel = 0.0
+    for k in ELL_NARROW_K:
+        for L, g in ELL_NARROW_L.items():
+            plan = kmod.launch_plan(k, L, 4, 16)
+            rels, plain_rels = [], []
+            for p, (vt, tt) in enumerate(ELL_PAIRS):
+                idx, vals, table = ell_skewed_inputs(
+                    g, L, ELL_NARROW_B, k, vt, tt, seed=31 * k + L + p)
+                acc = torch.float64 if vt == "float64" else torch.float32
+                tol = ELL_TOL[vt if vt == "float64" else "float32"]
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(k + L)
+                rows = torch.randperm(g + 3, generator=gen,
+                                      device="cuda")[:g].to(torch.int32)
+                out0 = torch.rand((g + 3, k), generator=gen, dtype=acc,
+                                  device="cuda")
+                wide = (idx, vals.double(), table.double())
+                label = f"k={k} L={L} g={g} vals {vt} table {tt} {plan}"
+                for accumulate in (False, True):
+                    want = kmod.ell_spmm_reference(
+                        *wide, out0.double().clone(), rows, accumulate)
+                    plain = kmod.ell_spmm_reference(
+                        idx, vals, table, out0.clone(), rows, accumulate)
+                    before = kmod.launches
+                    got = kmod.ell_spmm(idx, vals, table, out0.clone(), rows,
+                                        accumulate)
+                    again = kmod.ell_spmm(idx, vals, table, out0.clone(),
+                                          rows, accumulate)
+                    tr = kmod.ell_spmm(idx, vals, table, out0.T.contiguous(),
+                                       rows, accumulate, transposed=True)
+                    torch.cuda.synchronize()
+                    if kmod.launches != before + 3:
+                        raise AssertionError("ell_spmm did not launch its "
+                                             "kernel")
+                    scale = float(want.abs().max())
+                    diff = float((got.double() - want).abs().max())
+                    rel = diff / scale
+                    plain_rels.append(float((plain.double() - want).abs()
+                                            .max()) / scale)
+                    if not (rel <= tol and bool(torch.isfinite(got).all())):
+                        raise AssertionError(
+                            f"ell_spmm {label} accumulate={accumulate}: "
+                            f"{rel:.3e} from the f64 plain version "
+                            f"(tolerance {tol:g})")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"ell_spmm {label}: two launches "
+                                             "differ")
+                    if not torch.equal(tr, got.T):
+                        raise AssertionError(f"ell_spmm {label}: the "
+                                             "transposed mode is not the row "
+                                             "mode transposed")
+                    rels.append(rel)
+                    worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel,
+                                                                     rel)
+                del idx, vals, table, want, plain, got, again, tr
+            log(f"[ell_spmm] k={k} L={L} g={g} {plan} (chain "
+                f"{plan.chain(L)}): relative distance to the f64 plain "
+                f"version {max(rels):.2e} over the four dtype pairs, store "
+                f"and accumulate (tolerance {ELL_TOL['float32']:g} f32, "
+                f"{ELL_TOL['float64']:g} f64); the f32 plain version "
+                f"{max(plain_rels):.2e}")
+    log("[ell_spmm] narrow k and long rows: row and transposed output "
+        "bit-equal, two launches bit-equal, in every case")
+    return worst_abs, worst_rel
+
+
 def phase_ell_spmm() -> dict:
     """ell_spmm against its plain version on ragged buckets (store and
-    accumulate, every dtype pair) and at P1's and P2's shapes; times of
-    the kernel, the plain version and torch.sparse.mm at the probes'."""
+    accumulate, every dtype pair), on the narrow-k and long-row plans
+    (ell_narrow_checks) and at P1's and P2's shapes; times of the kernel,
+    the plain version and torch.sparse.mm at the probes'."""
     import torch
 
     from smallk_torch.kernels import ell_spmm as kmod
@@ -1411,6 +1531,9 @@ def phase_ell_spmm() -> dict:
                                      "is not the row mode transposed")
     log("[ell_spmm] row and transposed output bit-equal to each other on "
         "every ragged bucket")
+    narrow_abs, narrow_rel = ell_narrow_checks()
+    worst_abs, worst_rel = max(worst_abs, narrow_abs), max(worst_rel,
+                                                           narrow_rel)
 
     probes = {}
     for p, (name, (G, L, B, k, vt, tt)) in enumerate(ELL_PROBES.items()):
@@ -1557,15 +1680,24 @@ def flagship_problem():
 def plain_ell():
     """EllAOp's and GatheredColsAOp's products through ell_spmm's plain
     version, bucket by bucket and block by block as the kernel runs them
-    (ell_spmm_reference on the card, counted as plain calls)."""
-    from smallk_torch.kernels.ell_spmm import ell_spmm, ell_spmm_reference
+    (ell_spmm_reference on the card, counted as plain calls).  Each entry
+    point an operand module imports is swapped for its plain version, so
+    an archived tree's package (`--times`) is swapped too."""
+    from smallk_torch.kernels import ell_spmm as kmod
     from smallk_torch.ops import ell, ell_cols
 
-    ell.ell_spmm = ell_cols.ell_spmm = ell_spmm_reference
+    plain = {"ell_spmm": kmod.ell_spmm_reference,
+             "ell_spmm_buckets": getattr(kmod, "ell_spmm_buckets_reference",
+                                         None)}
+    saved = [(mod, name, getattr(mod, name)) for mod in (ell, ell_cols)
+             for name in plain if hasattr(mod, name)]
+    for mod, name, _ in saved:
+        setattr(mod, name, plain[name])
     try:
         yield
     finally:
-        ell.ell_spmm = ell_cols.ell_spmm = ell_spmm
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def sparse_rel_err(op, W, H) -> float:
@@ -2223,61 +2355,156 @@ def profile_flagship(op, W0, H0) -> None:
                         "iteration(s)")
 
 
-def ell_study(card: str) -> None:
-    """--ell: ell_spmm's two layouts at the flagship and the probes' shapes.
-    The bucket ladder of both products; W'A's bucket (L = 80) written
-    transposed, written by rows, and written by rows then copied to (k, n)
-    as the previous design did; each product through the operand; P1's
-    and P2's shapes in both layouts; then the flagship's MU and BPP
-    profiles."""
+def ell_variant(plan, L: int, variant: str) -> tuple:
+    """A bucket's launch plan (vec, C, W, S) under `variant`: the plan, a
+    whole warp for every row, long rows split to chains of another length
+    or not split, or each entry broadcast to the whole warp (kWarp, the
+    k = 128 walk) in place of a group of C lanes (kGroup)."""
+    from smallk_torch.kernels import ell_spmm as kmod
+
+    vec, C, W, S = plan
+    if variant == "a warp a row":
+        W = 32
+    elif variant.startswith("chain ") and L > kmod.SPLIT_MIN_L:
+        chain = int(variant.split()[1])
+        S = min(kmod.MAX_WARPS_PER_ROW,
+                kmod._pow2_at_least(-(-L // ((32 // C) * chain))))
+    elif variant == "no split":
+        S = 1
+    elif variant == "warp broadcast":
+        C = W = 32
+    elif variant != "plan" and not variant.startswith("chain "):
+        raise ValueError(variant)
+    return vec, C, W, S
+
+
+def ell_variant_product(packs, table, n_major: int, transposed: bool,
+                        variant: str, only=None):
+    """A product over an EllAOp family (`packs`, as its `col_packs` or
+    `row_packs`) with every bucket launched under `variant`, from
+    descriptors built for it (the operand's own stay as they are), through
+    the wrapper's launcher: a callable returning the product.  `only`
+    (block, bucket) launches that one bucket alone."""
     import torch
 
     from smallk_torch.kernels import ell_spmm as kmod
-    from smallk_torch.ops.ell import EllAOp
 
-    A, W0, H0 = flagship_problem()
-    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    k = table.shape[1]
+    launches = []
+    for b, (lo, hi, pack) in enumerate(packs):
+        tab = table[lo:hi]
+        ptr = tab.data_ptr()
+        desc = pack.descriptors(k, tab.element_size(),
+                                min(ptr & -ptr, 32)).copy()
+        for d in desc:
+            d[5:] = ell_variant(tuple(int(x) for x in d[5:]), int(d[4]),
+                                variant)
+        if only is not None:
+            desc = desc[only[1]:only[1] + 1] if only[0] == b else desc[:0]
+        if len(desc):
+            launches.append((np.ascontiguousarray(desc), pack.dtype, tab,
+                             b > 0))
+    out = torch.zeros((k, n_major) if transposed else (n_major, k),
+                      device=table.device)
+
+    def run():
+        for desc, dtype, tab, accumulate in launches:
+            kmod._launch(desc, dtype, tab, out, accumulate, transposed)
+        return out
+    return run
+
+
+def ell_study(card: str) -> None:
+    """--ell: ell_spmm's checks (phase 12), then its launch plan against
+    ELL_VARIANTS at the sparse hierclust root's EllAOp, k = 2, 8 and 16:
+    each product under each variant timed alone on the device and back to
+    back, twice in turn, and held to the plan's (bit-equal to the
+    operand's own product); at k = 2 each doc block's slowest AH' launch
+    and the host's enqueue of the product; and a k = 2 bucket of short
+    rows with and without warps shared among rows."""
+    import torch
+
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.kernels.ell_spmm import Buckets
+
+    timed_phase = time.perf_counter()
+    phase_ell_spmm()
+    log(f"[ell] phase 12 in {time.perf_counter() - timed_phase:.1f} s")
+    A, _, _ = sparse_corpus(SPH_N)
+    a_op = as_aop(A, dtype="bfloat16", device="cuda")
     del A
-    W = torch.from_numpy(W0).cuda().contiguous()
-    H = torch.from_numpy(H0).cuda()
-    ladder = {}
-    for _, bkts in op.row_blocks:
-        for _, idx, _ in bkts:
-            ladder[idx.shape[1]] = ladder.get(idx.shape[1], 0) + idx.shape[0]
-    log(f"[ell] flagship buckets: W'A {[tuple(i.shape) for _, i, _ in op.col_buckets]}"
-        f"; AH' {len(op.row_blocks)} doc blocks, rows per L "
-        f"{dict(sorted(ladder.items()))}")
+    log(f"[ell] root EllAOp W'A buckets (g, L): "
+        f"{[tuple(i.shape) for _, i, _ in a_op.col_buckets]}; AH' doc block "
+        f"0 of {len(a_op.row_blocks)}: "
+        f"{[tuple(i.shape) for _, i, _ in a_op.row_blocks[0][1]]}")
 
-    ids, idx, vals = op.col_buckets[0]
-    k = W.shape[1]
-    out_t = torch.empty((k, FLAG_N), device="cuda")
-    out_r = torch.empty((FLAG_N, k), device="cuda")
-    for _ in range(2):
-        tr = back_to_back_ms(lambda: kmod.ell_spmm(
-            idx, vals, W, out_t, ids, transposed=True), 10)
-        row = back_to_back_ms(lambda: kmod.ell_spmm(
-            idx, vals, W, out_r, ids), 10)
-        copied = back_to_back_ms(lambda: kmod.ell_spmm(
-            idx, vals, W, out_r, ids).T.contiguous(), 10)
-        log(f"[ell] W'A bucket {tuple(idx.shape)}: transposed {tr:.4f} ms, "
-            f"row {row:.4f} ms, row + copy to (k, n) {copied:.4f} ms")
-    del out_t, out_r
-    for _ in range(2):
-        log(f"[ell] through the operand: AH' "
-            f"{back_to_back_ms(lambda: op.mm_nt(H), 5):.3f} ms, W'A "
-            f"{back_to_back_ms(lambda: op.mm_tn(W), 5):.3f} ms")
+    def compare(label, products, variants, iters):
+        """Each variant's product against the plan's, then its device and
+        back-to-back ms, the variants in turn forwards and backwards."""
+        want = products["plan"]().clone()
+        for v in variants:
+            got = products[v]()
+            diff = float(((got - want).abs().max()
+                          / want.abs().max().clamp_min(1e-30)).item())
+            if diff > 1e-4:
+                raise AssertionError(f"{label} {v}: relative {diff:.2e} "
+                                     "from the plan's product")
+        times = {v: [] for v in variants}
+        for order in (variants, variants[::-1]):
+            for v in order:
+                times[v].append((device_ms(products[v], iters),
+                                 back_to_back_ms(products[v], iters)))
+        log(f"[ell] {label}: ms (device / back to back), two turns: "
+            + "; ".join(f"{v} " + ", ".join(f"{d:.4f} / {t:.4f}"
+                                          for d, t in times[v])
+                        for v in variants))
 
-    for name, (G, L, B, k, vt, tt) in ELL_PROBES.items():
-        idx, vals, table = ell_inputs(G, L, B, k, vt, tt, 0.0, seed=7)
-        out_r = torch.empty((G, k), device="cuda")
-        out_t = torch.empty((k, G), device="cuda")
-        row = device_ms(lambda: kmod.ell_spmm(idx, vals, table, out_r), 50)
-        tr = device_ms(lambda: kmod.ell_spmm(idx, vals, table, out_t,
-                                             transposed=True), 50)
-        log(f"[ell] {name} G={G} L={L} B={B} k={k} vals {vt} table {tt}: "
-            f"row {row:.4f} ms, transposed {tr:.4f} ms")
-    del W, H
-    profile_flagship(op, W0, H0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for k, variants in ELL_VARIANTS.items():
+        W = torch.rand((SPH_M, k), generator=gen, device="cuda")
+        H = torch.rand((k, SPH_N), generator=gen, device="cuda")
+        tables = {"W'A": (a_op.col_packs, W.contiguous(), SPH_N, True,
+                          a_op.mm_tn(W)),
+                  "AH'": (a_op.row_packs, H.T.contiguous(), SPH_M, False,
+                          a_op.mm_nt(H))}
+        for side, (packs, table, n_major, tr, own) in tables.items():
+            products = {v: ell_variant_product(packs, table, n_major, tr, v)
+                        for v in variants}
+            if not torch.equal(products["plan"](), own):
+                raise AssertionError(f"k={k} {side}: the study's plan is not "
+                                     "the operand's product")
+            compare(f"root EllAOp k={k} {side}", products, variants, 20)
+    # where the root's AH' goes at k = 2: each launch alone (device time)
+    # against the product's host enqueue
+    H = torch.rand((2, SPH_N), generator=gen, device="cuda")
+    table = H.T.contiguous()
+    slowest = []
+    for b, (_, _, pack) in enumerate(a_op.row_packs):
+        times = [(device_ms(ell_variant_product(
+            a_op.row_packs, table, SPH_M, False, "plan", (b, i)), 20),
+            tuple(idx.shape)) for i, (_, idx, _) in enumerate(pack.buckets)]
+        slowest.append((round(max(times)[0], 4), max(times)[1],
+                        round(sum(t for t, _ in times), 4)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        a_op.mm_nt(H)
+    enqueue = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.synchronize()
+    log(f"[ell] root EllAOp k=2 AH' per doc block: slowest launch (ms, "
+        f"(g, L)) and the sum of its launches alone (ms) {slowest}; host "
+        f"enqueue of the product {enqueue:.4f} ms")
+    # short rows sharing a warp: the root's shortest AH' buckets' lengths
+    for L in (8, 16):
+        idx, vals, table = ell_inputs(20000, L, 131072, 2, "bfloat16",
+                                      "float32", 0.3, seed=L)
+        packs = [(0, None, Buckets([(None, idx, vals)]))]
+        for tr in (False, True):
+            compare(f"k=2 bucket g=20000 L={L} bf16 values"
+                    f"{' transposed' if tr else ''}",
+                    {v: ell_variant_product(packs, table, 20000, tr, v)
+                     for v in ("plan", "a warp a row")},
+                    ("plan", "a warp a row"), 50)
     log(f"[ell] on {card}")
 
 
@@ -2956,8 +3183,53 @@ def times_child(tree: str) -> int:
         res[f"{alg} s per run of {tuple(walls)} iterations"] = walls
         res[f"{alg} it/s"] = (hi - lo) / (float(np.median(walls[hi]))
                                           - float(np.median(walls[lo])))
+    del op, W, H
+    torch.cuda.empty_cache()
+    res.update(sparse_hier_times())
     print(json.dumps(res), flush=True)
     return 0
+
+
+def sparse_hier_times() -> dict:
+    """The sparse hierclust numbers `--pair` compares: the k = 2 products
+    (f32 factors on the bf16 50,000 x 1,000,000 corpus) at the root's
+    EllAOp and at a 1/SPH_NODE node's gathered operand, back to back, and
+    the clustering's wall (after a warm-up run with another seed) with its
+    iterations, leaves and NMI."""
+    import torch
+
+    from smallk_torch import ClustStats, Random
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.ell_cols import CscColumns
+
+    A, labels, _ = sparse_corpus(SPH_N)
+    a_op = as_aop(A, dtype="bfloat16", device="cuda")
+    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
+    idx = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)[
+        :SPH_N // SPH_NODE]).cuda()
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for label, op in (("root", a_op), (f"1/{SPH_NODE} node",
+                                       cols.gathered(idx))):
+        W = torch.rand((SPH_M, 2), generator=gen, device="cuda")
+        H = torch.rand((2, op.shape[1]), generator=gen, device="cuda")
+        res[f"k=2 {label} W'A ms"] = back_to_back_ms(lambda: op.mm_tn(W), 5)
+        res[f"k=2 {label} AH' ms"] = back_to_back_ms(lambda: op.mm_nt(H), 5)
+    del cols
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    hc.clust_hier(a_op, opts, Random(1), host_A=A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, stats = hc.clust_hier(a_op, opts, Random(2), ClustStats(),
+                                host_A=A)
+    torch.cuda.synchronize()
+    res["sparse hierclust wall s"] = time.perf_counter() - t0
+    res["sparse hierclust iter_count, leaves, NMI"] = [
+        stats.iter_count, int(sum(tree.is_leaf)),
+        round(nmi(tree.assignments, labels), 4)]
+    return res
 
 
 def pair(parent: str, card: str) -> None:
@@ -2986,6 +3258,10 @@ def pair(parent: str, card: str) -> None:
     for key in ("W'A sha256", "AH' sha256"):
         if len({r[key] for r in runs}) != 1:
             raise AssertionError(f"{key} differs between the trees")
+    for r in runs:
+        if r["sparse hierclust iter_count, leaves, NMI"][1] != HIER_K:
+            raise AssertionError(f"sparse hierclust in {r['tree']}: not "
+                                 f"{HIER_K} leaves")
     log(f"[pair] the flagship's products are bit-equal in both trees; on "
         f"{card}")
 
@@ -3129,9 +3405,9 @@ def main() -> int:
         **{key: flagship["wta"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }] + [{
-        # the sparse hierclust root's products at k = 2 (one-column-a-lane
-        # path); launches: that run's transposed (W'A) or row-mode (AH')
-        # ones, at every node
+        # the sparse hierclust root's products at k = 2 (an entry a lane,
+        # long rows shared by warps); launches: that run's transposed (W'A)
+        # or row-mode (AH') ones, at every node
         "name": f"ell_spmm (sparse hierclust root {side}, k=2, m={SPH_M} "
                 f"n={SPH_N})",
         "route": "cuda",
@@ -3144,6 +3420,20 @@ def main() -> int:
         "bound_ms": sparse_hier["root"][side]["bound_ms"],
         "bound_by": sparse_hier["root"][side]["bound_by"],
         "library_ms": sparse_hier["root"][side]["library_ms"],
+    } for side in ("tn", "nt")] + [{
+        # the same products at a 1/SPH_NODE node's gathered operand
+        "name": f"ell_spmm (sparse hierclust 1/{SPH_NODE} node {side}, k=2, "
+                f"gathered operand)",
+        "route": "cuda",
+        "source": ell_spmm.SOURCE,
+        "replaces": ell_spmm.REPLACES["P2"],
+        "launches": sparse_hier["launches"][side],
+        "max_abs_err": sparse_hier["node"][side]["err"],
+        "ms": sparse_hier["node"][side]["ell_ms"],
+        "plain_ms": sparse_hier["node"][side]["plain_ms"],
+        "bound_ms": sparse_hier["node"][side]["bound_ms"],
+        "bound_by": sparse_hier["node"][side]["bound_by"],
+        "library_ms": sparse_hier["node"][side]["library_ms"],
     } for side in ("tn", "nt")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,8 @@ upcast.  A sparse A too large to densify is the root's bucketed-ELL
 operand (ops/ell.py) plus its CSC arrays on the device
 (ops/ell_cols.CscColumns), from which each node's operand is gathered on
 the device at any width (on an H100 the gathered operand's two products
-took 0.9-4.3 ms at every share of the documents from 1/8 to 7/8, the
-masked view of the root 151 ms: chip_smoke.py --cols, PERF.md); an
+took 0.32-1.08 ms at every share of the documents from 1/8 to 7/8, the
+masked view of the root 2.71 ms: chip_smoke.py --cols, PERF.md); an
 initdir run and a prebuilt sparse operand without its host matrix solve
 every node on the full-width masked view (ops/aop.MaskedAOp) instead, as
 the reference's initdir runs do.  Tree bookkeeping and document

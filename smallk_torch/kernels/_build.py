@@ -57,7 +57,10 @@ SIGNATURES = {
         "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "ell_spmm": {
-        **{f"smallk_ell_spmm_{pair}": ((_P,) * 5 + (_I,) * 8 + (_P, _I), _I)
+        # desc, n, table, out, B, k, n_out, accumulate, transposed,
+        # stream, device, failed (an int written back)
+        **{f"smallk_ell_spmm_{pair}": ((_P, _I, _P, _P) + (_I,) * 5
+                                       + (_P, _I, _P), _I)
            for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64")},
         "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
     },

@@ -10,7 +10,8 @@ product is, bucket by bucket,
     out[ids[r], :] = sum_l vals[r, l] * table[idx[r, l], :]
 
 which is the hand-written CUDA gather-SpMM (kernels/ell_spmm.py) on the
-card and its plain torch version on the CPU.  The kernel writes each
+card and its plain torch version on the CPU, all of a family's (or a
+minor block's) buckets from one host call.  The kernel writes each
 bucket row straight to its major id and skips the sentinel, so neither
 the reference's appended zero table row nor its stacked outputs and
 inverse-permutation take are needed; `col_inv`/`row_inv` are kept on the
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..common.device import setup, torch_dtype
-from ..kernels.ell_spmm import ell_spmm
+from ..kernels.ell_spmm import Buckets, ell_spmm_buckets
 
 # Quarter-step refinement of the pow-2 bucket ladder: a pow-2 class with
 # at least this many slices is split into sub-lengths {5/8, 3/4, 7/8, 1}
@@ -128,6 +129,16 @@ def _to_storage(vals, dtype):
     return torch.from_numpy(vals.astype(np.float32)).to(dtype)
 
 
+def _packs(buckets, blocks, block_size):
+    """A family's buckets recorded for the kernel (kernels/ell_spmm.Buckets)
+    with the table rows they gather from: [(0, None, all of them)], or one
+    (lo, hi, its buckets) a minor block."""
+    if blocks is None:
+        return [(0, None, Buckets(buckets))]
+    return [(b * block_size, (b + 1) * block_size, Buckets(bkts))
+            for b, (_inv, bkts) in enumerate(blocks)]
+
+
 class EllAOp:
     """Sparse operand in dual bucketed-ELL form (by columns and by rows).
 
@@ -149,6 +160,10 @@ class EllAOp:
         self.row_block_size = int(row_block_size)
         self.col_blocks = col_blocks    # list of (inv(n,), buckets) or None
         self.col_block_size = int(col_block_size)
+        # each family's buckets recorded for the kernel once: one host
+        # call a minor block
+        self.col_packs = _packs(col_buckets, col_blocks, col_block_size)
+        self.row_packs = _packs(row_buckets, row_blocks, row_block_size)
 
     @property
     def padded_nnz(self):
@@ -253,24 +268,16 @@ class EllAOp:
         blocked partials add up in it and are rounded once."""
         return torch.float64 if self.dtype == torch.float64 else torch.float32
 
-    def _product(self, buckets, blocks, block_size, table, n_major,
-                 transposed=False):
+    def _product(self, packs, table, n_major, transposed=False):
         """(n_major, k), or (k, n_major) when `transposed`, in the
         accumulator dtype: every bucket's rows, summed over the minor
         blocks in block order."""
         k = table.shape[1]
         out = torch.empty((k, n_major) if transposed else (n_major, k),
                           dtype=self._acc_dtype(), device=table.device)
-        if blocks is None:
-            for ids, idx, vals in buckets:
-                ell_spmm(idx, vals, table, out, rows=ids,
-                         transposed=transposed)
-            return out
-        for b, (_inv, bkts) in enumerate(blocks):
-            tab = table[b * block_size:(b + 1) * block_size]
-            for ids, idx, vals in bkts:
-                ell_spmm(idx, vals, tab, out, rows=ids, accumulate=b > 0,
-                         transposed=transposed)
+        for b, (lo, hi, pack) in enumerate(packs):
+            ell_spmm_buckets(pack, table[lo:hi], out, accumulate=b > 0,
+                             transposed=transposed)
         return out
 
     def mm_tn(self, W):
@@ -278,17 +285,15 @@ class EllAOp:
         bf16-rounded product collapses BPP's sign tests to zero), written
         in that layout by the kernel; a factor dtype other than the
         accumulator's costs one contiguous rounding pass."""
-        out = self._product(self.col_buckets, self.col_blocks,
-                            self.col_block_size, W.contiguous(),
-                            self._shape[1], transposed=True)
+        out = self._product(self.col_packs, W.contiguous(), self._shape[1],
+                            transposed=True)
         return out.to(W.dtype)
 
     def mm_nt(self, H):
         """A H^T -> (m, k) in H's dtype; H is transposed once per product,
         not once per block: the kernel gathers whole k-wide rows of its
         table, which H's own (k, n) layout would turn into strided reads."""
-        out = self._product(self.row_buckets, self.row_blocks,
-                            self.row_block_size, H.T.contiguous(),
+        out = self._product(self.row_packs, H.T.contiguous(),
                             self._shape[0])
         return out.to(H.dtype)
 

@@ -30,9 +30,9 @@ torch ops (a gather of factor rows, then a sorted segment sum,
 products together take less time at the root and at a node of 1/8 of the
 documents.  On an H100 80GB HBM3 (700 W) at 50,000 x 1,000,000 (73 M
 nonzeros, bf16 values, f32 factors; chip_smoke.py --cols, PERF.md): ELL
-2.58 + 2.25 ms at the root and 0.46 + 0.48 at 1/8 (W'A + AH'), torch ops
-1.62 + 63.5 and 0.34 + 8.19 (its W'A is the faster one; its AH' walks
-each term's segment in one thread).
+0.65 + 0.57 ms at the root and 0.12 + 0.24 at 1/8 (W'A + AH'), torch ops
+1.65 + 63.4 and 0.32 + 8.07 (its AH' walks each term's segment in one
+thread).
 """
 
 from __future__ import annotations
@@ -41,17 +41,19 @@ import numpy as np
 import torch
 
 from ..common.device import setup, torch_dtype
-from ..kernels.ell_spmm import ell_spmm
+from ..kernels.ell_spmm import Buckets, ell_spmm, ell_spmm_buckets
 from .ell import _to_storage
 
 _MIN_LEN = 8  # shortest bucket length, as the bucketed-ELL operand's
-# Longest bucket length.  A warp of ell_spmm walks one bucket row, so a
-# slice longer than this (a term in most of a node's documents) is cut
-# into pieces of this length, summed into a table of partial rows by one
-# launch and the pieces then into the slice's row by a second.  Uncut, the
-# corpus's most frequent term (in ~92% of the documents) kept one warp
-# walking ~900 k entries: 155 ms for AH' at 50,000 x 1,000,000 on an H100
-# (chip_smoke.py --cols; PERF.md).
+# Longest bucket length.  A slice longer than this (a term in most of a
+# node's documents) is cut into pieces of this length, summed into a
+# table of partial rows by one launch and the pieces then into the
+# slice's row by a second.  ell_spmm shares a long row among at most 32
+# warps, so uncut, the corpus's most frequent term (in ~92% of the
+# documents, ~900 k entries) still walks chains of ~900 entries a lane:
+# AH' at 50,000 x 1,000,000 on an H100 took 1.20 ms uncut against 0.57
+# cut, and at a 1/8 node 0.230 against 0.235 (chip_smoke.py --cols;
+# PERF.md).
 _MAX_LEN = 1024
 
 
@@ -194,6 +196,9 @@ class GatheredColsAOp:
         self._shape = tuple(int(s) for s in shape)
         self.cols = cols
         self.rows = rows
+        # each family's buckets recorded for the kernel once: one host
+        # call launches them all
+        self._packs = {"cols": Buckets(cols[0]), "rows": Buckets(rows[0])}
         self.nnz = int(nnz)
         self._dtype = dtype
         self.device = device
@@ -217,11 +222,11 @@ class GatheredColsAOp:
         return max(entries(self.cols), entries(self.rows))
 
     def _product(self, family, table, out_shape, transposed):
-        buckets, split = family
+        split = getattr(self, family)[1]
         acc = _acc_dtype(self._dtype)
         out = torch.zeros(out_shape, dtype=acc, device=table.device)
-        for ids, idx, vals in buckets:
-            ell_spmm(idx, vals, table, out, rows=ids, transposed=transposed)
+        ell_spmm_buckets(self._packs[family], table, out,
+                         transposed=transposed)
         if split is not None:
             p_idx, p_vals, ids, refs, ones = split
             part = torch.empty((p_idx.shape[0], table.shape[1]), dtype=acc,
@@ -232,14 +237,14 @@ class GatheredColsAOp:
 
     def mm_tn(self, W):
         """W^T A_sub -> (k, w) in W's dtype."""
-        out = self._product(self.cols, W.contiguous(),
+        out = self._product("cols", W.contiguous(),
                             (W.shape[1], self._shape[1]), True)
         return out.to(W.dtype)
 
     def mm_nt(self, H):
         """A_sub H^T -> (m, k) in H's dtype (H transposed once a product:
         the kernel gathers whole rows of its table)."""
-        out = self._product(self.rows, H.T.contiguous(),
+        out = self._product("rows", H.T.contiguous(),
                             (self._shape[0], H.shape[0]), False)
         return out.to(H.dtype)
 

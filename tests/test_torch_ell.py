@@ -224,25 +224,75 @@ def test_mm_tn_writes_k_by_n_in_place(blocks, monkeypatch):
     jop = jell.EllAOp.from_scipy(A, jnp.float64, **blocks)
     assert (top.col_blocks is not None) == bool(blocks)
     written = []
-    kernel = tell.ell_spmm
+    kernel = tell.ell_spmm_buckets
 
-    def spy(idx, vals, table, out, rows=None, accumulate=False,
-            transposed=False):
+    def spy(buckets, table, out, accumulate=False, transposed=False):
         assert transposed and out.shape == (6, 300)
         written.append((out.data_ptr(), accumulate))
-        return kernel(idx, vals, table, out, rows, accumulate, transposed)
+        return kernel(buckets, table, out, accumulate, transposed)
 
-    monkeypatch.setattr(tell, "ell_spmm", spy)
+    monkeypatch.setattr(tell, "ell_spmm_buckets", spy)
     got = top.mm_tn(torch.from_numpy(W))
     assert got.shape == (6, 300) and got.is_contiguous()
     assert {p for p, _ in written} == {got.data_ptr()}
     assert any(a for _, a in written) == bool(blocks)
     np.testing.assert_allclose(got.numpy(), np.asarray(jop.mm_tn(
         jnp.asarray(W))), rtol=F64_RTOL, atol=F64_RTOL)
-    monkeypatch.setattr(tell, "ell_spmm", kernel)
-    rows = top._product(top.col_buckets, top.col_blocks, top.col_block_size,
-                        torch.from_numpy(W), 300)
+    monkeypatch.setattr(tell, "ell_spmm_buckets", kernel)
+    rows = top._product(top.col_packs, torch.from_numpy(W), 300)
     assert torch.equal(got, rows.T)
+
+
+def _one_term_everywhere(m=60, n=3000, seed=21):
+    """A corpus whose term 0 is in every document (as the sparse hierclust
+    corpus's most frequent term is in ~92% of them): its row is a bucket
+    of its own, 4096 long monolithic, and in every doc block."""
+    A = _random(m, n, 0.03, seed=seed).tolil()
+    A[0, :] = np.random.RandomState(seed).rand(n) + 0.1
+    return A.tocsc()
+
+
+@pytest.mark.parametrize("blocks", [{}, dict(doc_block=1024)],
+                         ids=["monolithic", "doc_blocked"])
+def test_one_term_in_every_document_matches_reference(blocks):
+    """The heaviest row the operands build: bucket layout equal to the JAX
+    package's, and the products at k = 2 and 5 equal to its in f64."""
+    A = _one_term_everywhere()
+    top = EllAOp.from_scipy(A, torch.float64, device="cpu", **blocks)
+    jop = jell.EllAOp.from_scipy(A, jnp.float64, **blocks)
+    _assert_same_layout(top, jop)
+    longest = max(idx.shape[1] for _, bk in (top.row_blocks or
+                                              [(None, top.row_buckets)])
+                  for _, idx, _ in bk)
+    assert longest == (1024 if blocks else 4096)
+    rng = np.random.RandomState(4)
+    for k in (2, 5):
+        W, H = rng.rand(60, k), rng.rand(k, 3000)
+        for name, F in (("mm_tn", W), ("mm_nt", H)):
+            np.testing.assert_allclose(
+                getattr(top, name)(torch.from_numpy(F)).numpy(),
+                np.asarray(getattr(jop, name)(jnp.asarray(F))),
+                rtol=F64_RTOL, atol=F64_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [{}, dict(doc_block=1024)],
+                         ids=["monolithic", "doc_blocked"])
+def test_cuda_one_term_in_every_document(blocks):
+    """On the card the heaviest row runs the long-row plan (several warps a
+    row): the f64 products at k = 2 equal the CPU operand's to
+    F64_RTOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    A = _one_term_everywhere()
+    cpu = EllAOp.from_scipy(A, torch.float64, device="cpu", **blocks)
+    card = EllAOp.from_scipy(A, torch.float64, device="cuda", **blocks)
+    rng = np.random.RandomState(6)
+    for name, F in (("mm_tn", rng.rand(60, 2)), ("mm_nt", rng.rand(2, 3000))):
+        F = torch.from_numpy(F)
+        np.testing.assert_allclose(getattr(card, name)(F.cuda()).cpu().numpy(),
+                                   getattr(cpu, name)(F).numpy(),
+                                   rtol=F64_RTOL, atol=F64_RTOL)
 
 
 def test_as_aop_sparse_branch():

@@ -244,15 +244,132 @@ def test_build_knows_the_library():
     sigs = _build.SIGNATURES["ell_spmm"]
     for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64"):
         args, ret = sigs[f"smallk_ell_spmm_{pair}"]
-        # five pointers; g, L, B, k, n_out, accumulate, vec, transposed;
-        # the stream as a pointer, the device
-        assert args == (_build._P,) * 5 + (_build._I,) * 8 + (_build._P,
-                                                             _build._I)
+        # the buckets' launch records and their count; table and out; B,
+        # k, n_out, accumulate, transposed; the stream as a pointer, the
+        # device; where the failed bucket's index is written
+        assert args == (_build._P, _build._I, _build._P, _build._P) + (
+            _build._I,) * 5 + (_build._P, _build._I, _build._P)
         assert ret is _build._I
     assert set(kmod.REPLACES) == {"P1", "P2"}
     text = (_build.CSRC / "ell_spmm.cu").read_text()
     # no atomics: accumulate adds in launch order
     assert "atomicAdd" not in text
+
+
+def test_kernel_source_has_no_float_atomics():
+    """Every sum of the kernel has a fixed order: no atomic operation of
+    any kind in its code (comments aside), so no floating-point atomicAdd,
+    and the long rows' partial sums meet in shared memory behind
+    barriers."""
+    text = (_build.CSRC / "ell_spmm.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert "atomic" not in code.lower()
+    assert "__syncthreads" in code and "__shfl_xor_sync" in code
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+
+
+PLAN_KS = [1, 2, 3, 8, 16, 128]
+PLAN_LS = [8, 1024, 4096, 131072, 262144, 10**6]
+
+
+@pytest.mark.parametrize("L", PLAN_LS)
+@pytest.mark.parametrize("k", PLAN_KS)
+def test_launch_plan(k, L):
+    """Every lane has work at any k, and no row's length sets a warp's
+    time: an entry takes the lanes its k needs (k = 2: one lane, 32
+    entries in flight a warp), and a row past SPLIT_MIN_L takes warps
+    until every lane's chain is within MAX_CHAIN (up to 262,144 entries
+    at k = 2), or 32 warps."""
+    plan = kmod.launch_plan(k, L, 4, 16)
+    vec, per_entry, per_row, warps = plan
+    assert k % vec == 0 and vec in (1, 2, 4)
+    assert per_entry == min(32, kmod._pow2_at_least(-(-k // vec)))
+    assert per_entry * vec >= min(k, 32 * vec)   # one pass when k allows
+    assert per_entry <= per_row <= 32
+    assert per_row == 32 or (warps == 1 and per_row >= min(L, 32))
+    if k == 2:
+        assert (vec, per_entry) == (2, 1)
+        assert 32 // per_entry == 32            # entries in flight a warp
+    if k == 128 and L <= kmod.SPLIT_MIN_L:
+        assert plan == (4, 32, 32, 1)          # the flagship's plan
+    if L <= kmod.SPLIT_MIN_L:
+        assert warps == 1
+    else:
+        assert 1 < warps <= kmod.MAX_WARPS_PER_ROW or plan.chain(L) <= \
+            kmod.MAX_CHAIN
+        if (32 // per_entry) * 32 * kmod.MAX_CHAIN >= L:
+            assert plan.chain(L) <= kmod.MAX_CHAIN
+            # the fewest warps that do it
+            assert warps == 1 or -(-L // ((32 // per_entry) * warps // 2)) \
+                > kmod.MAX_CHAIN
+        else:
+            assert warps == kmod.MAX_WARPS_PER_ROW
+    if k <= 2 and L <= 262144:
+        assert plan.chain(L) <= 256
+
+
+@pytest.mark.parametrize("L", [80, 96, 128, 160, 192, 224, 256, 320, 384,
+                               448, 512])
+def test_launch_plan_keeps_the_flagship_path(L):
+    """At k = 128 and every bucket length of the flagship (PR 6's ladder,
+    L <= 512) the plan is PR 7's: a float4 a lane, one entry broadcast to
+    a warp, one warp a row; so the flagship's products keep their bits."""
+    assert kmod.launch_plan(128, L, 4, 256) == (4, 32, 32, 1)
+    assert kmod.launch_plan(128, L, 2, 256) == (4, 32, 32, 1)
+
+
+@pytest.mark.parametrize("item,aligned,k,vec", [
+    (4, 16, 2, 2), (4, 8, 4, 2), (4, 4, 4, 1), (4, 16, 6, 2), (4, 16, 3, 1),
+    (8, 16, 2, 2), (8, 16, 4, 2), (8, 32, 4, 4), (2, 8, 8, 4), (2, 4, 8, 2),
+    (2, 2, 8, 1)])
+def test_launch_plan_vector_width(item, aligned, k, vec):
+    """The widest load of 4, 2 or 1 columns that divides k and that the
+    table's address allows for its entry size."""
+    assert kmod.launch_plan(k, 64, item, aligned).vec == vec
+
+
+@pytest.mark.parametrize("k,L,per_row", [(2, 8, 8), (2, 9, 16), (2, 16, 16),
+                                         (2, 31, 32), (2, 64, 32),
+                                         (8, 8, 8), (16, 8, 8), (32, 8, 8),
+                                         (64, 8, 16), (128, 8, 32)])
+def test_launch_plan_short_rows_share_a_warp(k, L, per_row):
+    """A row shorter than a warp takes a sub-warp of its length (never
+    fewer lanes than its entry)."""
+    assert kmod.launch_plan(k, L, 4, 16).lanes_per_row == per_row
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+def test_reference_on_rows_of_2_17_entries(k, transposed):
+    """The plain version on rows of 2^17 entries (the length of the sparse
+    hierclust root's heaviest term rows in a doc block), full, half full
+    and nearly empty, with sentinels through them, against a numpy f64
+    sum: f64 to F64_RTOL scaled by the length, f32 sums to 1e-4 (a chain
+    of 2^17 positive terms)."""
+    L, B = 1 << 17, 5000
+    rng = np.random.RandomState(17 + k)
+    idx = rng.randint(0, B, (3, L)).astype(np.int32)
+    idx[1, L // 2:] = B
+    idx[2, 7:] = B
+    idx[rng.rand(3, L) < 0.1] = B
+    vals = rng.rand(3, L)
+    table = rng.rand(B, k)
+    rows = np.array([4, 0, 2], np.int32)
+    want = np.zeros((5, k))
+    for r in range(3):
+        keep = idx[r] < B
+        want[rows[r]] = vals[r, keep] @ table[idx[r, keep]]
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        out = torch.zeros((k, 5) if transposed else (5, k), dtype=dtype)
+        ell_spmm(torch.from_numpy(idx), torch.from_numpy(vals).to(dtype),
+                 torch.from_numpy(table).to(dtype), out,
+                 rows=torch.from_numpy(rows), transposed=transposed)
+        got = out.T if transposed else out
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=tol,
+                                   atol=0)
 
 
 @pytest.mark.cuda
@@ -311,7 +428,7 @@ LAYOUT_CASES = [(300, 80, 500, 128), (97, 128, 300, 128), (64, 200, 900, 128),
 def test_cuda_variants_match_plain(pair):
     """Row and transposed output: each within the plain version's
     tolerance, and the transposed sums equal to the row mode's bit for
-    bit (each entry is one fma chain over l in ascending order in both)."""
+    bit (both sum in the same fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     vt, tt = (getattr(torch, p) for p in pair)
@@ -341,3 +458,50 @@ def test_cuda_variants_match_plain(pair):
                        / float(want.abs().max()))
                 assert err <= tol, (g_pad, L, B, k, transposed, err)
             assert torch.equal(got[True], got[False].T), (g_pad, L, B, k)
+
+
+# (g_pad, L, B, k): the narrow-k plans (an entry a lane at k <= 2 and 4,
+# 2-8 lanes an entry at 3, 8, 16), rows shorter than a warp sharing one,
+# and rows past SPLIT_MIN_L shared by several warps, up to 2^17 entries
+NARROW_CASES = [(40, 8, 30, 2), (33, 20, 50, 2), (50, 80, 300, 1),
+                (37, 64, 100, 3), (29, 8, 40, 8), (64, 128, 500, 16),
+                (7, 4096, 2000, 2), (5, 20000, 3000, 3), (3, 1 << 17, 5000, 2),
+                (4, 1 << 17, 5000, 1), (3, 40000, 800, 8),
+                (3, 1 << 17, 4000, 16), (2, 5000, 600, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "_".join(p))
+def test_cuda_narrow_and_long_rows(pair):
+    """The narrow-k and long-row plans: within the plain version's
+    tolerance, evaluated in f64 (f32 sums of long rows in other orders:
+    2e-5 of the largest output, as chip_smoke.py holds them), row and
+    transposed output bit-equal, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    vt, tt = (getattr(torch, p) for p in pair)
+    acc = torch.float64 if vt == torch.float64 else torch.float32
+    tol = 1e-12 if vt == torch.float64 else 2e-5
+    for g_pad, L, B, k in NARROW_CASES:
+        idx, vals, table, rows = _bucket(g_pad, L, B, k, seed=L + k,
+                                         n_rows=g_pad - 1)
+        vals = np.abs(vals)  # long sums of positive terms
+        args = [torch.from_numpy(idx).cuda(),
+                torch.from_numpy(vals).to(vt).cuda(),
+                torch.from_numpy(table + 0.5).to(tt).cuda()]
+        wide = [args[0], args[1].double(), args[2].double()]
+        r = torch.from_numpy(rows).cuda()
+        out0 = torch.rand((int(rows.max()) + 3, k), dtype=acc, device="cuda")
+        for accumulate in (False, True):
+            want = ell_spmm_reference(*wide, out0.double().clone(), r,
+                                      accumulate)
+            got = ell_spmm(*args, out0.clone(), r, accumulate)
+            again = ell_spmm(*args, out0.clone(), r, accumulate)
+            tr = ell_spmm(*args, out0.T.contiguous(), r, accumulate,
+                          transposed=True)
+            torch.cuda.synchronize()
+            err = (float((got.double() - want).abs().max())
+                   / float(want.abs().max()))
+            assert err <= tol, (g_pad, L, B, k, accumulate, err)
+            assert torch.equal(got, again), (g_pad, L, B, k)
+            assert torch.equal(tr, got.T), (g_pad, L, B, k)
