@@ -73,12 +73,26 @@ fails (nonzero exit, no result line) on any fault:
      under the profiler (busy share) and the timed run with ell_spmm's
      launches counted; the root's and a 1/8 node's products timed against
      their plain version, the torch-ops formulation and torch.sparse.mm;
- 17. BPP at k = 160 (the masked CG tier's) on the main path's operand, the
+ 17. the user-facing entry points over the kernels (facade): the stateful
+     facade's Nmf(8) (BPP) on the main path's operand, bit-equal to a
+     direct run_nmf from the same draws, K1 = 2 x iterations + pivot
+     rounds; its HierNmf2WithFlat(12) on the Reuters-shape hierclust
+     corpus, files equal to a direct run_hier_nmf2's, K3 >= 2 x
+     iter_count; api.Flatclust HALS on the flatclust problem, one K2
+     launch an iteration, equal to a direct run_flatclust; api.Hierclust
+     on phase 16's corpus (reused), 12 leaves, NMI within
+     FACADE_NMI_MARGIN of phase 16's, products through ell_spmm only;
+     NmfEmbeddings on the flagship's MU factors (phase 14's), top-k
+     against f64 on the host; profiling.block_and_time on a K1 call
+     against device_ms, and a device_trace of K1 calls (in a process of
+     its own); each entry point's wall beside the direct call's;
+ 18. BPP at k = 160 (the masked CG tier's) on the main path's operand, the
      CG solves and steps counted, and f64 on a slice against the CPU;
- 18. the nmf, flatclust and hierclust CLIs as subprocesses, and the nmf
-     and hierclust CLIs on a 30000 x 20000 .mtx above the densify
-     threshold (EllAOp);
- 19. the kernel table as one JSON line, the card line, and last the result
+ 19. the nmf, flatclust and hierclust CLIs as subprocesses, the nmf and
+     hierclust CLIs on a 30000 x 20000 .mtx above the densify threshold
+     (EllAOp), and the five CLIs chained: matrixgen -> preprocess_tf ->
+     nmf and hierclust on the card;
+ 20. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -129,6 +143,11 @@ root at shares 1/8 to 7/8 of the documents.
 runs only the GJ/CG crossover: one full-width pivot round through K1 and
 through the CG tier (cold and warm-started), k = 32..128, n = 12,411,
 50,000 and 1,000,000.
+
+    python3 chip_smoke.py --facade
+
+runs only phases 16, 17 and the CLI chain of 19, with the flagship's MU
+factors made on their own.
 
     python3 chip_smoke.py --pair DIR
 
@@ -266,6 +285,14 @@ BPP_WIDE_K, BPP_WIDE_ITERS, BPP_WIDE_SLICE = 160, 10, (2000, 1500)
 BPP_CG_RTOL = 1e-8
 # --cg: the GJ/CG crossover grid
 CG_SWEEP_K, CG_SWEEP_N = (32, 64, 96, 128), (12411, 50_000, 1_000_000)
+# the facade phase: the facade's and the API's seeds; api.Hierclust's
+# NMI on the sparse corpus (f32 A, min_iter 5) against the sparse
+# hierclust phase's run (bf16 A, min_iter 1) with the same seed; the
+# embedding queries of each kind, their top-k, the f64 score gap within
+# which two indices may trade places, and the values' relative tolerance
+FACADE_SEED, FACADE_NMI_MARGIN = 7, 0.01
+TRACE_CALLS = 20   # K1 calls inside profiling.device_trace
+EMB_QUERIES, EMB_TOPK, EMB_TIE, EMB_RTOL = 64, 10, 1e-6, 1e-5
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -1977,6 +2004,8 @@ def phase_flagship(card: str) -> dict:
                     raise AssertionError(f"flagship {alg}: {name} is not "
                                          "finite and nonnegative")
             rel[it] = sparse_rel_err(op, W, H)
+            if alg == "MU" and it == iters[-1]:
+                mu_factors = (W, H)   # the embedding tables' (phase_facade)
             # K1's columns beyond the two first solves of each iteration:
             # full-width rounds would make them rounds x n
             round_cols = counts["K1_columns"] - it * (FLAG_N + FLAG_M)
@@ -2045,7 +2074,7 @@ def phase_flagship(card: str) -> dict:
     return {"launches": launches, "wta_launches": wta_launches,
             "rates": rates, "max_abs_err": worst_abs,
             "k1_launches": k1_launches, "k1_rounds": k1_rounds,
-            "k1_stats": k1_stats, "wta": wta}
+            "k1_stats": k1_stats, "wta": wta, "mu_factors": mu_factors}
 
 
 def transposed_csr(A):
@@ -2905,7 +2934,7 @@ def phase_sparse_hierclust(card: str) -> dict:
     return {"launches": {"tn": transposed,
                          "nt": counts["ell_spmm"] - transposed},
             "wall": wall, "root": root, "node": node, "nmi": score,
-            "busy": busy}
+            "busy": busy, "corpus": (A, labels)}
 
 
 def phase_sparse_dense(card: str) -> None:
@@ -3095,6 +3124,573 @@ def cg_study(card: str) -> None:
             torch.cuda.empty_cache()
 
 
+def quiet(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its standard output captured; returns
+    (result, output)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def files_of(outdir: str) -> dict:
+    return {name: Path(outdir, name).read_bytes()
+            for name in sorted(os.listdir(outdir))}
+
+
+def timed_call(fn, *args, **kwargs):
+    """(fn's result with its standard output captured, its output, its
+    wall seconds between two synchronizes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, text = quiet(fn, *args, **kwargs)
+    torch.cuda.synchronize()
+    return out, text, time.perf_counter() - t0
+
+
+def facade_nmf(card: str) -> dict:
+    """The facade's Nmf(8) (BPP, its defaults: tol 0.005, PG_RATIO, f32) on
+    the main path's operand, between two direct run_nmf calls from the
+    same random_matrix draws on the same card: equal bits, K1 = 2 x
+    iterations + pivot rounds, w.csv and h.csv written."""
+    import smallk_torch as smallk
+    from smallk_torch.engines.nmf import run_nmf
+
+    A = random_sparse_matrix_main()
+    W0, H0 = random_matrix_pair(smallk.Random(FACADE_SEED), M, N, K)
+    opts = smallk.NmfOptions(
+        tol=0.005, algorithm=smallk.NmfAlgorithm.BPP,
+        prog_est_algorithm=smallk.NmfProgressAlgorithm.PG_RATIO, height=M,
+        width=N, k=K, min_iter=5, max_iter=5000, tolcount=1,
+        max_threads=smallk.GetMaxThreads(), verbose=True, normalize=True,
+        dtype="float32")
+
+    def direct():
+        stats = smallk.NmfStats()
+        reset_counts()
+        out, _, wall = timed_call(run_nmf, A, W0, H0, opts, stats,
+                                  device="cuda")
+        return out, stats, read_counts(), wall
+
+    (Wd, Hd, ok), stats, dcounts, wall0 = direct()
+    with tempfile.TemporaryDirectory() as td:
+        smallk.Initialize()
+        smallk.SetOutputDir(td)
+        smallk.SeedRNG(FACADE_SEED)
+        smallk.LoadMatrix(matrix=A)
+        reset_counts()
+        _, out, wall = timed_call(smallk.Nmf, K, smallk.Algorithm.BPP)
+        counts = read_counts()
+        W, H = smallk.LockedBufferW(), smallk.LockedBufferH()
+        Wf = np.loadtxt(os.path.join(td, "w.csv"), delimiter=",", ndmin=2)
+        Hf = np.loadtxt(os.path.join(td, "h.csv"), delimiter=",", ndmin=2)
+        smallk.Finalize()
+    _, _, _, wall1 = direct()
+    its_printed = int(out.strip().splitlines()[-1].split()[0])
+    its, rounds = stats.iteration_count, stats.pivot_rounds
+    equal = np.array_equal(W, Wd) and np.array_equal(H, Hd)
+    log(f"[facade] Nmf({K}, BPP) {M}x{N} nnz/col={NZ_PER_COL} (f32 A, tol "
+        f"0.005): {its} iterations, {rounds} pivot rounds, K1 launches "
+        f"{counts['K1']} (direct run_nmf {dcounts['K1']}); W and H "
+        f"{'equal' if equal else 'DIFFERENT'} to the direct run's bits; "
+        f"w.csv {Wf.shape}, h.csv {Hf.shape}; wall: facade {wall:.4f} s, "
+        f"direct run_nmf before and after {wall0:.4f} s, {wall1:.4f} s on "
+        f"{card}")
+    if not ok or its_printed != its:
+        raise AssertionError(f"facade Nmf: success {ok}, printed "
+                             f"{its_printed} iterations, direct {its}")
+    if not equal:
+        raise AssertionError("facade Nmf factors differ from run_nmf's")
+    if counts["K1"] != 2 * its + rounds or dcounts != counts:
+        raise AssertionError(f"facade Nmf: {counts} for {its} iterations "
+                             f"and {rounds} rounds; direct {dcounts}")
+    if Wf.shape != (M, K) or Hf.shape != (K, N):
+        raise AssertionError(f"facade wrote w.csv {Wf.shape}, h.csv "
+                             f"{Hf.shape}")
+    if not np.allclose(Wf, W, rtol=1e-5, atol=1e-6):
+        raise AssertionError("w.csv does not hold LockedBufferW()")
+    return {"wall": wall, "direct_wall": (wall0, wall1), "its": its}
+
+
+def random_sparse_matrix_main():
+    """The main path's operand (phase_main_path), made from its seed."""
+    from smallk_torch import Random, random_sparse_matrix
+
+    return random_sparse_matrix(Random(2024), M, N, nz_per_col=NZ_PER_COL,
+                                dtype=np.float32)
+
+
+def random_matrix_pair(rng, m: int, n: int, k: int):
+    """W0 (m, k) then H0 (k, n) from `rng`, as the facade and the API draw
+    them."""
+    from smallk_torch import random_matrix
+
+    return random_matrix(m, k, rng), random_matrix(k, n, rng)
+
+
+def facade_hier(card: str) -> dict:
+    """The facade's HierNmf2WithFlat(12) on the Reuters-shape hierclust
+    corpus, between two direct run_hier_nmf2 calls with the facade's
+    options and seed on the card: equal result files and launch counts,
+    K3 >= 2 x iter_count.  The flat refinement is NNLS-HALS in torch ops
+    (clust_flat): its W'A at k = 12 is the one product that is not K3's."""
+    import smallk_torch as smallk
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.engines.flatclust import (
+        run_hier_nmf2, write_flatclust_results)
+    from smallk_torch.io.writers import make_hierclust_writer
+
+    A, _ = synthetic_term_doc_corpus(HIER_M, HIER_N, HIER_TOPICS, seed=11)
+    words = [f"term{i}" for i in range(HIER_M)]
+    k = HIER_K
+    m, n = A.shape
+    opts = smallk.ClustOptions(
+        nmf_opts=smallk.NmfOptions(
+            tol=1e-4, algorithm=smallk.NmfAlgorithm.RANK2,
+            prog_est_algorithm=smallk.NmfProgressAlgorithm.PG_RATIO,
+            height=m, width=n, k=2, min_iter=5, max_iter=5000, tolcount=1,
+            max_threads=smallk.GetMaxThreads(), verbose=True,
+            normalize=True, dtype="float32"),
+        maxterms=5, unbalanced=0.1, trial_allowance=3, num_clusters=k,
+        verbose=True, flat=True)
+
+    def direct():
+        stats = smallk.ClustStats()
+        reset_counts()
+        out, _, wall = timed_call(run_hier_nmf2, A, opts,
+                                  smallk.Random(FACADE_SEED), stats,
+                                  device="cuda")
+        return out, read_counts(), wall
+
+    with tempfile.TemporaryDirectory() as td:
+        fdir, ddir = os.path.join(td, "facade"), os.path.join(td, "direct")
+        os.makedirs(fdir)
+        os.makedirs(ddir)
+        (tree, stats, flat), dcounts, wall0 = direct()
+        fmt = smallk.OutputFormat.JSON
+        tree.write_assignments(os.path.join(ddir, f"assignments_{k}.csv"))
+        tree.write_tree(make_hierclust_writer(fmt),
+                        os.path.join(ddir, f"tree_{k}.json"), words)
+        write_flatclust_results(ddir, flat["assignments"], flat["fuzzy"],
+                                flat["W"], words, 5, fmt, k,
+                                assignments_prefix="assignments_flat_")
+        smallk.Initialize()
+        smallk.SetOutputDir(fdir)
+        smallk.SeedRNG(FACADE_SEED)
+        smallk.LoadMatrix(matrix=A)
+        smallk.LoadDictionary(words)
+        reset_counts()
+        _, _, wall = timed_call(smallk.HierNmf2WithFlat, k)
+        counts = read_counts()
+        smallk.Finalize()
+        got, want = files_of(fdir), files_of(ddir)
+    *_, wall1 = direct()
+    names = [f"assignments_{k}.csv", f"tree_{k}.json",
+             f"assignments_flat_{k}.csv"]
+    same = [name for name in names if got.get(name) == want[name]]
+    leaves = sum(tree.is_leaf)
+    log(f"[facade] HierNmf2WithFlat({k}) {HIER_M}x{HIER_N} (f32 A): "
+        f"{stats.nmf_count} factorizations, iter_count {stats.iter_count}, "
+        f"{leaves} leaves, K3 launches {counts['K3']} (direct "
+        f"{dcounts['K3']}), products to torch.matmul "
+        f"{counts['matmul_products']} (the flat refinement's); files equal "
+        f"to the direct run_hier_nmf2's: {same} of {sorted(got)}; wall: "
+        f"facade {wall:.4f} s, direct before and after {wall0:.4f} s, "
+        f"{wall1:.4f} s on {card}")
+    if same != names or sorted(got) != sorted(want):
+        raise AssertionError(f"facade HierNmf2WithFlat files differ: only "
+                             f"{same} equal")
+    if leaves != k or not flat["success"]:
+        raise AssertionError(f"facade hierclust: {leaves} leaves, flat "
+                             f"success {flat['success']}")
+    if counts != dcounts or counts["K3"] < 2 * stats.iter_count \
+            or counts["K3"] != counts["kernel_products"] \
+            or counts["matmul_products"] > 3:
+        raise AssertionError(f"facade hierclust bypassed K3: {counts}, "
+                             f"direct {dcounts}")
+    return {"wall": wall, "direct_wall": (wall0, wall1)}
+
+
+def api_flatclust(card: str) -> dict:
+    """api.Flatclust.cluster(16, algorithm="HALS") on the flatclust
+    problem, between two direct run_flatclust calls from the same draws:
+    one K2 launch per iteration, equal factors and assignments."""
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfProgressAlgorithm
+    from smallk_torch import NmfStats, Random
+    from smallk_torch.api import Flatclust
+    from smallk_torch.engines.flatclust import run_flatclust
+
+    A, _, _ = flat_problem()
+    W0, H0 = random_matrix_pair(Random(FACADE_SEED), FLAT_M, FLAT_N, FLAT_K)
+    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.HALS,
+                      prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO,
+                      height=FLAT_M, width=FLAT_N, k=FLAT_K, min_iter=5,
+                      max_iter=5000, tolcount=1, max_threads=8,
+                      verbose=False, normalize=True, dtype="float32")
+
+    def direct():
+        stats = NmfStats()
+        out, _, wall = timed_call(run_flatclust, np.asarray(A, np.float64),
+                                  W0, H0, opts, stats, device="cuda")
+        return out, stats, wall
+
+    (W, H, assign, _, dok), stats, wall0 = direct()
+    fc = Flatclust()
+    fc.seed(FACADE_SEED)
+    fc.load_matrix(matrix=A)
+    fc.load_dictionary(dictionary=[f"term{i}" for i in range(FLAT_M)])
+    reset_counts()
+    ok, _, wall = timed_call(fc.cluster, FLAT_K, algorithm="HALS",
+                             verbose=False)
+    counts = read_counts()
+    its = fc._stats.iteration_count
+    *_, wall1 = direct()
+    equal = (np.array_equal(fc.W, W) and np.array_equal(fc.H, H)
+             and np.array_equal(fc.assignments, assign))
+    log(f"[facade] api.Flatclust.cluster({FLAT_K}, HALS) {FLAT_M}x{FLAT_N}: "
+        f"{its} iterations, K2 launches {counts['K2']}, K1 {counts['K1']}; "
+        f"factors and assignments {'equal' if equal else 'DIFFERENT'} to a "
+        f"direct run_flatclust ({stats.iteration_count} iterations); wall "
+        f"{wall:.4f} s, direct before and after {wall0:.4f} s, "
+        f"{wall1:.4f} s on {card}")
+    if not (ok and dok and equal):
+        raise AssertionError("api.Flatclust differs from run_flatclust")
+    if counts["K2"] != its or counts["K1"] or its != stats.iteration_count:
+        raise AssertionError(f"api.Flatclust HALS: {counts} in {its} "
+                             "iterations")
+    terms = fc.get_top_terms()
+    if len(terms) != 5 * FLAT_K:
+        raise AssertionError(f"{len(terms)} top terms")
+    return {"wall": wall, "direct_wall": (wall0, wall1)}
+
+
+def api_hierclust_sparse(card: str, sparse: dict) -> dict:
+    """api.Hierclust.cluster(12) (its defaults: f32 A, min_iter 5) on the
+    50,000 x 1,000,000 corpus of phase_sparse_hierclust, with its seed:
+    12 leaves, NMI within FACADE_NMI_MARGIN of that phase's run, the
+    products through ell_spmm and none dense."""
+    from smallk_torch.api import Hierclust
+    from smallk_torch.engines.scoring import nmi
+
+    A, labels = sparse["corpus"]
+    hc = Hierclust()
+    hc.seed(2)
+    hc.load_matrix(matrix=A)
+    hc.load_dictionary(dictionary=[f"t{i}" for i in range(SPH_M)])
+    reset_counts()
+    *_, wall = timed_call(hc.cluster, HIER_K, verbose=False)
+    counts = read_counts()
+    stats = hc._stats
+    leaves = sum(hc.tree.is_leaf)
+    score = nmi(hc.get_assignments(), labels)
+    log(f"[facade] api.Hierclust.cluster({HIER_K}) {SPH_M}x{SPH_N} (f32 "
+        f"EllAOp): wall {wall:.4f} s (sparse hierclust phase, bf16: "
+        f"{sparse['wall']:.4f} s), nmf_count {stats.nmf_count}, iter_count "
+        f"{stats.iter_count}, leaves {leaves}, NMI {score:.4f} (phase "
+        f"{sparse['nmi']:.4f}), ell_spmm launches {counts['ell_spmm']}, "
+        f"plain calls on cuda {counts['ell_plain_cuda']}, dense products "
+        f"{counts['kernel_products']} + {counts['matmul_products']} on {card}")
+    if leaves != HIER_K:
+        raise AssertionError(f"api.Hierclust: {leaves} leaves")
+    if abs(score - sparse["nmi"]) > FACADE_NMI_MARGIN:
+        raise AssertionError(f"api.Hierclust NMI {score} against the "
+                             f"phase's {sparse['nmi']}")
+    if counts["ell_spmm"] < 2 * stats.iter_count or counts["ell_plain_cuda"]:
+        raise AssertionError(f"api.Hierclust bypassed ell_spmm: {counts}")
+    if counts["kernel_products"] or counts["matmul_products"]:
+        raise AssertionError(f"api.Hierclust made dense products: {counts}")
+    return {"wall": wall, "nmi": score}
+
+
+def topk_check(name: str, got, scores, k: int, exclude=None) -> float:
+    """A port top-k (indices, values) against the f64 scores of every
+    row: the same indices as the f64 top-k except where two scores lie
+    within EMB_TIE of each other, values within EMB_RTOL relative.
+    Returns the largest relative value error."""
+    idx, vals = got
+    s = scores.copy()
+    if exclude is not None:
+        s[exclude] = -np.inf
+    want = np.argpartition(-s, k)[:k]
+    want = want[np.argsort(-s[want], kind="stable")]
+    if len(set(idx.tolist())) != k or (exclude is not None
+                                       and exclude in idx):
+        raise AssertionError(f"{name}: indices {idx}")
+    gap = np.abs(s[idx] - s[want])
+    if not (gap <= EMB_TIE).all():
+        raise AssertionError(f"{name}: indices {idx} against {want}, "
+                             f"score gaps {gap}")
+    err = np.abs(vals - s[idx]) / np.abs(s[idx])
+    if not (err <= EMB_RTOL).all():
+        raise AssertionError(f"{name}: values off by {err.max()} relative")
+    return float(err.max())
+
+
+def facade_embeddings(card: str, W, H) -> dict:
+    """NmfEmbeddings on the flagship's MU factors (W 50,000 x 128, H 128 x
+    1,000,000; the doc table 512 MB on the card): top docs and terms for
+    EMB_QUERIES topics, similar docs for as many docs, and search for as
+    many term-weight queries, against f64 on the host; ms per call."""
+    import torch
+
+    from smallk_torch.engines.embeddings import NmfEmbeddings
+
+    emb = NmfEmbeddings(W, H)
+    table = emb.docs.table
+    doc_bytes = table.numel() * table.element_size()
+    if not table.is_cuda or doc_bytes != FLAG_N * FLAG_K * 4:
+        raise AssertionError(f"doc table {table.device} {doc_bytes} bytes")
+    rs = np.random.RandomState(17)
+    topics = np.arange(EMB_QUERIES) * (FLAG_K // EMB_QUERIES)
+    docs = rs.choice(FLAG_N, EMB_QUERIES, replace=False)
+    queries = np.zeros((EMB_QUERIES, FLAG_M))
+    for q in queries:
+        q[rs.choice(FLAG_M, 20, replace=False)] = rs.rand(20)
+    W64, H64 = W.astype(np.float64), H.astype(np.float64)
+    Hn = H64.T / np.maximum(np.linalg.norm(H64.T, axis=1, keepdims=True),
+                            1e-12)
+    k = EMB_TOPK
+    worst = 0.0
+    for t in topics:
+        worst = max(worst, topk_check("top_docs_for_topic",
+                                      emb.top_docs_for_topic(int(t), k),
+                                      H64[t], k),
+                    topk_check("top_terms_for_topic",
+                               emb.top_terms_for_topic(int(t), k),
+                               W64[:, t], k))
+    sim = Hn @ Hn[docs].T                                # (n, queries)
+    for j, d in enumerate(docs):
+        worst = max(worst, topk_check("similar_docs",
+                                      emb.similar_docs(int(d), k),
+                                      sim[:, j], k, exclude=int(d)))
+    del sim
+    qe = queries @ W64
+    qn = qe / np.maximum(np.linalg.norm(qe, axis=1, keepdims=True), 1e-12)
+    found = Hn @ qn.T
+    for j, q in enumerate(queries):
+        worst = max(worst, topk_check("search", emb.search(q, k),
+                                      found[:, j], k))
+    del found, Hn
+    ms = {"top_docs_for_topic": back_to_back_ms(
+              lambda: emb.top_docs_for_topic(3, k), 20),
+          "top_terms_for_topic": back_to_back_ms(
+              lambda: emb.top_terms_for_topic(3, k), 20),
+          "similar_docs": back_to_back_ms(
+              lambda: emb.similar_docs(int(docs[0]), k), 20),
+          "search": back_to_back_ms(lambda: emb.search(queries[0], k), 20),
+          f"topk_cosine, {EMB_QUERIES} queries": back_to_back_ms(
+              lambda: emb.docs.topk_cosine(qe, k), 20)}
+    log(f"[facade] NmfEmbeddings on the flagship's MU factors (W "
+        f"{W.shape}, H {H.shape}; doc table {doc_bytes / 1e6:.0f} MB on the "
+        f"card): {EMB_QUERIES} queries each of top_docs_for_topic, "
+        f"top_terms_for_topic, similar_docs and search, top {k}, equal to "
+        f"f64 on the host (ties within {EMB_TIE:g}), values within "
+        f"{worst:.2e} relative (tolerance {EMB_RTOL:g}); ms per call: "
+        + ", ".join(f"{name} {v:.4f}" for name, v in ms.items())
+        + f" on {card}")
+    del emb
+    torch.cuda.empty_cache()
+    return {"ms": ms, "worst": worst}
+
+
+def trace_child() -> int:
+    """--trace: TRACE_CALLS K1 calls at the main path's W-side shape and a
+    torch.mm under profiling.device_trace, in a process of its own; the
+    trace's event, kernel and K1 kernel counts as one JSON line last."""
+    import torch
+
+    from smallk_torch.common.device import setup
+    from smallk_torch.common.profiling import device_trace
+    from smallk_torch.kernels.masked_gj import masked_gj_solve
+
+    setup("cuda")
+    LHS, RHS, passive = k1_inputs(*MAIN_SHAPES[-1], torch.float32, "cuda")
+    masked_gj_solve(LHS, RHS, passive)
+    with tempfile.TemporaryDirectory() as td:
+        with device_trace(td):
+            for _ in range(TRACE_CALLS):
+                masked_gj_solve(LHS, RHS, passive)
+            torch.mm(LHS, RHS)
+        with open(os.path.join(td, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    print(json.dumps({"events": len(events), "kernels": len(kernels),
+                      "k1": sum("masked_gj_kernel" in k for k in kernels)}))
+    return 0
+
+
+def facade_profiling(card: str) -> dict:
+    """profiling.block_and_time on a K1 call at the main path's W-side
+    shape against device_ms of the same call, and a device_trace of such
+    calls in which K1's kernel appears.  The trace is taken in a process
+    of its own: in this one, after earlier profiles, a trace lost most
+    launches' records (1 of 20 kept after the sparse hierclust phase's
+    ~900k launches, 0 of 1 in another run), and a profile taken first
+    left the flagship's later one with none."""
+    import torch
+
+    from smallk_torch.common.profiling import block_and_time
+    from smallk_torch.kernels.masked_gj import masked_gj_solve
+
+    k, n = MAIN_SHAPES[-1]
+    LHS, RHS, passive = k1_inputs(k, n, torch.float32, "cuda")
+
+    def fn():
+        return masked_gj_solve(LHS, RHS, passive)
+
+    secs, out = block_and_time(fn, warmup=3, reps=200)
+    dev_ms = device_ms(fn, 200)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--trace"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the trace child exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    trace = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[facade] profiling.block_and_time on K1 ({k}, {n}): "
+        f"{secs * 1e3:.5f} ms a call (CUDA events, back to back), "
+        f"device_ms {dev_ms:.5f} ms; device_trace of {TRACE_CALLS} K1 calls "
+        f"and a torch.mm (a process of its own): {trace['events']} events, "
+        f"{trace['kernels']} kernels, {trace['k1']} of masked_gj_kernel, on "
+        f"{card}")
+    if not (out.is_cuda and 0 < dev_ms and secs * 1e3 >= 0.5 * dev_ms):
+        raise AssertionError(f"block_and_time {secs} s against device_ms "
+                             f"{dev_ms} ms")
+    if not trace["k1"]:
+        raise AssertionError(f"device_trace holds no K1 kernel: {trace}")
+    return {"ms": secs * 1e3, "device_ms": dev_ms, "trace": trace}
+
+
+def phase_facade(card: str, sparse: dict, mu_factors) -> dict:
+    """The user-facing entry points over the kernels: the facade's Nmf and
+    HierNmf2WithFlat, the API's Flatclust and Hierclust, the embedding
+    tables, and the profiling utilities."""
+    return {"nmf": facade_nmf(card), "hier": facade_hier(card),
+            "flat": api_flatclust(card),
+            "sparse": api_hierclust_sparse(card, sparse),
+            "embeddings": facade_embeddings(card, *mu_factors),
+            "profiling": facade_profiling(card)}
+
+
+def phase_cli_chain() -> None:
+    """The matrixgen, preprocessor, nmf and hierclust CLIs chained in
+    subprocesses: a CLI_M x CLI_N sparse .mtx of term counts, reduced by
+    preprocess_tf, then factored and clustered on the card."""
+    from smallk_torch.io.matrix_market import load_matrix_market
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+
+    def run(td, *cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *cmd], cwd=td, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{cmd[0]} exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as td:
+        indir, outdir = os.path.join(td, "in"), os.path.join(td, "out")
+        os.makedirs(indir)
+        os.makedirs(outdir)
+        mtx = os.path.join(indir, "matrix.mtx")
+        secs = [run(td, "smallk_torch.cli.matrixgen_cli", "--height",
+                    str(CLI_M), "--width", str(CLI_N), "--filename", mtx,
+                    "--type", "SPARSE", "--nz_per_col", str(CLI_NZ),
+                    "--rng_center", "5", "--rng_radius", "4", "--seed",
+                    "13")]
+        with open(os.path.join(indir, "dictionary.txt"), "w") as f:
+            f.write("".join(f"term{i}\n" for i in range(CLI_M)))
+        with open(os.path.join(indir, "documents.txt"), "w") as f:
+            f.write("".join(f"doc{i}\n" for i in range(CLI_N)))
+        A = load_matrix_market(mtx)
+        secs.append(run(td, "smallk_torch.cli.preprocessor_cli", "--indir",
+                        indir, "--outdir", outdir))
+        R = load_matrix_market(os.path.join(outdir, "reduced_matrix.mtx"))
+        with open(os.path.join(outdir, "reduced_dictionary.txt")) as f:
+            terms = f.read().splitlines()
+        with open(os.path.join(outdir, "reduced_documents.txt")) as f:
+            docs = f.read().splitlines()
+        reduced = os.path.join(outdir, "reduced_matrix.mtx")
+        secs.append(run(td, "smallk_torch.cli.nmf_cli", "--matrixfile",
+                        reduced, "--k", "8", "--maxiter", "20", "--seed",
+                        "1", "--verbose", "0", "--device", "cuda"))
+        W = np.loadtxt(os.path.join(td, "w.csv"), delimiter=",", ndmin=2)
+        H = np.loadtxt(os.path.join(td, "h.csv"), delimiter=",", ndmin=2)
+        clusters = 4
+        secs.append(run(td, "smallk_torch.cli.hierclust_cli", "--matrixfile",
+                        reduced, "--dictfile",
+                        os.path.join(outdir, "reduced_dictionary.txt"),
+                        "--clusters", str(clusters), "--flat", "1",
+                        "--device", "cuda", "--verbose", "0", "--seed", "1",
+                        "--outdir", td))
+        with open(os.path.join(td, f"tree_{clusters}.xml")) as f:
+            nodes = f.read().count("<node id=")
+        flat = np.loadtxt(os.path.join(td, f"assignments_flat_{clusters}.csv"),
+                          delimiter=",", dtype=np.int64, ndmin=1, max_rows=1)
+    m, n = R.shape
+    if A.shape != (CLI_M, CLI_N) or not A.nnz:
+        raise AssertionError(f"matrixgen wrote {A.shape}, {A.nnz} nonzeros")
+    if (m, n) != (len(terms), len(docs)) or not 0 < m <= CLI_M \
+            or not 0 < n <= CLI_N:
+        raise AssertionError(f"preprocessor wrote {R.shape}, {len(terms)} "
+                             f"terms, {len(docs)} documents")
+    norms = np.sqrt(np.asarray(R.power(2).sum(axis=0)).ravel())
+    if np.abs(norms - 1).max() > 1e-3:
+        raise AssertionError("reduced columns are not unit norm")
+    if W.shape != (m, 8) or H.shape != (8, n):
+        raise AssertionError(f"nmf_cli wrote W {W.shape}, H {H.shape}")
+    if nodes != 2 * (clusters - 1) or flat.shape != (n,):
+        raise AssertionError(f"hierclust_cli: {nodes} tree nodes, flat "
+                             f"assignments {flat.shape}")
+    log(f"[cli] chain: matrixgen_cli --type SPARSE {CLI_M}x{CLI_N} "
+        f"({A.nnz} nonzeros) {secs[0]:.1f} s -> preprocessor_cli {m}x{n} "
+        f"({R.nnz} nonzeros) {secs[1]:.1f} s -> nmf_cli k=8 --device cuda "
+        f"{secs[2]:.1f} s (w.csv {W.shape}, h.csv {H.shape}) -> "
+        f"hierclust_cli --clusters {clusters} --flat 1 --device cuda "
+        f"{secs[3]:.1f} s ({nodes} tree nodes, flat assignments "
+        f"{flat.shape}); every exit code 0")
+
+
+def flagship_mu_factors():
+    """The flagship's MU factors after FLAG_MU_ITERS[-1] iterations, as
+    phase_flagship leaves them (for --facade, which skips that phase)."""
+    from smallk_torch import NmfAlgorithm, NmfOptions
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.ops.ell import EllAOp
+
+    A, W0, H0 = flagship_problem()
+    op = EllAOp.from_scipy(A, "bfloat16", device="cuda")
+    del A
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.MU, height=FLAG_M,
+                      width=FLAG_N, k=FLAG_K, min_iter=1,
+                      max_iter=FLAG_MU_ITERS[-1], verbose=False,
+                      a_dtype="bfloat16")
+    W, H, ok = run_nmf(op, W0, H0, opts, device="cuda")
+    if not ok:
+        raise AssertionError("flagship MU failed")
+    return W, H
+
+
+def facade_study(card: str) -> None:
+    """--facade: the inputs the facade phase reuses, made on their own
+    (sparse hierclust's run and corpus, the flagship's MU factors), then
+    the facade phase and the CLI chain."""
+    sparse = phase_sparse_hierclust(card)
+    phase_facade(card, sparse, flagship_mu_factors())
+    phase_cli_chain()
+
+
 def times_child(tree: str) -> int:
     """--times TREE: the numbers `--pair` compares, with smallk_torch
     imported from TREE (this tree's or an archived parent's), through entry
@@ -3275,6 +3871,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--times"] and len(sys.argv) == 3:
         return times_child(sys.argv[2])
+    if sys.argv[1:] == ["--trace"]:
+        return trace_child()
     sys.path.insert(0, str(ROOT))
     from smallk_torch.common.device import setup
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
@@ -3297,7 +3895,7 @@ def main() -> int:
         return 0
     studies = {"--k1": k1_study, "--sparse": sparse_study,
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
-               "--cg": cg_study}
+               "--cg": cg_study, "--facade": facade_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -3324,11 +3922,14 @@ def main() -> int:
     flagship = timed("flagship", phase_flagship, card)
     timed("sparse vs dense", phase_sparse_dense, card)
     sparse_hier = timed("sparse hierclust", phase_sparse_hierclust, card)
+    timed("facade", phase_facade, card, sparse_hier, flagship["mu_factors"])
+    del sparse_hier["corpus"], flagship["mu_factors"]
     timed("bpp wide", phase_bpp_wide, card)
-    with ThreadPoolExecutor(4) as pool:  # the CLI processes side by side
+    with ThreadPoolExecutor(5) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()
         for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
-                    pool.submit(phase_hier_cli), pool.submit(phase_sparse_cli)]:
+                    pool.submit(phase_hier_cli), pool.submit(phase_sparse_cli),
+                    pool.submit(phase_cli_chain)]:
             job.result()
         secs["cli"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))

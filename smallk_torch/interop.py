@@ -157,3 +157,14 @@ def state_from_reference(state, device="cuda", dtype="float32"):
 
     return cls(*(field(getattr(state, name)) for name in cls._fields))
 
+
+
+def embeddings_from_reference(emb, device="cuda"):
+    """A reference `NmfEmbeddings` -> the port's, on `device`: its term
+    table W and doc table H' carried across as numpy in their own dtype
+    (bf16 by its bits), so both packages serve the same factors."""
+    from .engines.embeddings import NmfEmbeddings
+
+    W = _host_tensor(emb.terms.table)
+    Ht = _host_tensor(emb.docs.table)
+    return NmfEmbeddings(W, Ht.T, device=device)

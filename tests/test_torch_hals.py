@@ -46,7 +46,8 @@ def _t(*arrays):
 def _pallas_and_plain(A, W, H, bf16, rescue=False):
     """One step of the Pallas kernel (interpret mode) and of the port's
     plain version from the same state; HH' and AH' from the reference's
-    init, as both receive them in a solve."""
+    init, as both receive them in a solve.  Returns both and that state
+    (A in its stored dtype, W, H, HH', AH' as tensors)."""
     jA = jnp.asarray(A)
     tA = torch.from_numpy(A)
     if bf16:
@@ -63,27 +64,62 @@ def _pallas_and_plain(A, W, H, bf16, rescue=False):
     out = hals_step_pallas(jA, jnp.asarray(W), jnp.asarray(H),
                            jnp.asarray(HHt), jnp.asarray(AHt),
                            interpret=True)
-    ref = k2.hals_step(tA, *_t(W, H, HHt, AHt))
-    return [np.asarray(o) for o in out], ref
+    state = (tA, *_t(W, H, HHt, AHt))
+    return [np.asarray(o) for o in out], k2.hals_step(*state), state
+
+
+def _grad_bounds(A, W, H, HHt, AHt):
+    """The bound each gradient element is held to on top of GRAD_TOL on
+    the element: FAC_TOL's rtol on the magnitudes of the two terms that
+    cancel in it, |W||HH'| + |AH'| for gradW and |W'W||H| + |W|'|A| for
+    gradH (A as stored, bf16 where it is).  A gradient element is a
+    difference of two terms each as large as those magnitudes; f32
+    rounding of either term, in any summation order, moves the difference
+    by FAC_TOL's share of them, however small the difference itself is."""
+    A, W, H, HHt, AHt = (t.double().abs() for t in (A, W, H, HHt, AHt))
+    rt = FAC_TOL["rtol"]
+    bw = rt * (W @ HHt + AHt)
+    bh = rt * ((W.T @ W) @ H + W.T @ A)
+    return bw.numpy(), bh.numpy()
+
+
+def _within(got, want, bound):
+    """|got - want| <= GRAD_TOL on `want` plus the propagated `bound`."""
+    lim = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * np.abs(want) + bound
+    err = np.abs(np.asarray(got, np.float64) - want)
+    assert np.all(err <= lim), float(np.max(err / lim))
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32_A", "bf16_A"])
 @pytest.mark.parametrize("m,n,k", [(96, 80, 8), (200, 130, 5)])
 def test_plain_matches_pallas_interpret(m, n, k, bf16):
+    """W, H, HH' and AH' with the reference's factor tolerance.  The two
+    gradients are cancelled differences, so each is held with the bound
+    of `_grad_bounds`, port against kernel, and each of them against the
+    plain version run in f64 from the same state as the arbiter."""
     A, W, H = _inputs(m, n, k)
-    out, ref = _pallas_and_plain(A, W, H, bf16)
+    out, ref, state = _pallas_and_plain(A, W, H, bf16)
     assert all(t.dtype == torch.float32 for t in ref[:6])
     assert bool(ref[6])
     for t, p, tol in zip(ref[:6], out, OUT_TOLS, strict=True):
         assert t.shape == p.shape
-        np.testing.assert_allclose(t.numpy(), p, **tol)
+        if tol is FAC_TOL:
+            np.testing.assert_allclose(t.numpy(), p, **tol)
+    # the f64 arbiter: the same step from the same state
+    f64 = k2.hals_step_reference(*(t.double() for t in state))
+    bw, bh = _grad_bounds(state[0], *f64[:2], f64[4], f64[5])
+    for i, bound in ((2, bw), (3, bh)):
+        want = f64[i].numpy()
+        _within(ref[i].numpy(), out[i].astype(np.float64), bound)
+        _within(ref[i].numpy(), want, bound)
+        _within(out[i], want, bound)
 
 
 def test_zero_column_rescue_matches_pallas_interpret():
     """W, as the reference's own rescue check holds it (the other outputs
     of the rescue step are held in f64 below)."""
     A, W, H = _inputs(96, 80, 8)
-    out, ref = _pallas_and_plain(A, W, H, False, rescue=True)
+    out, ref, _ = _pallas_and_plain(A, W, H, False, rescue=True)
     np.testing.assert_allclose(ref[0].numpy(), out[0], **FAC_TOL)
     # the rescued column went through the eps fill before its new sweep
     # value; with W'A > 0 it comes back positive and unit-norm
