@@ -70,8 +70,7 @@ fails (nonzero exit, no result line) on any fault:
  16. sparse hierclust at the flagship's size: the planted 50,000 x
      1,000,000 corpus (bf16 A, f32 factors, 12 clusters) through the root's
      EllAOp and the nodes' operands gathered on the card, a warm-up run
-     under the profiler (busy share) and the timed run with ell_spmm's
-     launches counted; the root's and a 1/8 node's products timed against
+     and the timed run with ell_spmm's launches counted; the root's and a 1/8 node's products timed against
      their plain version, the torch-ops formulation and torch.sparse.mm;
  17. the user-facing entry points over the kernels (facade): the stateful
      facade's Nmf(8) (BPP) on the main path's operand, bit-equal to a
@@ -92,7 +91,19 @@ fails (nonzero exit, no result line) on any fault:
      hierclust CLIs on a 30000 x 20000 .mtx above the densify threshold
      (EllAOp), and the five CLIs chained: matrixgen -> preprocess_tf ->
      nmf and hierclust on the card;
- 20. the kernel table as one JSON line, the card line, and last the result
+ 20. the solve loop (loop): flatclust HALS, Reuters hierclust, sparse
+     hierclust at 50,000 x 1,000,000 (phase 16's operand) and flagship MU
+     at 25 iterations (phase 14's operand, through nmf_solve), each run
+     with solvers/graph.CAPTURE off and on, in turns (on, the loop
+     replays its steps as a CUDA graph at U > 1; flagship MU's auto U is
+     1, eager in both, solve.MU_ONE_STEP_ENTRIES): equal
+     bits and counts, launch gates exact against the steps run, the walls,
+     host reads, graphs, capture and replay times and steps wasted to the
+     freeze; f64 captured-against-eager runs of HALS, RANK2 and MU; then
+     (--loop-busy, a process of its own) each run once more inside one
+     profiler session for the device's busy share and the host's launch
+     calls;
+ 21. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -149,10 +160,18 @@ through the CG tier (cold and warm-started), k = 32..128, n = 12,411,
 runs only phases 16, 17 and the CLI chain of 19, with the flagship's MU
 factors made on their own.
 
+    python3 chip_smoke.py --loop
+
+runs only the U sweep of the solve loop: flatclust HALS, Reuters
+hierclust, sparse hierclust and three MU solves that converge (the main
+path's operand at k = 8, the flagship's at k = 16 and 128), eager at
+U = 1 and with one step replayed U times at U = 2, 4, 8, 16, 32 (what
+solvers/solve.AUTO_UNROLL and MU_ONE_STEP_ENTRIES are set from).
+
     python3 chip_smoke.py --pair DIR
 
-times K2, P1, P2, the flatclust HALS path, the flagship (products, MU,
-BPP) and sparse hierclust at 50,000 x 1,000,000 (the k = 2 products at
+times K2, P1, P2, the flatclust HALS path, the Reuters BPP path, the
+flagship (products, MU, BPP) and sparse hierclust at 50,000 x 1,000,000 (the k = 2 products at
 the root's EllAOp and at a 1/8 node, and the clustering's wall) with the
 package of an archived tree at DIR and of this one, in the order DIR,
 this, this, DIR, each in a process of its own (`--times TREE`), and
@@ -294,6 +313,15 @@ FACADE_SEED, FACADE_NMI_MARGIN = 7, 0.01
 TRACE_CALLS = 20   # K1 calls inside profiling.device_trace
 EMB_QUERIES, EMB_TOPK, EMB_TIE, EMB_RTOL = 64, 10, 1e-6, 1e-5
 
+# the loop phase: each cell run eagerly and captured (solvers/graph.CAPTURE)
+# in turns; --loop sweeps U over LOOP_UNROLLS; sparse hierclust's NMI on
+# the planted corpus (PERF.md)
+LOOP_ORDER = (False, True, True, False)
+LOOP_UNROLLS = (1, 2, 4, 8, 16, 32)
+# the --loop sweep's MU cells converge after these many iterations
+LOOP_MU_FIXED = 91
+SPH_NMI = 0.912
+
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
@@ -382,10 +410,12 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, and the product branch counts, to 0,
-    just before a path is driven."""
+    """Every kernel's launch count, the product branch counts and the solve
+    loop's counts (steps run, host reads, frozen steps, solves, graphs
+    captured and replayed) to 0, just before a path is driven."""
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
+    from smallk_torch.solvers import graph, solve
 
     masked_gj.launches = 0
     masked_gj.columns = 0
@@ -396,15 +426,21 @@ def reset_counts() -> None:
     ell_spmm.plain_cuda_calls = 0
     aop.kernel_products = 0
     aop.matmul_products = 0
+    solve.steps_run = solve.host_reads = solve.frozen_steps = 0
+    solve.solves = 0
+    graph.captures = graph.replays = 0
+    graph.capture_seconds = graph.replay_seconds = 0.0
 
 
 def read_counts() -> dict:
     """Launches of K1, K2, K3 and ell_spmm (and ell_spmm's transposed
     ones), the columns K1 solved, ell_spmm's plain-version calls on CUDA
-    tensors, and the dense products
-    that went to K3 and to torch.matmul, since the last reset_counts()."""
+    tensors, the dense products that went to K3 and to torch.matmul, and
+    the solve loop's counts, since the last reset_counts().  Launches
+    replayed from a CUDA graph count once a replay (solvers/graph.py)."""
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from smallk_torch.ops import aop
+    from smallk_torch.solvers import graph, solve
 
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
@@ -412,7 +448,18 @@ def read_counts() -> dict:
             "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
             "kernel_products": aop.kernel_products,
-            "matmul_products": aop.matmul_products}
+            "matmul_products": aop.matmul_products,
+            "steps": solve.steps_run, "host_reads": solve.host_reads,
+            "frozen": solve.frozen_steps, "solves": solve.solves,
+            "captures": graph.captures, "replays": graph.replays}
+
+
+def graph_seconds() -> tuple[float, float]:
+    """The host's seconds in graph captures (with instantiation) and in
+    replay calls since the last reset_counts()."""
+    from smallk_torch.solvers import graph
+
+    return graph.capture_seconds, graph.replay_seconds
 
 
 def k1_inputs(k: int, n: int, dtype, device):
@@ -866,7 +913,6 @@ def phase_flatclust(card: str) -> dict:
                               NmfStats)
     from smallk_torch.engines.flatclust import run_flatclust
     from smallk_torch.engines.nmf import run_nmf
-    from smallk_torch.kernels import hals_step
 
     A, W0, H0 = flat_problem()
     # the flatclust CLI's defaults
@@ -887,9 +933,9 @@ def phase_flatclust(card: str) -> dict:
     its = stats.iteration_count
     rel = rel_err(A, W, H)
     log(f"[flatclust] HALS {FLAT_M}x{FLAT_N} k={FLAT_K} tol 1e-4: "
-        f"success={ok}, iterations={its}, K2 launches={launches}, rel err "
-        f"{rel:.6f}, {its / (stats.elapsed_us / 1e6):.1f} it/s to "
-        f"convergence")
+        f"success={ok}, iterations={its}, steps run {counts['steps']}, K2 "
+        f"launches={launches}, rel err {rel:.6f}, "
+        f"{its / (stats.elapsed_us / 1e6):.1f} it/s to convergence")
     if not ok:
         raise AssertionError("flatclust HALS run failed")
     for name, F in (("W", W), ("H", H)):
@@ -900,9 +946,11 @@ def phase_flatclust(card: str) -> dict:
     col_sums = fuzzy.astype(np.float64).sum(axis=0)
     if fuzzy.shape != (FLAT_K, FLAT_N) or np.abs(col_sums - 1).max() > 1e-5:
         raise AssertionError("fuzzy columns do not sum to 1")
-    if launches != its:
-        raise AssertionError(f"K2 launched {launches} times in {its} "
-                             "iterations: a step took another route")
+    # one K2 launch a step run, frozen steps after convergence included
+    if launches != counts["steps"] or counts["steps"] < its:
+        raise AssertionError(f"K2 launched {launches} times in "
+                             f"{counts['steps']} steps ({its} iterations): "
+                             "a step took another route")
     if k1_launches:
         raise AssertionError(f"K1 launched {k1_launches} times in a HALS run")
 
@@ -911,14 +959,16 @@ def phase_flatclust(card: str) -> dict:
     run_flatclust(A, W0, H0, dataclasses.replace(fixed, max_iter=200),
                   device="cuda")
     stats2 = NmfStats()
-    before = hals_step.launches
+    reset_counts()
     *_, ok2 = run_flatclust(A, W0, H0, fixed, stats2, device="cuda")
+    counts2 = read_counts()
     fixed_its = stats2.iteration_count / (stats2.elapsed_us / 1e6)
     log(f"[flatclust] HALS {FLAT_ITERS} fixed iterations: {fixed_its:.1f} "
         f"it/s (solve {stats2.elapsed_us / 1e6:.4f} s) on {card}")
+    # a block is cut short at max_iter: no frozen step
     if not ok2 or stats2.iteration_count != FLAT_ITERS or \
-            hals_step.launches - before != FLAT_ITERS:
-        raise AssertionError("fixed-iteration HALS run failed")
+            counts2["K2"] != counts2["steps"] or counts2["steps"] != FLAT_ITERS:
+        raise AssertionError(f"fixed-iteration HALS run failed: {counts2}")
 
     # quality gate: f32 on the card (K2) against f32 on the CPU (torch ops)
     short = dataclasses.replace(fixed, max_iter=50)
@@ -1281,7 +1331,8 @@ def phase_hierclust(card: str) -> dict:
     log(f"[hierclust] {HIER_M}x{HIER_N} bf16 A, f32 factors, {HIER_K} "
         f"clusters: wall {wall:.4f} s, nmf_count {stats.nmf_count}, "
         f"converged {stats.nmf_count - stats.max_count}, iter_count "
-        f"{stats.iter_count}, {stats.iter_count / wall:.1f} rank-2 it/s, K3 "
+        f"{stats.iter_count}, {stats.iter_count / wall:.1f} rank-2 it/s, "
+        f"steps run {counts['steps']} in {counts['solves']} solves, K3 "
         f"launches {counts['K3']}, k=2 products to torch.matmul "
         f"{counts['matmul_products']}, leaves {leaves}, outliers "
         f"{len(tree.outliers)}, NMI {score:.4f} on {card}")
@@ -1289,9 +1340,12 @@ def phase_hierclust(card: str) -> dict:
         raise AssertionError(f"{leaves} leaves, expected {HIER_K}")
     if (tree.assignments < 0).any():
         raise AssertionError(f"{len(tree.outliers)} documents unassigned")
-    if counts["K3"] < 2 * stats.iter_count:
-        raise AssertionError(f"K3 launched {counts['K3']} times in "
-                             f"{stats.iter_count} rank-2 iterations")
+    # two K3 products a step run (frozen steps too) and W'A once a solve
+    want = 2 * counts["steps"] + counts["solves"]
+    if counts["K3"] != want or counts["kernel_products"] != want:
+        raise AssertionError(f"K3 launched {counts['K3']} times for "
+                             f"{counts['steps']} steps run in "
+                             f"{counts['solves']} solves (expected {want})")
     if counts["matmul_products"]:
         raise AssertionError(f"{counts['matmul_products']} k=2 f32 products "
                              "went to torch.matmul")
@@ -1930,6 +1984,8 @@ def phase_flagship(card: str) -> dict:
     at_csr = transposed_csr(A)  # the library call's operand (W'A)
     del A
     per_iter = ell_launches_per_iteration(op)
+    tn_per = sum(p.launching for _, _, p in op.col_packs)
+    nt_per = sum(p.launching for _, _, p in op.row_packs)
     op_bytes = torch.cuda.memory_allocated()
     log(f"[flagship] {FLAG_M}x{FLAG_N} nnz={nnz} bf16 EllAOp: corpus made "
         f"in {gen_s:.2f} s, operand built (tocsr, buckets, "
@@ -2021,14 +2077,17 @@ def phase_flagship(card: str) -> dict:
                 f"{counts['ell_spmm']} ({counts['ell_spmm_transposed']} "
                 f"transposed: W'A), K1 launches {counts['K1']}, plain "
                 f"calls on cuda {counts['ell_plain_cuda']}{rounds_txt}")
-            if counts["ell_spmm"] < per_iter * it or counts["ell_plain_cuda"]:
+            # a W'A (written transposed) and an AH' a step run, and W'A
+            # once more for the solver's state before iteration 0
+            steps = counts["steps"]
+            if counts["ell_spmm"] != nt_per * steps + tn_per * (steps + 1) \
+                    or counts["ell_plain_cuda"] or steps < it:
                 raise AssertionError(f"flagship {alg}: products bypassed "
                                      f"ell_spmm ({counts})")
-            # W'A is one transposed launch of the one column bucket
-            if counts["ell_spmm_transposed"] < it:
+            if counts["ell_spmm_transposed"] != tn_per * (steps + 1):
                 raise AssertionError(f"flagship {alg}: W'A was not written "
                                      f"transposed ({counts})")
-            want_k1 = 2 * it if alg == "BPP" else 0
+            want_k1 = 2 * steps if alg == "BPP" else 0
             if counts["K1"] < want_k1 or (not want_k1 and counts["K1"]):
                 raise AssertionError(f"flagship {alg}: K1 launches {counts}")
             if alg == "BPP":
@@ -2060,6 +2119,8 @@ def phase_flagship(card: str) -> dict:
         log(f"[flagship] {alg} k={FLAG_K}: {rates[alg]:.4f} it/s "
             f"(({hi} - {lo}) iterations / ({walls[hi]:.3f} - {walls[lo]:.3f}) "
             f"s), first iteration {walls[1]:.3f} s{k1_txt} on {card}")
+        if alg == "MU":
+            mu_rel = dict(rel)
         if alg == "BPP":
             found = {it: (k1_stats[it], round(rel[it], 6))
                      for it in RECORDED_BPP}
@@ -2069,12 +2130,12 @@ def phase_flagship(card: str) -> dict:
                    else f"DIFFERENT: {found}, recorded {RECORDED_BPP}"))
     log(f"[flagship] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
-    del op
-    torch.cuda.empty_cache()
+    # the operand, the starts and MU's errors stay for the loop phase
     return {"launches": launches, "wta_launches": wta_launches,
             "rates": rates, "max_abs_err": worst_abs,
             "k1_launches": k1_launches, "k1_rounds": k1_rounds,
-            "k1_stats": k1_stats, "wta": wta, "mu_factors": mu_factors}
+            "k1_stats": k1_stats, "wta": wta, "mu_factors": mu_factors,
+            "op": op, "W0": W0, "H0": H0, "mu_rel": mu_rel}
 
 
 def transposed_csr(A):
@@ -2852,12 +2913,11 @@ def cols_study(card: str) -> None:
 def phase_sparse_hierclust(card: str) -> dict:
     """Hierclust on the planted 50,000 x 1,000,000 corpus (bf16 A, above
     the densify threshold), f32 factors, HIER_K clusters, as the
-    Reuters-shape phase runs it: a warm-up run with another seed under the
-    profiler (the device's busy share), the timed run with the launches
-    counted, and the node products timed at the root and at a 1/SPH_NODE
-    node."""
+    Reuters-shape phase runs it: a warm-up run with another seed, the
+    timed run with the launches counted, and the node products timed at
+    the root and at a 1/SPH_NODE node.  (The device's busy share on this
+    path comes from the loop phase's profile in a process of its own.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from smallk_torch import ClustStats, Random
     from smallk_torch.engines import hierclust as hc
@@ -2872,17 +2932,10 @@ def phase_sparse_hierclust(card: str) -> dict:
     ell_s = time.perf_counter() - t0
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, wstats = hc.clust_hier(a_op, opts, Random(1), host_A=A)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-    busy = profile_summary(prof, warm, f"sparse hierclust warm-up (seed 1), "
-                           f"iter_count {wstats.iter_count}")
-    del prof
-    if not busy > 0:
-        raise AssertionError("the profiler saw no device time")
+    t0 = time.perf_counter()
+    hc.clust_hier(a_op, opts, Random(1), host_A=A)  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
 
     stats = ClustStats()
     reset_counts()
@@ -2906,8 +2959,8 @@ def phase_sparse_hierclust(card: str) -> dict:
         f"{counts['ell_spmm']} (transposed "
         f"{counts['ell_spmm_transposed']}), node operands gathered/masked "
         f"{tiers[0]}/{tiers[1]}, dense products {counts['kernel_products']} "
-        f"+ {counts['matmul_products']}; warm-up wall {warm:.4f} s "
-        f"(profiled), device busy {100 * busy:.2f}% of it; on {card}")
+        f"+ {counts['matmul_products']}; warm-up wall {warm:.4f} s; on "
+        f"{card}")
     # TrialSplit may drop outlier documents, which stay unassigned as the
     # reference leaves them (printed above)
     if leaves != HIER_K:
@@ -2918,7 +2971,7 @@ def phase_sparse_hierclust(card: str) -> dict:
             if not np.isfinite(tv).all() or (tv < 0).any():
                 raise AssertionError(f"node {q}: topic vector not finite "
                                      "and nonnegative")
-    if counts["ell_spmm"] < 2 * stats.iter_count or counts["ell_plain_cuda"]:
+    if counts["ell_spmm"] < 2 * counts["steps"] or counts["ell_plain_cuda"]:
         raise AssertionError(f"sparse hierclust bypassed ell_spmm: {counts}")
     if counts["matmul_products"] or counts["kernel_products"]:
         raise AssertionError(f"sparse hierclust made dense products: {counts}")
@@ -2934,7 +2987,7 @@ def phase_sparse_hierclust(card: str) -> dict:
     return {"launches": {"tn": transposed,
                          "nt": counts["ell_spmm"] - transposed},
             "wall": wall, "root": root, "node": node, "nmi": score,
-            "busy": busy, "corpus": (A, labels)}
+            "corpus": (A, labels), "op": a_op}
 
 
 def phase_sparse_dense(card: str) -> None:
@@ -3352,14 +3405,16 @@ def api_flatclust(card: str) -> dict:
     equal = (np.array_equal(fc.W, W) and np.array_equal(fc.H, H)
              and np.array_equal(fc.assignments, assign))
     log(f"[facade] api.Flatclust.cluster({FLAT_K}, HALS) {FLAT_M}x{FLAT_N}: "
-        f"{its} iterations, K2 launches {counts['K2']}, K1 {counts['K1']}; "
+        f"{its} iterations, {counts['steps']} steps run, K2 launches "
+        f"{counts['K2']}, K1 {counts['K1']}; "
         f"factors and assignments {'equal' if equal else 'DIFFERENT'} to a "
         f"direct run_flatclust ({stats.iteration_count} iterations); wall "
         f"{wall:.4f} s, direct before and after {wall0:.4f} s, "
         f"{wall1:.4f} s on {card}")
     if not (ok and dok and equal):
         raise AssertionError("api.Flatclust differs from run_flatclust")
-    if counts["K2"] != its or counts["K1"] or its != stats.iteration_count:
+    if counts["K2"] != counts["steps"] or counts["steps"] < its \
+            or counts["K1"] or its != stats.iteration_count:
         raise AssertionError(f"api.Flatclust HALS: {counts} in {its} "
                              "iterations")
     terms = fc.get_top_terms()
@@ -3702,9 +3757,11 @@ def times_child(tree: str) -> int:
 
     import smallk_torch
     from smallk_torch import NmfAlgorithm, NmfOptions, NmfProgressAlgorithm
-    from smallk_torch import NmfStats
+    from smallk_torch import (NmfStats, Random, random_matrix,
+                              random_sparse_matrix)
     from smallk_torch.common.device import setup
     from smallk_torch.engines.flatclust import run_flatclust
+    from smallk_torch.engines.nmf import run_nmf
     from smallk_torch.kernels import ell_spmm as kmod
     from smallk_torch.kernels import hals_step as k2
     from smallk_torch.ops.ell import EllAOp
@@ -3732,6 +3789,22 @@ def times_child(tree: str) -> int:
     run_flatclust(A, W0, H0, opts, stats, device="cuda")
     res["flatclust HALS it/s"] = stats.iteration_count / (
         stats.elapsed_us / 1e6)
+    # the BPP main path (phase_main_path): a warm-up, then two timed runs
+    rng = Random(2024)
+    A = random_sparse_matrix(rng, M, N, nz_per_col=NZ_PER_COL,
+                             dtype=np.float32)
+    W0 = random_matrix(M, K, rng, dtype=np.float32)
+    H0 = random_matrix(K, N, rng, dtype=np.float32)
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.BPP, height=M,
+                      width=N, k=K, min_iter=1, max_iter=ITERS,
+                      verbose=False, a_dtype="bfloat16")
+    run_nmf(A, W0, H0, opts, device="cuda")
+    res["Reuters BPP it/s"] = []
+    for _ in range(2):
+        stats = NmfStats()
+        run_nmf(A, W0, H0, opts, stats, device="cuda")
+        res["Reuters BPP it/s"].append(stats.iteration_count / (
+            stats.elapsed_us / 1e6))
     for name, (G, L, B, k, vt, tt) in ELL_PROBES.items():
         idx, vals, table = ell_inputs(G, L, B, k, vt, tt, 0.0, seed=7)
         out = torch.empty((G, k), device="cuda")
@@ -3752,17 +3825,19 @@ def times_child(tree: str) -> int:
     # the solve loop alone on factors already on the card, from a
     # synchronize to a synchronize: no host copy of the factors in the
     # window (run_nmf's own timer holds W's and H's pageable copies, 0.54
-    # GB).  A 1-iteration warm-up, then each window `reps` times; the fit
-    # takes each window's median, as MU's short window can jump
-    for alg, iters, reps in (("MU", FLAG_MU_ITERS, 3),
-                             ("BPP", FLAG_BPP_ITERS, 1)):
+    # GB).  A 1-iteration warm-up, then each window `reps` times; the fit takes each window's median, as MU's
+    # short window can jump.  U: the loop's auto value, and for MU also
+    # U = 1 (a tree whose loop ignores loop_unroll runs the same loop)
+    for alg, iters, reps, unroll in (("MU", FLAG_MU_ITERS, 3, 0),
+                                     ("MU", FLAG_MU_ITERS, 3, 1),
+                                     ("BPP", FLAG_BPP_ITERS, 1, 0)):
         walls = {it: [] for it in (1, *iters)}
         for it in (1, *iters * reps):
             W1, H1 = W.clone(), H.clone()
             opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg),
                               height=FLAG_M, width=FLAG_N, k=FLAG_K,
                               min_iter=1, max_iter=it, verbose=False,
-                              a_dtype="bfloat16")
+                              a_dtype="bfloat16", loop_unroll=unroll)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = nmf_solve(op, W1, H1, opts)
@@ -3776,9 +3851,10 @@ def times_child(tree: str) -> int:
                     round(sparse_rel_err(op, out.W, out.H), 6)]
             del out, W1, H1
         lo, hi = iters
-        res[f"{alg} s per run of {tuple(walls)} iterations"] = walls
-        res[f"{alg} it/s"] = (hi - lo) / (float(np.median(walls[hi]))
-                                          - float(np.median(walls[lo])))
+        name = alg + (f" U={unroll}" if unroll else "")
+        res[f"{name} s per run of {tuple(walls)} iterations"] = walls
+        res[f"{name} it/s"] = (hi - lo) / (float(np.median(walls[hi]))
+                                           - float(np.median(walls[lo])))
     del op, W, H
     torch.cuda.empty_cache()
     res.update(sparse_hier_times())
@@ -3829,10 +3905,12 @@ def sparse_hier_times() -> dict:
 
 
 def pair(parent: str, card: str) -> None:
-    """--pair DIR: the redesigned kernels' numbers from an archived parent
+    """--pair DIR: the kernels' and the loops' numbers (`--times`: K2,
+    P1, P2, the flagship's products, flatclust HALS, Reuters BPP and
+    flagship MU and BPP it/s, sparse hierclust) from an archived parent
     tree at DIR and from this tree, in the order parent, change, change,
-    parent, each in a process of its own (`--times`), on one card; the
-    flagship's products must be bit-equal across the two."""
+    parent, each in a process of its own, on one card; the flagship's
+    products must be bit-equal across the two."""
     runs = []
     for tree in (parent, str(ROOT), str(ROOT), parent):
         t0 = time.perf_counter()
@@ -3862,6 +3940,563 @@ def pair(parent: str, card: str) -> None:
         f"{card}")
 
 
+def loop_flatclust_cell():
+    """The flatclust HALS cell (K2): run_flatclust on the reference's
+    flatclust configuration, to its tol of 1e-4."""
+    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfProgressAlgorithm,
+                              NmfStats)
+    from smallk_torch.engines.flatclust import run_flatclust
+
+    A, W0, H0 = flat_problem()
+    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.HALS,
+                      prog_est_algorithm=NmfProgressAlgorithm.PG_RATIO,
+                      height=FLAT_M, width=FLAT_N, k=FLAT_K, min_iter=5,
+                      max_iter=5000, tolcount=1, verbose=False)
+
+    def run(unroll=0):
+        stats = NmfStats()
+        W, H, assign, _, ok = run_flatclust(
+            A, W0, H0, dataclasses.replace(opts, loop_unroll=unroll), stats,
+            device="cuda")
+        if not ok:
+            raise AssertionError("loop: flatclust HALS failed")
+        return {"iterations": stats.iteration_count, "bits": (W, H, assign)}
+
+    def gate(counts, out):
+        # one K2 launch a step run, frozen steps included
+        if counts["K2"] != counts["steps"] or counts["K1"] \
+                or counts["steps"] < out["iterations"]:
+            raise AssertionError(f"loop flatclust: {counts}")
+
+    return run, gate
+
+
+def product_launches(op) -> tuple[int, int, int]:
+    """ell_spmm launches of one W'A, of them the transposed ones, and of
+    one AH' of an EllAOp or a GatheredColsAOp, from its buckets (a bucket
+    with no rows launches nothing; a gathered operand's split long slices
+    launch a partial product and a transposed or row-mode fold)."""
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.ops.ell_cols import GatheredColsAOp
+
+    if isinstance(op, EllAOp):
+        tn = sum(p.launching for _, _, p in op.col_packs)
+        return tn, tn, sum(p.launching for _, _, p in op.row_packs)
+    if not isinstance(op, GatheredColsAOp):
+        raise TypeError(f"no ell_spmm launch count for {type(op)}")
+
+    def split(family):
+        parts = getattr(op, family)[1]
+        if parts is None:
+            return 0, 0
+        p_idx, _, _, refs, _ = parts
+        return int(p_idx.shape[0] > 0), int(refs.shape[0] > 0)
+
+    (tn_part, tn_fold), (nt_part, nt_fold) = split("cols"), split("rows")
+    tn_t = op._packs["cols"].launching + tn_fold
+    return (tn_t + tn_part, tn_t,
+            op._packs["rows"].launching + nt_part + nt_fold)
+
+
+def loop_hier_cell(a_op, labels, host_A=None):
+    """A hierclust cell: clust_hier to HIER_K clusters with seed 2, as the
+    hierclust phases run it (dense bf16 A through K3, or the sparse
+    corpus's EllAOp and gathered node operands through ell_spmm: each
+    solve's operand and steps recorded for the gate)."""
+    from smallk_torch import Random
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.solvers import solve
+
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    sparse = host_A is not None
+
+    def run(unroll=0):
+        o = dataclasses.replace(opts, nmf_opts=dataclasses.replace(
+            opts.nmf_opts, loop_unroll=unroll))
+        solves = []
+
+        def recorded(op, *args, **kwargs):
+            before = solve.steps_run
+            res = solve.nmf_solve(op, *args, **kwargs)
+            solves.append((product_launches(op), solve.steps_run - before))
+            return res
+
+        with patched(hc, "nmf_solve", recorded) if sparse \
+                else contextlib.nullcontext():
+            tree, stats = hc.clust_hier(a_op, o, Random(2), host_A=host_A)
+        leaves = sum(tree.is_leaf)
+        # the splits: every node's documents
+        splits = tuple(np.asarray(n.docs) for n in tree.nodes
+                       if n.is_valid)
+        return {"iterations": stats.iter_count, "leaves": leaves,
+                "nmi": nmi(tree.assignments, labels), "solves": solves,
+                "bits": (tree.assignments,) + splits}
+
+    def gate(counts, out):
+        if out["leaves"] != HIER_K:
+            raise AssertionError(f"loop hierclust: {out['leaves']} leaves")
+        if sparse:
+            # a solve on an operand: W'A once and then one W'A and one AH'
+            # a step run, each at that operand's launches
+            solves = out["solves"]
+            want = sum(tn * (s + 1) + nt * s for (tn, _, nt), s in solves)
+            want_t = sum(tn_t * (s + 1) for (_, tn_t, _), s in solves)
+            if len(solves) != counts["solves"] \
+                    or sum(s for _, s in solves) != counts["steps"] \
+                    or counts["ell_spmm"] != want \
+                    or counts["ell_spmm_transposed"] != want_t \
+                    or counts["ell_plain_cuda"] or counts["kernel_products"] \
+                    or counts["matmul_products"]:
+                raise AssertionError(f"loop sparse hierclust: {counts}, "
+                                     f"ell_spmm expected {want}, "
+                                     f"transposed {want_t}")
+            if round(out["nmi"], 3) != SPH_NMI:
+                raise AssertionError(f"loop sparse hierclust: NMI "
+                                     f"{out['nmi']}, not {SPH_NMI}")
+            return
+        # two K3 products a step run and W'A once a solve
+        want = 2 * counts["steps"] + counts["solves"]
+        if counts["K3"] != want or counts["kernel_products"] != want \
+                or counts["matmul_products"]:
+            raise AssertionError(f"loop hierclust: {counts}, K3 expected "
+                                 f"{want}")
+
+    return run, gate
+
+
+def loop_flagship_cell(flag):
+    """The flagship MU cell (ell_spmm at k = 128): FLAG_MU_ITERS[-1] fixed
+    iterations on the uncut 50,000 x 1,000,000 bf16 EllAOp, as the
+    flagship phase runs them, through nmf_solve on factors already on the
+    card (run_nmf's pageable copies of the 512 MB factors would take most
+    of the wall), at the auto U: 1, so no graph in either mode."""
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions
+    from smallk_torch.solvers.solve import nmf_solve
+
+    op = flag["op"]
+    # contiguous, as run_nmf copies them (random_matrix fills in column
+    # order): the factors then equal the flagship phase's bit for bit
+    W0, H0 = (torch.from_numpy(np.ascontiguousarray(F)).cuda()
+              for F in (flag["W0"], flag["H0"]))
+    iters = FLAG_MU_ITERS[-1]
+    tn_per = sum(p.launching for _, _, p in op.col_packs)
+    nt_per = sum(p.launching for _, _, p in op.row_packs)
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.MU, height=FLAG_M,
+                      width=FLAG_N, k=FLAG_K, min_iter=1, max_iter=iters,
+                      verbose=False, a_dtype="bfloat16")
+
+    def run(unroll=0):
+        r = nmf_solve(op, W0, H0, dataclasses.replace(opts,
+                                                      loop_unroll=unroll))
+        if not r.success or r.iterations != iters:
+            raise AssertionError("loop: flagship MU failed")
+        return {"iterations": iters, "bits": (r.W, r.H)}
+
+    def gate(counts, out):
+        steps = counts["steps"]
+        if counts["ell_spmm"] != nt_per * steps + tn_per * (steps + 1) \
+                or counts["ell_spmm_transposed"] != tn_per * (steps + 1) \
+                or counts["ell_plain_cuda"] or counts["K1"]:
+            raise AssertionError(f"loop flagship MU: {counts}")
+
+    return run, gate
+
+
+def loop_f64_parity() -> None:
+    """MU, HALS and RANK2 in f64 on the card (the torch-ops steps and
+    ell_spmm's f64 pair), captured against eager: bit for bit."""
+    import scipy.sparse as sp
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions
+    from smallk_torch.ops.aop import DenseAOp
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers import graph, solve
+
+    rng = np.random.RandomState(21)
+    dense = DenseAOp(torch.tensor(rng.rand(800, 600), device="cuda"))
+    ell = EllAOp.from_scipy(sp.random(SP_M, SP_N, density=0.02,
+                                      random_state=rng, format="csc"),
+                            "float64", device="cuda")
+    for alg, op, k in (("HALS", dense, 16), ("RANK2", dense, 2),
+                       ("MU", ell, SP_K)):
+        m, n = op.shape
+        W0 = torch.tensor(rng.rand(m, k), device="cuda")
+        H0 = torch.tensor(rng.rand(k, n), device="cuda")
+        opts = NmfOptions(tol=1e-6, algorithm=NmfAlgorithm(alg), height=m,
+                          width=n, k=k, max_iter=300, verbose=False,
+                          dtype="float64", stall_patience=50)
+        res = {}
+        for capture in LOOP_ORDER[:2]:
+            with patched(graph, "CAPTURE", capture):
+                reset_counts()
+                r = solve.nmf_solve(op, W0, H0, opts)
+                res[capture] = (r, read_counts())
+        (e, ce), (c, cc) = res[False], res[True]
+        same = (torch.equal(e.W, c.W) and torch.equal(e.H, c.H)
+                and (e.iterations, e.converged) == (c.iterations,
+                                                    c.converged))
+        log(f"[loop f64] {alg} {m}x{n} k={k}: {c.iterations} iterations, "
+            f"{cc['steps']} steps run, captured "
+            f"{'equal' if same else 'DIFFERENT'} to eager bit for bit, "
+            f"graphs {cc['captures']}")
+        if not same or cc["captures"] != 1 or ce["captures"]:
+            raise AssertionError(f"loop f64 {alg}: captured differs from "
+                                 "eager")
+
+
+def bits_equal(a, b) -> bool:
+    """Every array (or tensor) of a equal to b's, bit for bit."""
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor)
+        else np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def loop_cell(name: str, run, gate, card: str) -> dict:
+    """One cell of the loop phase: `run` eager and captured in the order
+    LOOP_ORDER, each run gated; captured equal to eager bit for bit, with
+    the same counts.  Returns the walls and the captured run's counts."""
+    import torch
+
+    from smallk_torch.solvers import graph
+
+    walls = {False: [], True: []}
+    first, captures_ms = {}, []
+    torch.cuda.empty_cache()  # no cell pays for an earlier one's cache
+    for capture in LOOP_ORDER:
+        with patched(graph, "CAPTURE", capture):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            seconds = graph_seconds()
+        gate(counts, out)
+        walls[capture].append(wall)
+        if capture:
+            captures_ms.append(1e3 * seconds[0])
+        if capture not in first:
+            first[capture] = (out, counts, seconds)
+        elif not bits_equal(out["bits"], first[capture][0]["bits"]):
+            raise AssertionError(f"loop {name}: two runs differ")
+    (e, ce, _), (c, cc, (capture_s, replay_s)) = first[False], first[True]
+    keys = [key for key in ce if key not in ("captures", "replays")]
+    same_counts = {key: ce[key] for key in keys} == {key: cc[key]
+                                                     for key in keys}
+    same = bits_equal(e["bits"], c["bits"]) and e["iterations"] == \
+        c["iterations"] and e.get("nmi") == c.get("nmi")
+    its = c["iterations"]
+    kernel = max(("K1", "K2", "K3", "ell_spmm"), key=lambda key: cc[key])
+    log(f"[loop] {name}: wall eager "
+        f"{', '.join(f'{w:.4f}' for w in walls[False])} s, captured "
+        f"{', '.join(f'{w:.4f}' for w in walls[True])} s; {its} iterations, "
+        f"{cc['steps']} steps run in {cc['solves']} solves, "
+        f"{cc['frozen']} wasted to the freeze; {kernel} launches "
+        f"{cc[kernel]} ({cc[kernel] / its:.2f} an iteration); host reads "
+        f"{cc['host_reads']} ({cc['host_reads'] / its:.4f} an iteration); "
+        f"{cc['captures']} graphs, capture + instantiate "
+        f"{1e3 * capture_s / max(cc['captures'], 1):.3f} ms a solve "
+        f"(all captures of each captured run: "
+        f"{', '.join(f'{t:.3f}' for t in captures_ms)} ms); "
+        f"{cc['replays']} replays, host "
+        f"{1e6 * replay_s / max(cc['replays'], 1):.2f} us a replay"
+        + (f"; NMI {c['nmi']:.4f}, leaves {c['leaves']}" if "nmi" in c
+           else "")
+        + f"; captured {'equal' if same else 'DIFFERENT'} to eager bit for "
+        f"bit, counts {'equal' if same_counts else 'DIFFERENT'} on {card}")
+    if not (same and same_counts):
+        raise AssertionError(f"loop {name}: captured {cc} against eager "
+                             f"{ce}")
+    # a graph a solve at most, and none in the eager runs
+    if cc["captures"] > cc["solves"] or ce["captures"]:
+        raise AssertionError(f"loop {name}: {cc['captures']} graphs in "
+                             f"{cc['solves']} solves")
+    return {"walls": walls, "counts": cc, "iterations": its,
+            "capture_s": capture_s, "replay_s": replay_s, "outs": (e, c)}
+
+
+def phase_loop(card: str, flag: dict, sparse: dict) -> dict:
+    """The solve loop at the four cells, eager against captured, the f64
+    parity, and the device's busy share from a child process."""
+    import torch
+
+    cells = {"flatclust HALS": loop_flatclust_cell()}
+    a_op, labels = hier_problem()
+    cells["hierclust Reuters"] = loop_hier_cell(a_op, labels)
+    A, slabels = sparse["corpus"]
+    cells["sparse hierclust 50k x 1M"] = loop_hier_cell(sparse["op"],
+                                                        slabels, host_A=A)
+    cells["flagship MU k=128"] = loop_flagship_cell(flag)
+    loop_f64_parity()
+    out = {name: loop_cell(name, run, gate, card)
+           for name, (run, gate) in cells.items()}
+    # graphs where the auto U is above 1; none at the flagship (U = 1)
+    for name, cell in out.items():
+        if (cell["counts"]["captures"] > 0) == name.startswith("flagship"):
+            raise AssertionError(f"loop {name}: {cell['counts']['captures']}"
+                                 " graphs captured")
+    # flagship MU's factors, eager and captured, are the flagship phase's
+    # after as many iterations, bit for bit, so its relative error is the
+    # one recorded there
+    Wp, Hp = flag["mu_factors"]
+    same = [np.array_equal(W.cpu().numpy(), Wp)
+            and np.array_equal(H.cpu().numpy(), Hp)
+            for W, H in (o["bits"]
+                         for o in out["flagship MU k=128"].pop("outs"))]
+    log(f"[loop] flagship MU factors, eager and captured, "
+        f"{'equal' if all(same) else 'DIFFERENT'} to the flagship phase's "
+        f"after {FLAG_MU_ITERS[-1]} iterations (rel err "
+        f"{flag['mu_rel'][FLAG_MU_ITERS[-1]]:.9f})")
+    if not all(same):
+        raise AssertionError("loop flagship MU: factors differ from the "
+                             "flagship phase's")
+    for cell in out.values():
+        cell.pop("outs", None)
+    del cells, a_op
+    torch.cuda.empty_cache()
+    return out
+
+
+def loop_problems() -> dict:
+    """The four loop cells built from their seeds, for the processes of
+    their own (--loop-busy, --loop)."""
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.ell import EllAOp
+
+    cells = {"flatclust HALS": loop_flatclust_cell()}
+    a_op, labels = hier_problem()
+    cells["hierclust Reuters"] = loop_hier_cell(a_op, labels)
+    A, slabels, _ = sparse_corpus(SPH_N)
+    cells["sparse hierclust 50k x 1M"] = loop_hier_cell(
+        as_aop(A, dtype="bfloat16", device="cuda"), slabels, host_A=A)
+    return cells
+
+
+def loop_busy_child() -> int:
+    """--loop-busy: each loop cell once eager and once captured inside one
+    torch.profiler session, in this process of its own (a second session
+    in a process loses kernel records: PERF.md §7).  For each run: the
+    device's busy share of its wall (the union of kernel intervals) and the
+    host's launch calls (kernels and graphs).  Prints LOOP_BUSY {json}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from smallk_torch.common.device import setup
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers import graph
+
+    setup("cuda")
+    t0 = time.perf_counter()
+    cells = loop_problems()
+    FA, W0, H0 = flagship_problem()
+    op = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
+    del FA
+    cells["flagship MU k=128"] = loop_flagship_cell(
+        {"op": op, "W0": W0, "H0": H0})
+    for name in ("flatclust HALS", "hierclust Reuters"):  # warm-ups
+        cells[name][0]()
+    torch.cuda.synchronize()
+    stamps = [("problems and warm-ups", time.perf_counter() - t0)]
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, (run, _) in cells.items():
+            for capture in (False, True):
+                label = f"loop|{name}|{'captured' if capture else 'eager'}"
+                time.sleep(0.25)  # windows apart on either clock
+                with patched(graph, "CAPTURE", capture), \
+                        record_function(label):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    walls[label] = (time.perf_counter() - t0,
+                                    out["iterations"])
+        t0 = time.perf_counter()
+    stamps.append(("the profiler's stop", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    windows, gpu = {}, []
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cudaGraphLaunch")
+    calls = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            # the windows' own ranges are mirrored on the device's
+            # timeline, each spanning its window: not device work
+            if e.duration_ns() > 0 and name not in walls:
+                gpu.append((e.start_ns(), e.end_ns()))
+        elif name in walls:
+            windows[name] = (e.start_ns(), e.end_ns())
+        elif name in launch_calls:
+            calls.append((e.start_ns(), name))
+    gpu.sort()
+    slack = 100_000_000  # ns: less than the gap between two windows
+    result = {}
+    for label, (lo, hi) in windows.items():
+        spans = [(a, b) for a, b in gpu if lo - slack <= a <= hi + slack]
+        busy, end = 0, -1
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        wall, its = walls[label]
+        n = {c: sum(1 for t, nm in calls if nm == c and lo <= t <= hi)
+             for c in launch_calls}
+        _, cell, mode = label.split("|")
+        result.setdefault(cell, {})[mode] = {
+            "wall": wall, "busy": busy / 1e9 / wall, "iterations": its,
+            "device_events": len(spans), "launch_calls": n,
+            "launches_per_iteration": sum(n.values()) / max(its, 1)}
+        log(f"[loop busy] {cell}, {mode}: wall {wall:.4f} s (profiled), "
+            f"device busy {100 * busy / 1e9 / wall:.2f}%, {len(spans)} "
+            f"device events, host launch calls {n} "
+            f"({sum(n.values()) / max(its, 1):.2f} an iteration)")
+    stamps.append(("reading its events", time.perf_counter() - t0))
+    log("[loop busy] host seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                 for k, v in stamps))
+    if len(result) != len(cells) or not all(
+            r["busy"] > 0 for c in result.values() for r in c.values()):
+        raise AssertionError(f"the profile lost runs or kernels: {result}")
+    print("LOOP_BUSY " + json.dumps(result), flush=True)
+    return 0
+
+
+def loop_busy(card: str) -> dict:
+    """Runs --loop-busy in a process of its own; returns its shares."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--loop-busy"], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("LOOP_BUSY "):
+            log(line)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"--loop-busy exited {proc.returncode}")
+    busy = json.loads(next(line for line in lines
+                           if line.startswith("LOOP_BUSY "))[10:])
+    for cell, modes in busy.items():
+        log(f"[loop] {cell}: device busy eager "
+            f"{100 * modes['eager']['busy']:.2f}%, captured "
+            f"{100 * modes['captured']['busy']:.2f}%; host launch calls an "
+            f"iteration eager {modes['eager']['launches_per_iteration']:.2f}"
+            f", captured {modes['captured']['launches_per_iteration']:.2f} "
+            f"on {card}")
+    return busy
+
+
+def loop_mu_cell(op, W0, H0):
+    """A MU cell that converges: nmf_solve on the EllAOp `op` from W0, H0
+    (host arrays, made contiguous on the card as run_nmf makes them) with
+    tol set, at the first run, to the PG ratio after LOOP_MU_FIXED
+    iterations of a fixed run at U = 1, and checks from that iteration on
+    (min_iter), so that every run converges there; gated exactly on its
+    ell_spmm launches."""
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions
+    from smallk_torch.solvers.solve import nmf_solve
+
+    m, n = op.shape
+    k = W0.shape[1]
+    W0, H0 = (torch.from_numpy(np.ascontiguousarray(F, np.float32)).cuda()
+              for F in (W0, H0))
+    tn, tn_t, nt = product_launches(op)
+    fixed = LOOP_MU_FIXED
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.MU, height=m,
+                      width=n, k=k, min_iter=1, max_iter=fixed,
+                      verbose=False, a_dtype="bfloat16", loop_unroll=1)
+    tol = []
+
+    def run(unroll=0):
+        if not tol:
+            tol.append(float(nmf_solve(op, W0, H0, opts).metric))
+        r = nmf_solve(op, W0, H0, dataclasses.replace(
+            opts, tol=tol[0], min_iter=fixed - 1, max_iter=4 * fixed,
+            loop_unroll=unroll))
+        if not (r.success and r.converged and r.iterations == fixed):
+            raise AssertionError(f"loop: MU {m}x{n} k={k} stopped after "
+                                 f"{r.iterations}, not {fixed}")
+        return {"iterations": r.iterations, "bits": (r.W, r.H)}
+
+    def gate(counts, out):
+        steps = counts["steps"]
+        if counts["ell_spmm"] != nt * steps + tn * (steps + 1) \
+                or counts["ell_spmm_transposed"] != tn_t * (steps + 1) \
+                or counts["ell_plain_cuda"] or counts["K1"]:
+            raise AssertionError(f"loop MU {m}x{n}: {counts}")
+
+    return run, gate
+
+
+def loop_study(card: str) -> None:
+    """--loop: the U sweep.  At flatclust HALS, Reuters hierclust, sparse
+    hierclust and three MU solves that converge (the main path's operand
+    at k = 8, the flagship's at k = 16 and at k = 128, each a bf16
+    EllAOp), eager at U = 1 and captured (one step a graph, replayed U
+    times) at each U > 1 of LOOP_UNROLLS: wall, steps run, steps wasted,
+    host reads, graph replays and the host's us a replay."""
+    import torch
+
+    from smallk_torch import Random
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers import graph
+
+    cells = loop_problems()
+    A = random_sparse_matrix_main()
+    cells[f"MU {M}x{N} k={K}"] = loop_mu_cell(
+        EllAOp.from_scipy(A, "bfloat16", device="cuda"),
+        *random_matrix_pair(Random(FACADE_SEED), M, N, K))
+    FA, FW0, FH0 = flagship_problem()
+    flag = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
+    del FA
+    for k in (16, FLAG_K):
+        cells[f"flagship MU k={k}"] = loop_mu_cell(flag, FW0[:, :k],
+                                                   FH0[:k])
+    best = {}
+    for name, (run, gate) in cells.items():
+        reps = 1 if name.startswith("sparse") else 2
+        run()  # warm-up
+        for unroll, capture in [(1, False)] + [(u, True)
+                                               for u in LOOP_UNROLLS
+                                               if u > 1]:
+            walls = []
+            for _ in range(reps):
+                with patched(graph, "CAPTURE", capture):
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = run(unroll)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    c = read_counts()
+                    capture_s, replay_s = graph_seconds()
+                gate(c, out)
+            log(f"[loop sweep] {name}, U={unroll}, "
+                f"{'captured' if capture else 'eager'}: wall "
+                f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+                f"{out['iterations']} iterations, {c['steps']} steps run, "
+                f"{c['frozen']} wasted, {c['host_reads']} host reads, "
+                f"{c['replays']} replays at "
+                f"{1e6 * replay_s / max(c['replays'], 1):.2f} us, "
+                f"capture + instantiate "
+                f"{1e3 * capture_s / max(c['captures'], 1):.3f} ms a "
+                f"solve on {card}")
+            best.setdefault(name, []).append((min(walls), unroll))
+    for name, rows in best.items():
+        rows.sort()
+        log(f"[loop sweep] {name}: fastest "
+            + "; ".join(f"U={u} {w:.4f} s" for w, u in rows[:4]))
+
+
 def main() -> int:
     import torch
 
@@ -3874,6 +4509,8 @@ def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--loop-busy"]:
+        return loop_busy_child()
     from smallk_torch.common.device import setup
     from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
 
@@ -3895,7 +4532,8 @@ def main() -> int:
         return 0
     studies = {"--k1": k1_study, "--sparse": sparse_study,
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
-               "--cg": cg_study, "--facade": facade_study}
+               "--cg": cg_study, "--facade": facade_study,
+               "--loop": loop_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -3923,7 +4561,11 @@ def main() -> int:
     timed("sparse vs dense", phase_sparse_dense, card)
     sparse_hier = timed("sparse hierclust", phase_sparse_hierclust, card)
     timed("facade", phase_facade, card, sparse_hier, flagship["mu_factors"])
-    del sparse_hier["corpus"], flagship["mu_factors"]
+    timed("loop", phase_loop, card, flagship, sparse_hier)
+    del sparse_hier["corpus"], sparse_hier["op"], flagship["op"], \
+        flagship["mu_factors"]
+    torch.cuda.empty_cache()
+    timed("loop busy", loop_busy, card)
     timed("bpp wide", phase_bpp_wide, card)
     with ThreadPoolExecutor(5) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()

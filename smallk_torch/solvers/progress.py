@@ -25,18 +25,22 @@ def prog_init(method: NmfProgressAlgorithm, W):
     raise ValueError(f"unknown progress method {method}")
 
 
-def prog_update(method: NmfProgressAlgorithm, it: int, W, H, gradW, gradH,
+def prog_update(method: NmfProgressAlgorithm, it, W, H, gradW, gradH,
                 state, have_pg0: bool = False):
-    """Returns (metric, new_state); `it` is the 0-based iteration.
+    """Returns (metric, new_state); `it` is the 0-based iteration, an int
+    or a 0-d tensor on the device (read by no branch of the host, so the
+    update runs inside a captured step).
 
     `have_pg0`: the PG_RATIO denominator was supplied from outside, so
     iteration 0 measures against it instead of priming it.
     """
     if method == NmfProgressAlgorithm.PG_RATIO:
         pg = projected_gradient_norm(gradW, gradH, W, H)
-        if it == 0 and not have_pg0:
-            return torch.ones_like(pg), pg
-        return pg / state, state
+        is_first = torch.as_tensor(it, device=pg.device) == 0
+        if have_pg0:
+            is_first = torch.zeros_like(is_first)
+        pg0 = torch.where(is_first, pg, state)
+        return torch.where(is_first, torch.ones_like(pg), pg / pg0), pg0
     if method == NmfProgressAlgorithm.DELTA_FNORM:
         return fro_norm(state - W) / fro_norm(W), W
     raise ValueError(f"unknown progress method {method}")

@@ -71,7 +71,7 @@ mods = [m.name for m in pkgutil.walk_packages(smallk_torch.__path__,
                                               "smallk_torch.")]
 for name in ("ops.ell_cols", "api", "common.profiling", "engines.embeddings",
              "engines.preprocess", "cli.matrixgen_cli",
-             "cli.preprocessor_cli"):
+             "cli.preprocessor_cli", "solvers.graph"):
     assert "smallk_torch." + name in mods, mods
 for name in mods:
     importlib.import_module(name)
