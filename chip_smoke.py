@@ -103,7 +103,24 @@ fails (nonzero exit, no result line) on any fault:
      (--loop-busy, a process of its own) each run once more inside one
      profiler session for the device's busy share and the host's launch
      calls;
- 21. the kernel table as one JSON line, the card line, and last the result
+ 21. the multi-split chain (engines/hier_chain.py) against the sequential
+     engine: the Reuters-shape hierclust with the chain off and on in
+     turns (CHAIN_ORDER), walls, graphs, replays, host reads a split, the
+     busy shares (the loop's busy child runs the Reuters cell on both
+     engines), NMI and whether the two trees are one; then a dense f64
+     2000 x 3000 problem on which they must be;
+ 22. K3's batched launch at a pair of 12411 x 4096 bf16 members, bit-equal
+     to a launch a member, against its plain version and torch.bmm;
+ 23. e4m3 A-storage: K3's, K2's and ell_spmm's e4m3 loads against their
+     plain versions, timed, and a path through each (Reuters hierclust,
+     flatclust-shape HALS, BPP on a blocked EllAOp) with its launches
+     counted;
+ 24. examples/torch_drivers/large_corpus_demo.py on the card (the
+     checkpoint driver's segments and its resume, which runs no solve),
+     two profiling.device_trace blocks in this process after its earlier
+     profiles, and (with the CLIs) examples/torch_drivers/
+     smallk_example.py --synthetic;
+ 25. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -168,6 +185,18 @@ path's operand at k = 8, the flagship's at k = 16 and 128), eager at
 U = 1 and with one step replayed U times at U = 2, 4, 8, 16, 32 (what
 solvers/solve.AUTO_UNROLL and MU_ONE_STEP_ENTRIES are set from).
 
+    python3 chip_smoke.py --slice
+
+runs only phases 21-24 (the chain phase's busy shares not measured).
+
+    python3 chip_smoke.py --chain
+
+sweeps the chain at the Reuters shape: SEQ_PAIR_MIN_ELEMS at m x each
+width of SEQ_PAIR_WIDTHS (0: every pair's children one after another;
+None: every pair batched), then each bucket ladder of LADDERS, each
+setting run twice in turns (what hier_chain.SEQ_PAIR_MIN_ELEMS and the
+hierclust.BUCKET_* constants are set from).
+
     python3 chip_smoke.py --pair DIR
 
 times K2, P1, P2, the flatclust HALS path, the Reuters BPP path, the
@@ -185,6 +214,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -322,6 +352,27 @@ LOOP_UNROLLS = (1, 2, 4, 8, 16, 32)
 LOOP_MU_FIXED = 91
 SPH_NMI = 0.912
 
+# the chain phase (engines/hier_chain.py): Reuters hierclust on the
+# sequential engine, the chain (its default, children one after another)
+# and the chain with batched pairs, in the order CHAIN_ORDER; the NMI the
+# sequential engine gave that run before the chain (PERF.md) and the
+# margin the chain's keeps to it; the f64 dense problem (m, n, clusters,
+# corpus seed) on which the two engines' trees must be identical; the
+# batched K3 row's width (the Reuters root's children's bucket)
+CHAIN_MODES = {"sequential": {"CHAIN": False}, "chain": {"CHAIN": True},
+               "batched pairs": {"CHAIN": True,
+                                 "SEQ_PAIR_MIN_ELEMS": 1 << 62}}
+CHAIN_ORDER = ("sequential", "chain", "batched pairs", "batched pairs",
+               "chain", "sequential")
+HIER_NMI, CHAIN_NMI_MARGIN = 0.9322, 0.005
+CHAIN_F64 = (2000, 3000, 12, 7)
+PAIR_W = 4096
+# --chain: SEQ_PAIR_MIN_ELEMS at HIER_M x these widths (None: never), and
+# these bucket ladders (BUCKET_MIN, BUCKET_POW2_MAX, BUCKET_STEP)
+SEQ_PAIR_WIDTHS = (0, 1024, 2048, 4096, None)
+LADDERS = ((512, 4096, 2048), (512, 1 << 20, 1), (1024, 4096, 1024),
+           (256, 4096, 2048), (512, 2048, 1024))
+
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
@@ -420,14 +471,14 @@ def reset_counts() -> None:
     masked_gj.launches = 0
     masked_gj.columns = 0
     hals_step.launches = 0
-    rank2_loop.launches = 0
+    rank2_loop.launches = rank2_loop.batched_launches = 0
     ell_spmm.launches = 0
     ell_spmm.transposed_launches = 0
     ell_spmm.plain_cuda_calls = 0
     aop.kernel_products = 0
     aop.matmul_products = 0
     solve.steps_run = solve.host_reads = solve.frozen_steps = 0
-    solve.solves = 0
+    solve.solves = solve.pair_solves = solve.pair_steps = 0
     graph.captures = graph.replays = 0
     graph.capture_seconds = graph.replay_seconds = 0.0
 
@@ -444,14 +495,28 @@ def read_counts() -> dict:
 
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
-            "K3": rank2_loop.launches, "ell_spmm": ell_spmm.launches,
+            "K3": rank2_loop.launches,
+            "K3_batched": rank2_loop.batched_launches,
+            "ell_spmm": ell_spmm.launches,
             "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
             "kernel_products": aop.kernel_products,
             "matmul_products": aop.matmul_products,
             "steps": solve.steps_run, "host_reads": solve.host_reads,
             "frozen": solve.frozen_steps, "solves": solve.solves,
+            "pair_solves": solve.pair_solves, "pair_steps": solve.pair_steps,
             "captures": graph.captures, "replays": graph.replays}
+
+
+def k3_want(counts: dict) -> tuple[int, int]:
+    """(K3 launches, products through K3) that a dense hierclust run must
+    count: two products a step run (frozen steps too) and W'A once a
+    solve; a batched pair step is two launches of two products each, and
+    a pair solve's W'A at its start one launch a member."""
+    single = 2 * counts["steps"] + counts["solves"]
+    pair = 2 * counts["pair_solves"]
+    return (single + 2 * counts["pair_steps"] + pair,
+            single + 4 * counts["pair_steps"] + pair)
 
 
 def graph_seconds() -> tuple[float, float]:
@@ -1297,14 +1362,21 @@ def phase_hier_parity() -> None:
                              f"{HIER_NMI_MARGIN}")
 
 
-def hier_problem():
-    """bench.py's Reuters-shape hierclust corpus, made from its seed, as a
-    bf16 operand on the card (built once, outside the timing)."""
+@functools.lru_cache(maxsize=1)
+def hier_corpus():
+    """bench.py's Reuters-shape hierclust corpus on the host, made from its
+    seed once a process: (scipy A, planted labels)."""
     from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+
+    return synthetic_term_doc_corpus(HIER_M, HIER_N, HIER_TOPICS, seed=11)
+
+
+def hier_problem():
+    """The Reuters-shape hierclust corpus as a bf16 operand on the card
+    (built outside the timing)."""
     from smallk_torch.ops.aop import as_aop
 
-    A, labels = synthetic_term_doc_corpus(HIER_M, HIER_N, HIER_TOPICS,
-                                          seed=11)
+    A, labels = hier_corpus()
     return as_aop(A, dtype="bfloat16", device="cuda"), labels
 
 
@@ -1340,12 +1412,14 @@ def phase_hierclust(card: str) -> dict:
         raise AssertionError(f"{leaves} leaves, expected {HIER_K}")
     if (tree.assignments < 0).any():
         raise AssertionError(f"{len(tree.outliers)} documents unassigned")
-    # two K3 products a step run (frozen steps too) and W'A once a solve
-    want = 2 * counts["steps"] + counts["solves"]
-    if counts["K3"] != want or counts["kernel_products"] != want:
+    want = k3_want(counts)
+    if (counts["K3"], counts["kernel_products"]) != want:
         raise AssertionError(f"K3 launched {counts['K3']} times for "
                              f"{counts['steps']} steps run in "
-                             f"{counts['solves']} solves (expected {want})")
+                             f"{counts['solves']} solves and "
+                             f"{counts['pair_steps']} in "
+                             f"{counts['pair_solves']} pairs (expected "
+                             f"{want})")
     if counts["matmul_products"]:
         raise AssertionError(f"{counts['matmul_products']} k=2 f32 products "
                              "went to torch.matmul")
@@ -3289,15 +3363,15 @@ def facade_hier(card: str) -> dict:
     """The facade's HierNmf2WithFlat(12) on the Reuters-shape hierclust
     corpus, between two direct run_hier_nmf2 calls with the facade's
     options and seed on the card: equal result files and launch counts,
-    K3 >= 2 x iter_count.  The flat refinement is NNLS-HALS in torch ops
-    (clust_flat): its W'A at k = 12 is the one product that is not K3's."""
+    K3 exact against the steps run (k3_want).  The flat refinement is
+    NNLS-HALS in torch ops (clust_flat): its W'A at k = 12 is the one
+    product that is not K3's."""
     import smallk_torch as smallk
-    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
     from smallk_torch.engines.flatclust import (
         run_hier_nmf2, write_flatclust_results)
     from smallk_torch.io.writers import make_hierclust_writer
 
-    A, _ = synthetic_term_doc_corpus(HIER_M, HIER_N, HIER_TOPICS, seed=11)
+    A, _ = hier_corpus()
     words = [f"term{i}" for i in range(HIER_M)]
     k = HIER_K
     m, n = A.shape
@@ -3360,8 +3434,8 @@ def facade_hier(card: str) -> dict:
     if leaves != k or not flat["success"]:
         raise AssertionError(f"facade hierclust: {leaves} leaves, flat "
                              f"success {flat['success']}")
-    if counts != dcounts or counts["K3"] < 2 * stats.iter_count \
-            or counts["K3"] != counts["kernel_products"] \
+    if counts != dcounts or counts["K3"] < stats.iter_count \
+            or (counts["K3"], counts["kernel_products"]) != k3_want(counts) \
             or counts["matmul_products"] > 3:
         raise AssertionError(f"facade hierclust bypassed K3: {counts}, "
                              f"direct {dcounts}")
@@ -4055,9 +4129,8 @@ def loop_hier_cell(a_op, labels, host_A=None):
                 raise AssertionError(f"loop sparse hierclust: NMI "
                                      f"{out['nmi']}, not {SPH_NMI}")
             return
-        # two K3 products a step run and W'A once a solve
-        want = 2 * counts["steps"] + counts["solves"]
-        if counts["K3"] != want or counts["kernel_products"] != want \
+        want = k3_want(counts)
+        if (counts["K3"], counts["kernel_products"]) != want \
                 or counts["matmul_products"]:
             raise AssertionError(f"loop hierclust: {counts}, K3 expected "
                                  f"{want}")
@@ -4214,10 +4287,11 @@ def loop_cell(name: str, run, gate, card: str) -> dict:
     if not (same and same_counts):
         raise AssertionError(f"loop {name}: captured {cc} against eager "
                              f"{ce}")
-    # a graph a solve at most, and none in the eager runs
-    if cc["captures"] > cc["solves"] or ce["captures"]:
+    # a graph a solve (a pair's too) at most, and none in the eager runs
+    if cc["captures"] > cc["solves"] + cc["pair_solves"] or ce["captures"]:
         raise AssertionError(f"loop {name}: {cc['captures']} graphs in "
-                             f"{cc['solves']} solves")
+                             f"{cc['solves']} solves and "
+                             f"{cc['pair_solves']} pairs")
     return {"walls": walls, "counts": cc, "iterations": its,
             "capture_s": capture_s, "replay_s": replay_s, "outs": (e, c)}
 
@@ -4295,12 +4369,21 @@ def loop_busy_child() -> int:
     setup("cuda")
     t0 = time.perf_counter()
     cells = loop_problems()
+    # the Reuters cell on the sequential engine and with batched pairs
+    # beside the chain's (captured runs only)
+    run_chain, gate = cells["hierclust Reuters"]
+    for mode in CHAIN_MODES:
+        if mode != "chain":
+            cells[f"hierclust Reuters, {mode}"] = (
+                lambda *a, mode=mode: chain_mode(mode, run_chain, *a), gate)
     FA, W0, H0 = flagship_problem()
     op = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
     del FA
     cells["flagship MU k=128"] = loop_flagship_cell(
         {"op": op, "W0": W0, "H0": H0})
-    for name in ("flatclust HALS", "hierclust Reuters"):  # warm-ups
+    for name in ("flatclust HALS", "hierclust Reuters",
+                 *(f"hierclust Reuters, {mode}" for mode in CHAIN_MODES
+                   if mode != "chain")):  # warm-ups
         cells[name][0]()
     torch.cuda.synchronize()
     stamps = [("problems and warm-ups", time.perf_counter() - t0)]
@@ -4308,7 +4391,8 @@ def loop_busy_child() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for name, (run, _) in cells.items():
-            for capture in (False, True):
+            for capture in ((True,) if name.startswith(
+                    "hierclust Reuters, ") else (False, True)):
                 label = f"loop|{name}|{'captured' if capture else 'eager'}"
                 time.sleep(0.25)  # windows apart on either clock
                 with patched(graph, "CAPTURE", capture), \
@@ -4384,12 +4468,10 @@ def loop_busy(card: str) -> dict:
     busy = json.loads(next(line for line in lines
                            if line.startswith("LOOP_BUSY "))[10:])
     for cell, modes in busy.items():
-        log(f"[loop] {cell}: device busy eager "
-            f"{100 * modes['eager']['busy']:.2f}%, captured "
-            f"{100 * modes['captured']['busy']:.2f}%; host launch calls an "
-            f"iteration eager {modes['eager']['launches_per_iteration']:.2f}"
-            f", captured {modes['captured']['launches_per_iteration']:.2f} "
-            f"on {card}")
+        log(f"[loop] {cell}: " + "; ".join(
+            f"{mode}: device busy {100 * r['busy']:.2f}%, host launch calls "
+            f"an iteration {r['launches_per_iteration']:.2f}"
+            for mode, r in modes.items()) + f" on {card}")
     return busy
 
 
@@ -4497,6 +4579,548 @@ def loop_study(card: str) -> None:
             + "; ".join(f"U={u} {w:.4f} s" for w, u in rows[:4]))
 
 
+def trees_identical(a, sa, b, sb) -> str | None:
+    """None when two hierclust results are one tree (tests/
+    test_torch_hier_chain.py's _assert_identical), else what differs."""
+    if not np.array_equal(a.assignments, b.assignments):
+        return "assignments"
+    if list(a.is_leaf) != list(b.is_leaf):
+        return "leaves"
+    for q, (x, y) in enumerate(zip(a.nodes, b.nodes)):
+        if (x.priority, x.pop_priority, x.parent_index) != (
+                y.priority, y.pop_priority, y.parent_index):
+            return f"node {q}: priority or parent"
+        for f in ("docs", "term_indices"):
+            u, v = getattr(x, f), getattr(y, f)
+            if (u is None) != (v is None) or (
+                    u is not None and not np.array_equal(u, v)):
+                return f"node {q}: {f}"
+    if (sa.nmf_count, sa.iter_count, sa.max_count) != (
+            sb.nmf_count, sb.iter_count, sb.max_count):
+        return "solve counts"
+    return None
+
+
+def chain_mode(mode: str, fn, *args):
+    """fn(*args) with the hierclust engine of `mode` (CHAIN_MODES)."""
+    from smallk_torch.engines import hier_chain
+
+    with contextlib.ExitStack() as stack:
+        for name, value in CHAIN_MODES[mode].items():
+            stack.enter_context(patched(hier_chain, name, value))
+        return fn(*args)
+
+
+def chain_runs(a_op, labels, opts, order, seed=2, warm=True) -> dict:
+    """clust_hier on `a_op` with the engines of CHAIN_MODES in `order`,
+    after a warm-up of each (with `warm`): per mode, each run's wall,
+    counts, graph seconds, NMI, tree and the chain's telemetry; K3 gated
+    exactly against the steps run."""
+    import torch
+
+    from smallk_torch import Random
+    from smallk_torch.engines import hier_chain
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+
+    for mode in dict.fromkeys(order) if warm else ():
+        chain_mode(mode, clust_hier, a_op, opts, Random(1))
+    runs = {mode: [] for mode in order}
+    for mode in order:
+        with contextlib.ExitStack() as stack:
+            for name, value in CHAIN_MODES[mode].items():
+                stack.enter_context(patched(hier_chain, name, value))
+            chain = hier_chain.CHAIN
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, stats = clust_hier(a_op, opts, Random(seed))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            seconds = graph_seconds()
+        if a_op.A.dtype != torch.float64 and \
+                (counts["K3"], counts["kernel_products"]) != k3_want(counts):
+            raise AssertionError(f"{mode}: K3 {counts}, expected "
+                                 f"{k3_want(counts)}")
+        runs[mode].append({
+            "wall": wall, "counts": counts, "capture_s": seconds[0],
+            "tree": tree, "stats": stats,
+            "nmi": None if labels is None else nmi(tree.assignments,
+                                                   labels),
+            "last": dict(hier_chain.LAST_STATS) if chain else None,
+            "bails": dict(hier_chain.LAST_BAILS) if chain else None})
+    return runs
+
+
+def phase_chain(card: str, busy: dict) -> dict:
+    """The multi-split chain (engines/hier_chain.py) against the sequential
+    engine: the Reuters-shape hierclust (bf16 A, f32 factors) on each
+    engine of CHAIN_MODES in the order CHAIN_ORDER, walls, graphs,
+    replays and host reads a split, the busy shares from the loop's busy
+    child, NMI, and whether the trees are one; then the f64 dense
+    CHAIN_F64 problem, where they must be, on the sequential engine and
+    the chain's two modes."""
+    import torch
+
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.ops.aop import as_aop
+
+    a_op, labels = hier_problem()
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    runs = chain_runs(a_op, labels, opts, CHAIN_ORDER)
+    first = runs["sequential"][0]
+    out, splits = {}, HIER_K - 1
+    for mode, rs in runs.items():
+        for r in rs:
+            diff = trees_identical(first["tree"], first["stats"], r["tree"],
+                                   r["stats"])
+            r["same"] = diff is None
+        c = rs[0]["counts"]
+        name = ("hierclust Reuters" if mode == "chain"
+                else f"hierclust Reuters, {mode}")
+        b = busy.get(name, {}).get("captured")
+        out[mode] = {"walls": [r["wall"] for r in rs], "counts": c,
+                     "nmi": rs[0]["nmi"], "busy": b and b["busy"],
+                     "capture_s": rs[0]["capture_s"],
+                     "same": all(r["same"] for r in rs)}
+        walls = ", ".join(f"{r['wall']:.4f}" for r in rs)
+        log(f"[chain] Reuters hierclust {HIER_M}x{HIER_N} bf16 A, "
+            f"{HIER_K} clusters, {mode}: wall {walls} s; graphs "
+            f"{c['captures']} (capture + instantiate "
+            f"{1e3 * rs[0]['capture_s']:.1f} ms in all), replays "
+            f"{c['replays']}, host reads {c['host_reads']} "
+            f"({c['host_reads'] / splits:.1f} a split), solves "
+            f"{c['solves']} + pairs {c['pair_solves']}, K3 launches "
+            f"{c['K3']} (batched {c['K3_batched']}); device busy "
+            + (f"{100 * b['busy']:.2f}%" if b else "not measured")
+            + f"; NMI {rs[0]['nmi']:.4f}; tree "
+            + ("identical to" if out[mode]["same"] else "DIFFERENT from")
+            + " the sequential engine's"
+            + (f"; LAST_STATS {rs[0]['last']}, bails {rs[0]['bails']}"
+               if rs[0]["last"] else "") + f" on {card}")
+    for mode in ("chain", "batched pairs"):
+        last = runs[mode][0]["last"]
+        if not last["committed"]:
+            raise AssertionError(f"{mode} committed no split: {last}")
+        if abs(out[mode]["nmi"] - HIER_NMI) > CHAIN_NMI_MARGIN:
+            raise AssertionError(f"{mode} NMI {out[mode]['nmi']} is not "
+                                 f"{HIER_NMI} +- {CHAIN_NMI_MARGIN}")
+    out["pair_launches"] = runs["batched pairs"][0]["counts"]["K3_batched"]
+    del a_op
+    torch.cuda.empty_cache()
+
+    m, n, k, seed = CHAIN_F64
+    A, flabels = synthetic_term_doc_corpus(m, n, k, seed=seed)
+    f64 = chain_runs(as_aop(A, dtype="float64", device="cuda"), flabels,
+                     hier_opts(k, "float64"),
+                     ("sequential", "chain", "batched pairs"))
+    ref = f64["sequential"][0]
+    for mode in ("chain", "batched pairs"):
+        r = f64[mode][0]
+        diff = trees_identical(ref["tree"], ref["stats"], r["tree"],
+                               r["stats"])
+        log(f"[chain] f64 dense {m}x{n} to {k} clusters on the card, {mode}:"
+            f" tree {'identical' if diff is None else 'DIFFERENT (' + diff + ')'}"
+            f" to the sequential engine's, walls sequential "
+            f"{ref['wall']:.4f} s, {mode} {r['wall']:.4f} s, LAST_STATS "
+            f"{r['last']}, NMI {r['nmi']:.4f}")
+        if diff is not None or not r["last"]["committed"]:
+            raise AssertionError(f"f64 {mode} tree differs ({diff}) or the "
+                                 "chain committed nothing")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pair_k3(card: str) -> dict:
+    """K3's batched launch at the pair shape (both children at PAIR_W
+    columns of the Reuters corpus's m, bf16 A): bit-equal to a launch a
+    member, against its plain version; times of the batched products, of
+    the two members' single launches, of the plain version and of
+    torch.bmm after the upcast."""
+    import torch
+
+    from smallk_torch.kernels import rank2_loop as k3
+
+    m, w = HIER_M, PAIR_W
+    parts = [k3_inputs(m, w, "bfloat16", seed=b) for b in range(2)]
+    A2 = torch.stack([p[0] for p in parts])
+    Wt2 = torch.stack([p[1] for p in parts])
+    H2 = torch.stack([p[2] for p in parts])
+    before = k3.batched_launches
+    got = (k3.wt_a(A2, Wt2), k3.h_at(A2, H2))
+    torch.cuda.synchronize()
+    if k3.batched_launches != before + 2:
+        raise AssertionError("the batched K3 products did not launch")
+    same = all(torch.equal(got[0][b], k3.wt_a(A2[b], Wt2[b]))
+               and torch.equal(got[1][b], k3.h_at(A2[b], H2[b]))
+               for b in range(2))
+    want = (k3.wt_a_plain(A2, Wt2), k3.h_at_plain(A2, H2))
+    errs = [float((g - p).abs().max()) for g, p in zip(got, want)]
+    rels = [e / float(p.abs().max()) for e, p in zip(errs, want)]
+    if not same or max(rels) > K3_TOL["product"]:
+        raise AssertionError(f"batched K3: bit-equal {same}, rel {rels}")
+
+    def batched():
+        return k3.wt_a(A2, Wt2), k3.h_at(A2, H2)
+
+    def singles():
+        return [(k3.wt_a(A2[b], Wt2[b]), k3.h_at(A2[b], H2[b]))
+                for b in range(2)]
+
+    ms, single_ms = device_ms(batched, 20), device_ms(singles, 20)
+    plain = device_ms(lambda: (k3.wt_a_plain(A2, Wt2),
+                               k3.h_at_plain(A2, H2)), 10)
+    library = device_ms(lambda: (
+        torch.bmm(Wt2, A2.float()), torch.bmm(H2, A2.float().transpose(1, 2))),
+        10)
+    # two launches with a data dependency in a step (solvers/rank2.py):
+    # each reads both members' A once, 4 m w operations a member
+    one = bound(8.0 * m * w, A2.numel() * A2.element_size()
+                + 16 * (m + w))
+    b_ms, b_by = 2 * one[0], one[1]
+    log(f"[K3 pair] m={m} w={w} bf16, a batch of 2: bit-equal to a launch a "
+        f"member {same}; max|kernel - plain| {max(errs):.3e} (relative "
+        f"{max(rels):.3e}, tolerance {K3_TOL['product']:g}); device ms "
+        f"wt_a + h_at batched {ms:.4f}, the members' single launches "
+        f"{single_ms:.4f}, plain {plain:.4f}, library (torch.bmm after the "
+        f"upcast) {library:.4f}; bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of it, on {card}")
+    return {"max_abs_err": max(errs), "ms": ms, "single_ms": single_ms,
+            "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase_fp8(card: str) -> dict:
+    """e4m3 A-storage: each kernel's e4m3 load against its plain version
+    and timed (K3's products at the hierclust root shape, K2 at the
+    flatclust shape, ell_spmm at P2's shape with e4m3 values), and a path
+    through each with its launches counted: Reuters hierclust (K3), HALS
+    at the flatclust shape (K2) and BPP on the large-corpus demo's blocked
+    EllAOp (ell_spmm), all with a_dtype float8_e4m3fn."""
+    import torch
+
+    from smallk_torch import (ClustStats, NmfAlgorithm, NmfOptions, Random,
+                              random_matrix)
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.kernels import ell_spmm as kell
+    from smallk_torch.kernels import hals_step as k2
+    from smallk_torch.kernels import rank2_loop as k3
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.ell import EllAOp
+    from smallk_torch.solvers.solve import nmf_solve
+
+    f8 = "float8_e4m3fn"
+    rows = {}
+    # K3: one rank-2 iteration's products at the root shape
+    m, w = HIER_M, HIER_N
+    A, Wt, H = k3_inputs(m, w, f8)
+    got = (k3.wt_a(A, Wt), k3.h_at(A, H))
+    want = (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H))
+    rel = max(float((g - p).abs().max() / p.abs().max())
+              for g, p in zip(got, want))
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    if rel > K3_TOL["product"]:
+        raise AssertionError(f"K3 e4m3 products: relative {rel}")
+    one = bound(4.0 * m * w, A.numel() + 8 * (m + w))
+    rows["K3"] = {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: (k3.wt_a(A, Wt), k3.h_at(A, H)), 20),
+        "plain_ms": device_ms(lambda: (k3.wt_a_plain(A, Wt),
+                                       k3.h_at_plain(A, H)), 10),
+        "library_ms": device_ms(lambda: (
+            torch.matmul(Wt, A.float()), torch.matmul(H, A.float().T)), 10),
+        "bound_ms": 2 * one[0], "bound_by": one[1]}
+    # K2: one HALS step at the flatclust shape
+    args = k2_inputs(FLAT_M, FLAT_N, FLAT_K, torch.float8_e4m3fn)
+    out = k2.hals_step(*args)
+    plain64 = k2.hals_step_reference(*(t.double() for t in args))
+    for name, a, b, tol in zip(K2_OUTPUTS, out[:6], plain64[:6], K2_TOL):
+        torch.testing.assert_close(a, b.float(), **tol,
+                                   msg=lambda s, name=name: f"{name}: {s}")
+    mm, nn, kk = FLAT_M, FLAT_N, FLAT_K
+    k2b = bound(4 * mm * nn * kk + 2 * kk * kk * (3 * mm + 3 * nn),
+                mm * nn + 4 * 2 * (2 * mm * kk + 2 * kk * nn + kk * kk))
+    rows["K2"] = {
+        "max_abs_err": max(float((a.double() - b).abs().max())
+                           for a, b in zip(out[:6], plain64[:6])),
+        "ms": device_ms(lambda: k2.hals_step(*args), 200),
+        "plain_ms": device_ms(lambda: k2.hals_step_reference(*args), 20),
+        "library_ms": None, "bound_ms": k2b[0], "bound_by": k2b[1]}
+    # ell_spmm: P2's shape, e4m3 values, an f32 table
+    G, L, B, k, _, _ = ELL_PROBES["P2"]
+    idx, vals, table = ell_inputs(G, L, B, k, f8, "float32", 0.0, seed=102)
+    buf = torch.empty((G, k), dtype=torch.float32, device="cuda")
+    got = kell.ell_spmm(idx, vals, table, buf).clone()
+    want = kell.ell_spmm_reference(idx, vals, table, buf.clone())
+    rel = float((got - want).abs().max() / want.abs().max())
+    if rel > ELL_TOL["float32"]:
+        raise AssertionError(f"ell_spmm e4m3: relative {rel}")
+    csr = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(G, device="cuda").repeat_interleave(L),
+                     idx.reshape(-1).long()]),
+        vals.reshape(-1).float(), (G, B)).coalesce().to_sparse_csr()
+    eb = bound(2.0 * G * L * k, idx.numel() * 4 + vals.numel()
+               + table.numel() * 4 + G * k * 4)
+    rows["ell_spmm"] = {
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": device_ms(lambda: kell.ell_spmm(idx, vals, table, buf), 50),
+        "plain_ms": device_ms(lambda: kell.ell_spmm_reference(
+            idx, vals, table, buf), 5),
+        "library_ms": back_to_back_ms(lambda: torch.sparse.mm(csr, table),
+                                      20),
+        "bound_ms": eb[0], "bound_by": eb[1]}
+    del A, Wt, H, idx, vals, table, csr
+
+    # the paths, launches counted
+    Ah, labels = hier_corpus()
+    a_op = as_aop(Ah, dtype=f8, device="cuda")
+    reset_counts()
+    tree, stats = clust_hier(a_op, hier_opts(HIER_K, "float32", a_dtype=f8),
+                             Random(2), ClustStats())
+    counts = read_counts()
+    score = nmi(tree.assignments, labels)
+    if sum(tree.is_leaf) != HIER_K or \
+            (counts["K3"], counts["kernel_products"]) != k3_want(counts) \
+            or counts["matmul_products"]:
+        raise AssertionError(f"e4m3 hierclust: {sum(tree.is_leaf)} leaves, "
+                             f"{counts}")
+    rows["K3"]["launches"] = counts["K3"]
+    del a_op
+    Af = torch.rand((FLAT_M, FLAT_N), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda").to(torch.float8_e4m3fn)
+    rng = Random(4)
+    W0 = torch.tensor(random_matrix(FLAT_M, FLAT_K, rng), dtype=torch.float32,
+                      device="cuda")
+    H0 = torch.tensor(random_matrix(FLAT_K, FLAT_N, rng), dtype=torch.float32,
+                      device="cuda")
+    from smallk_torch.ops.aop import DenseAOp
+
+    hopts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.HALS, height=FLAT_M,
+                       width=FLAT_N, k=FLAT_K, max_iter=500, verbose=False,
+                       dtype="float32", a_dtype=f8)
+    reset_counts()
+    hres = nmf_solve(DenseAOp(Af), W0, H0, hopts)
+    hcounts = read_counts()
+    if not hres.success or hcounts["K2"] != hcounts["steps"]:
+        raise AssertionError(f"e4m3 HALS: success {hres.success}, {hcounts}")
+    rows["K2"]["launches"] = hcounts["K2"]
+    import scipy.sparse as sp
+
+    gs = np.random.RandomState(7)
+    dm, dn, dk, nz = 3000, 4000, 16, 30
+    S = sp.csc_matrix((gs.rand(dn * nz), gs.randint(0, dm, dn * nz),
+                       np.arange(0, dn * nz + 1, nz)), shape=(dm, dn))
+    S.sum_duplicates()
+    op = EllAOp.from_scipy(S, f8, doc_block=1024, term_block=1024,
+                           device="cuda")
+    rng = Random(42)
+    W0 = torch.tensor(random_matrix(dm, dk, rng), dtype=torch.float32,
+                      device="cuda")
+    H0 = torch.tensor(random_matrix(dk, dn, rng), dtype=torch.float32,
+                      device="cuda")
+    bopts = NmfOptions(tol=1e-9, algorithm=NmfAlgorithm.BPP, height=dm,
+                       width=dn, k=dk, min_iter=1, max_iter=10,
+                       verbose=False, dtype="float32", a_dtype=f8)
+    reset_counts()
+    bres = nmf_solve(op, W0, H0, bopts)
+    bcounts = read_counts()
+    if not bres.success or not bcounts["ell_spmm"] or \
+            bcounts["ell_plain_cuda"] or not bcounts["K1"]:
+        raise AssertionError(f"e4m3 BPP on the EllAOp: {bcounts}")
+    rows["ell_spmm"]["launches"] = bcounts["ell_spmm"]
+    log(f"[fp8] e4m3 A: Reuters hierclust {stats.nmf_count} factorizations,"
+        f" NMI {score:.4f}, K3 launches {counts['K3']}; HALS "
+        f"{FLAT_M}x{FLAT_N} k={FLAT_K} {hres.iterations} iterations, K2 "
+        f"launches {hcounts['K2']}; BPP on the blocked {dm}x{dn} EllAOp, 10 "
+        f"iterations, ell_spmm launches {bcounts['ell_spmm']}, K1 "
+        f"{bcounts['K1']}; kernels against plain: " + "; ".join(
+            f"{name} err {r['max_abs_err']:.3e}, ms {r['ms']:.4f}, plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f", library {r['library_ms']:.4f}" if r["library_ms"]
+               else "") for name, r in rows.items()) + f" on {card}")
+    return rows
+
+
+def phase_demo(card: str) -> dict:
+    """examples/torch_drivers/large_corpus_demo.py on the card (blocked
+    bf16 EllAOp, BPP through ell_spmm and K1, the checkpoint driver in
+    segments of 10 and its resume), launches and solves counted; the resume
+    must run no solve."""
+    import runpy
+
+    from smallk_torch.solvers import solve
+
+    demo = runpy.run_path(str(ROOT / "examples" / "torch_drivers"
+                              / "large_corpus_demo.py"), run_name="demo")
+    reset_counts()
+    calls = []
+    real = solve.nmf_solve
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    t0 = time.perf_counter()
+    with patched(solve, "nmf_solve", counted):
+        W, H, total, success = demo["main"](device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[demo] large_corpus_demo on the card: {total} iterations, success "
+        f"{success}, {len(calls)} segment solves (the resume none), "
+        f"ell_spmm launches {counts['ell_spmm']}, K1 launches "
+        f"{counts['K1']}, wall {wall:.2f} s on {card}")
+    if not (success and total == 40 and len(calls) == 4
+            and counts["ell_spmm"] and counts["K1"]
+            and not counts["ell_plain_cuda"]):
+        raise AssertionError(f"large_corpus_demo: {total} {success} "
+                             f"{len(calls)} {counts}")
+    return {"wall": wall}
+
+
+def phase_two_traces(card: str) -> dict:
+    """Two profiling.device_trace blocks in this process, after the
+    profiles of the phases before: each trace holds the K3 kernels
+    launched inside it, or device_trace warns that it lost some (its
+    docstring's contract); a trace that loses kernels silently fails."""
+    import warnings
+
+    import torch
+
+    from smallk_torch.common.profiling import device_trace
+    from smallk_torch.kernels import rank2_loop as k3
+
+    A, Wt, _ = k3_inputs(512, 256, "float32")
+    k3.wt_a(A, Wt)
+    found, warned = [], []
+    with tempfile.TemporaryDirectory() as td:
+        for block, calls in (("first", TRACE_CALLS), ("second", 7)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RuntimeWarning)
+                with device_trace(os.path.join(td, block)):
+                    for _ in range(calls):
+                        k3.wt_a(A, Wt)
+            warned.append(any(issubclass(w.category, RuntimeWarning)
+                              and "device_trace" in str(w.message)
+                              for w in caught))
+            with open(os.path.join(td, block, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            found.append(sum("wt_a_kernel" in e.get("name", "")
+                             for e in events if e.get("cat") == "kernel"))
+    torch.cuda.synchronize()
+    log(f"[trace] two device_trace blocks in this process (after its "
+        f"earlier profiles): wt_a kernels {found[0]} of {TRACE_CALLS}, "
+        f"then {found[1]} of 7; warned {warned}, on {card}")
+    for got, want, warn in zip(found, (TRACE_CALLS, 7), warned):
+        if got != want and not warn:
+            raise AssertionError(f"device_trace kept {found} of "
+                                 f"[{TRACE_CALLS}, 7] kernels and warned "
+                                 f"{warned}")
+    return {"kernels": found, "warned": warned}
+
+
+def chain_study(card: str) -> None:
+    """--chain: the Reuters-shape hierclust under the chain with
+    SEQ_PAIR_MIN_ELEMS at HIER_M x each width of SEQ_PAIR_WIDTHS (0: every
+    pair's children one after another; None: every pair batched), then
+    each bucket ladder of LADDERS with the children batched and one after
+    another, each setting run twice in turns; walls, graphs, pairs and the
+    padded node columns.  Then the f32 CHAIN_F64-shape problem (m = 2000)
+    batched and one after another."""
+    from smallk_torch.engines import hier_chain
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.ops.aop import as_aop
+
+    def seq(w):
+        return {(hier_chain, "SEQ_PAIR_MIN_ELEMS"):
+                1 << 62 if w is None else HIER_M * w}
+
+    def sweep(a_op, labels, opts, settings, n):
+        walls, warm = {}, True
+        for rnd in range(2):
+            for label, patches in (settings if rnd == 0
+                                   else settings[::-1]):
+                with contextlib.ExitStack() as stack:
+                    for (mod, name), v in patches.items():
+                        stack.enter_context(patched(mod, name, v))
+                    r = chain_runs(a_op, labels, opts, ("chain",),
+                                   warm=warm)["chain"][0]
+                    padded = sum(hc.bucket_width(len(q.docs), n)
+                                 or len(q.docs) for q in r["tree"].nodes
+                                 if q.is_valid)
+                warm = False
+                c = r["counts"]
+                walls.setdefault(label, []).append(r["wall"])
+                log(f"[chain study] {label}: wall {r['wall']:.4f} s, graphs "
+                    f"{c['captures']} ({1e3 * r['capture_s']:.1f} ms), "
+                    f"pairs {c['pair_solves']}, solves {c['solves']}, K3 "
+                    f"{c['K3']} (batched {c['K3_batched']}), steps "
+                    f"{c['steps']} + pair steps {c['pair_steps']}, host "
+                    f"reads {c['host_reads']}, padded node columns {padded}"
+                    f", NMI {r['nmi']:.4f}, bails {r['bails']} on {card}")
+        for label, ws in walls.items():
+            log(f"[chain study] {label}: walls "
+                f"{', '.join(f'{w:.4f}' for w in ws)} s")
+
+    a_op, labels = hier_problem()
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    settings = [(f"Reuters seq pair {w}", seq(w)) for w in SEQ_PAIR_WIDTHS]
+    settings += [(f"Reuters ladder {ladder} seq pair {w}",
+                  {(hc, "BUCKET_MIN"): ladder[0],
+                   (hc, "BUCKET_POW2_MAX"): ladder[1],
+                   (hc, "BUCKET_STEP"): ladder[2], **seq(w)})
+                 for ladder in LADDERS[1:] for w in (0, None)]
+    sweep(a_op, labels, opts, settings, HIER_N)
+    del a_op
+    m, n, k, s = CHAIN_F64
+    A, slabels = synthetic_term_doc_corpus(m, n, k, seed=s)
+    sweep(as_aop(A, dtype="float32", device="cuda"), slabels,
+          hier_opts(k, "float32"),
+          [(f"{m}x{n} f32 seq pair {w}", seq(w)) for w in (0, None)], n)
+
+
+def slice_study(card: str) -> None:
+    """--slice: the phases this slice added, alone: the batched pair's K3,
+    the e4m3 loads and paths, the large-corpus demo, the chain against the
+    sequential engine (busy shares not measured here), two device_trace
+    blocks after a profile of this process, and the facade walkthrough."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch.kernels import rank2_loop as k3
+
+    phase_pair_k3(card)
+    phase_fp8(card)
+    phase_demo(card)
+    phase_chain(card, {})
+    A, Wt, _ = k3_inputs(512, 256, "float32")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(50):
+            k3.wt_a(A, Wt)
+        torch.cuda.synchronize()
+    phase_two_traces(card)
+    phase_smallk_example()
+
+
+def phase_smallk_example() -> None:
+    """examples/torch_drivers/smallk_example.py --synthetic on the card, as
+    a subprocess (the facade walkthrough: BPP k=32, RANK2 with
+    initializers, HALS, HierNmf2WithFlat(5))."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_drivers"
+                             / "smallk_example.py"), "--synthetic"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if proc.returncode != 0 or "W factor: (1200, 32)" not in proc.stdout \
+            or "HierNmf2" not in proc.stdout:
+        raise AssertionError(f"smallk_example exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    log(f"[cli] examples/torch_drivers/smallk_example.py --synthetic on the "
+        f"card: rc 0 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4533,7 +5157,8 @@ def main() -> int:
     studies = {"--k1": k1_study, "--sparse": sparse_study,
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
                "--cg": cg_study, "--facade": facade_study,
-               "--loop": loop_study}
+               "--loop": loop_study, "--chain": chain_study,
+               "--slice": slice_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -4565,13 +5190,19 @@ def main() -> int:
     del sparse_hier["corpus"], sparse_hier["op"], flagship["op"], \
         flagship["mu_factors"]
     torch.cuda.empty_cache()
-    timed("loop busy", loop_busy, card)
+    busy = timed("loop busy", loop_busy, card)
+    chain = timed("chain", phase_chain, card, busy)
+    pair_k3 = timed("K3 pair", phase_pair_k3, card)
+    fp8 = timed("fp8", phase_fp8, card)
+    timed("demo", phase_demo, card)
+    timed("two traces", phase_two_traces, card)
     timed("bpp wide", phase_bpp_wide, card)
-    with ThreadPoolExecutor(5) as pool:  # the CLI processes side by side
+    with ThreadPoolExecutor(6) as pool:  # the CLI processes side by side
         t0 = time.perf_counter()
         for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
                     pool.submit(phase_hier_cli), pool.submit(phase_sparse_cli),
-                    pool.submit(phase_cli_chain)]:
+                    pool.submit(phase_cli_chain),
+                    pool.submit(phase_smallk_example)]:
             job.result()
         secs["cli"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -4628,7 +5259,31 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        # both children of a split in one launch a product (the chain)
+        "name": f"rank2_loop (batched pair, m={HIER_M} w={PAIR_W} bf16)",
+        "route": "cuda",
+        "source": rank2_loop.SOURCE,
+        "replaces": rank2_loop.REPLACES,
+        "launches": chain["pair_launches"],
+        **{key: pair_k3[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }] + [{
+        # each kernel's e4m3 load of A
+        "name": f"{name} (e4m3 A, {shape})",
+        "route": "cuda",
+        "source": mod.SOURCE,
+        "replaces": (mod.REPLACES["P2"] if isinstance(mod.REPLACES, dict)
+                     else mod.REPLACES),
+        **{key: fp8[row][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    } for name, mod, row, shape in (
+        ("rank2_loop", rank2_loop, "K3", f"root products m={HIER_M} "
+         f"w={HIER_N}"),
+        ("hals_step", hals_step, "K2", f"m={FLAT_M} n={FLAT_N} k={FLAT_K}"),
+        ("ell_spmm", ell_spmm, "ell_spmm", "P2 shape, f32 table"))] + [{
         "name": f"ell_spmm ({probe})",
         "route": "cuda",
         "source": ell_spmm.SOURCE,

@@ -8,8 +8,8 @@ additionally the serialized tree.
 
 Format: a single .npz per checkpoint (atomic rename), host-side.  The
 port's copy of smallk_tpu/common/checkpoint.py, the same files byte for
-byte; the reference's segmented solve driver (run_nmf_with_checkpointing)
-is not carried over.
+byte, so either package reads the other's checkpoints; the segmented solve
+driver, `run_nmf_with_checkpointing`, runs the port's solve on `device`.
 """
 
 from __future__ import annotations
@@ -103,3 +103,65 @@ def load_nmf_checkpoint(path: str, opts: NmfOptions | None = None):
             rng.set_state(pickle.loads(bytes(z["rng_state"])))
             out["rng"] = rng
     return out
+
+
+def run_nmf_with_checkpointing(
+    A,
+    W0: np.ndarray,
+    H0: np.ndarray,
+    opts: NmfOptions,
+    checkpoint_path: str,
+    checkpoint_every: int = 100,
+    resume: bool = True,
+    *,
+    device="cuda",
+):
+    """Chunked NMF driver with periodic checkpoints, on `device` (the card
+    unless the caller asks for the CPU; a prebuilt operand keeps its own).
+
+    Runs the solve loop in segments of `checkpoint_every` iterations,
+    writing a checkpoint after each segment; on restart with resume=True
+    it continues from the last checkpoint, and one written at max_iter
+    returns without solving.  Convergence semantics match a single long
+    run for PG_RATIO up to the min_iter warm-up of the first segment (the
+    pg0 anchor is recomputed per segment for later segments, a strictly
+    more conservative criterion).
+
+    Returns (W, H, total_iterations, success), W and H host arrays.
+    """
+    import torch
+
+    from ..ops.aop import as_aop
+    from ..solvers.solve import nmf_solve
+    from .device import setup, torch_dtype
+
+    start_iter = 0
+    W_cur, H_cur = np.asarray(W0), np.asarray(H0)
+    if resume and os.path.exists(checkpoint_path):
+        ck = load_nmf_checkpoint(checkpoint_path, opts)
+        W_cur, H_cur = ck["W"], ck["H"]
+        start_iter = ck["iteration"]
+
+    dtype = torch_dtype(opts.dtype)
+    a_op = as_aop(A, dtype=dtype, device=device)
+    dev = setup(a_op.device)
+
+    def on_device(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev)
+
+    total = start_iter
+    success = True
+    while total < opts.max_iter:
+        seg = min(checkpoint_every, opts.max_iter - total)
+        seg_opts = dataclasses.replace(
+            opts, max_iter=seg, min_iter=min(opts.min_iter, seg)
+        )
+        res = nmf_solve(a_op, on_device(W_cur), on_device(H_cur), seg_opts)
+        W_cur = res.W.cpu().numpy()
+        H_cur = res.H.cpu().numpy()
+        total += int(res.iterations)
+        success = bool(res.success)
+        save_nmf_checkpoint(checkpoint_path, W_cur, H_cur, total, opts=opts)
+        if bool(res.converged) or not success:
+            break
+    return W_cur, H_cur, total, success

@@ -15,6 +15,9 @@ _DTYPES = {
     "float64": torch.float64,
     "bfloat16": torch.bfloat16,
 }
+# A-storage dtypes (`NmfOptions.a_dtype`): the factor dtypes and e4m3, in
+# which A is stored only; its products come out in the factor dtype
+_STORAGE_DTYPES = {**_DTYPES, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def full_precision() -> None:
@@ -43,13 +46,23 @@ def setup(device) -> torch.device:
 
 def torch_dtype(name) -> torch.dtype:
     """`NmfOptions` dtype string (or a torch dtype) -> torch dtype."""
+    return _lookup(name, _DTYPES)
+
+
+def storage_dtype(name) -> torch.dtype:
+    """`NmfOptions.a_dtype` string (or a torch dtype) -> the torch dtype A
+    is stored in: a factor dtype or float8_e4m3fn."""
+    return _lookup(name, _STORAGE_DTYPES)
+
+
+def _lookup(name, table) -> torch.dtype:
     if isinstance(name, torch.dtype):
         return name
     try:
-        return _DTYPES[str(name)]
+        return table[str(name)]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; expected one of "
-                         f"{sorted(_DTYPES)}") from None
+                         f"{sorted(table)}") from None
 
 
 def no_mesh(mesh, where: str) -> None:

@@ -58,23 +58,59 @@ def timed(label: str, sink=None):
             print(f"{label}: {t.report_seconds():.3f}s")
 
 
+# the host calls that enqueue one device kernel each, as torch.profiler
+# names them (a graph launch, cudaGraphLaunch, enqueues many)
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+
+
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Capture a torch.profiler trace of the block, host and CUDA
     activities, into `logdir`/trace.json (Chrome trace format: open in
-    chrome://tracing or Perfetto).  Yields the profiler."""
+    chrome://tracing or Perfetto).  Yields the profiler.
+
+    On an H100 a trace can hold fewer kernel records than the block
+    launched: with torch 2.11 a block of 20 launches after four earlier
+    sessions kept 18, and one in chip_smoke.py's process after its other
+    phases kept none (PERF.md §7).  So when a trace holds fewer kernel
+    records than the host's kernel launch calls in it, or none beside a
+    graph launch, a RuntimeWarning says that its device timeline is
+    incomplete; a block that must see every kernel runs in a process of
+    its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    if cuda:
+        _warn_on_lost_kernels(path)
+
+
+def _warn_on_lost_kernels(path: str) -> None:
+    import json
+    import warnings
+
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    calls = sum(e.get("name") in _LAUNCH_CALLS for e in events)
+    graphs = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    if kernels < calls or (graphs and not kernels):
+        warnings.warn(
+            f"device_trace: {path} holds {kernels} kernel records for "
+            f"{calls} kernel launch calls and {graphs} graph launches: its "
+            "device timeline is incomplete", RuntimeWarning, stacklevel=3)
 
 
 @contextlib.contextmanager

@@ -24,8 +24,9 @@
 // the (k, n) layout its callers use, with no strided copy after it.  Both
 // layouts sum in the same order and give the same bits.
 //
-// Types (vals, table -> out): (f32, f32), (bf16, f32), (f32, bf16) -> f32
-// sums; (f64, f64) -> f64 sums.  bf16 is widened with __bfloat162float.
+// Types (vals, table -> out): (f32, f32), (bf16, f32), (e4m3, f32),
+// (f32, bf16) -> f32 sums; (f64, f64) -> f64 sums.  bf16 is widened with
+// __bfloat162float, e4m3 by the fp8 conversion, both in registers.
 //
 // What bounds it on the card: a gather.  Every stored entry pulls one
 // k-wide table row from a random place, so the product moves nnz * k * 4
@@ -91,6 +92,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,6 +107,19 @@ __device__ __forceinline__ double widen(double x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float widen(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+// A read through the read-only cache; e4m3 has no __ldg of its own, so
+// its byte is loaded and rewrapped
+template <typename T>
+__device__ __forceinline__ T ldg(const T* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_fp8_e4m3 ldg(const __nv_fp8_e4m3* p) {
+  __nv_fp8_e4m3 v;
+  v.__x = __ldg(reinterpret_cast<const unsigned char*>(p));
+  return v;
+}
+
 
 // VEC consecutive table entries at p, widened to the sum's type
 template <int VEC>
@@ -236,7 +251,7 @@ ell_spmm_kernel(const int* __restrict__ idx, const V* __restrict__ vals,
           w[u] = Acc(0);
           if (live && l < L) {
             j[u] = __ldg(idx + base + l);
-            w[u] = widen(__ldg(vals + base + l));
+            w[u] = widen(ldg(vals + base + l));
           }
         }
         Acc tv[U][VEC];
@@ -266,7 +281,7 @@ ell_spmm_kernel(const int* __restrict__ idx, const V* __restrict__ vals,
         Acc vl = Acc(0);
         if (live && l < L) {
           jl = __ldg(idx + base + l);
-          vl = widen(__ldg(vals + base + l));
+          vl = widen(ldg(vals + base + l));
         }
         if constexpr (MODE == kWarp) {
           const int cnt = min(32, L - l0);
@@ -471,6 +486,7 @@ extern "C" {
 
 SMALLK_ELL_ENTRY(smallk_ell_spmm_f32_f32, float, float, float)
 SMALLK_ELL_ENTRY(smallk_ell_spmm_bf16_f32, __nv_bfloat16, float, float)
+SMALLK_ELL_ENTRY(smallk_ell_spmm_f8_f32, __nv_fp8_e4m3, float, float)
 SMALLK_ELL_ENTRY(smallk_ell_spmm_f32_bf16, float, __nv_bfloat16, float)
 SMALLK_ELL_ENTRY(smallk_ell_spmm_f64_f64, double, double, double)
 #undef SMALLK_ELL_ENTRY

@@ -92,6 +92,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -146,6 +147,19 @@ __device__ __forceinline__ double widen(float x) { return (double)x; }
 __device__ __forceinline__ double widen(__nv_bfloat16 x) {
   return (double)__bfloat162float(x);
 }
+__device__ __forceinline__ double widen(__nv_fp8_e4m3 x) {
+  return (double)static_cast<float>(x);
+}
+// A read through the read-only cache; e4m3 has no __ldg of its own, so
+// its byte is loaded and rewrapped
+template <typename T>
+__device__ __forceinline__ T ldg(const T* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_fp8_e4m3 ldg(const __nv_fp8_e4m3* p) {
+  __nv_fp8_e4m3 v;
+  v.__x = __ldg(reinterpret_cast<const unsigned char*>(p));
+  return v;
+}
+
 
 // d (8 x 8) += a (8 x 4) b (4 x 8) on the FP64 tensor cores.  Lane l holds
 // a[l / 4][l % 4], b[l % 4][l / 4] and d[l / 4][2 (l % 4) + {0, 1}].
@@ -258,7 +272,7 @@ __device__ __forceinline__ void wta_tiles(const TA* __restrict__ A,
 #pragma unroll
         for (int t = 0; t < G; ++t) {
           const int j = (jt0 + t) * 8 + lr;
-          b[u][t] = __ldg(A + (in && j < nj ? arow + j : 0));
+          b[u][t] = ldg(A + (in && j < nj ? arow + j : 0));
         }
       }
 #pragma unroll
@@ -315,7 +329,7 @@ __device__ __forceinline__ bool aht_tiles(
 #pragma unroll
         for (int t = 0; t < G; ++t) {
           const int i = (it0 + t) * 8 + lr;
-          a[u][t] = __ldg(A + (in && i < mi ? (size_t)(i0 + i) * s.n + q * s.nc + jj : 0));
+          a[u][t] = ldg(A + (in && i < mi ? (size_t)(i0 + i) * s.n + q * s.nc + jj : 0));
         }
       }
 #pragma unroll
@@ -674,6 +688,15 @@ int smallk_hals_step_bf16(const void* A, const void* W, const void* H,
                           void* AHt_out, void* ok, int m, int n, int k,
                           void* stream, int device) {
   return launch<__nv_bfloat16>(A, W, H, HHt, AHt, W_out, H_out, gW, gH,
+                               HHt_out, AHt_out, ok, m, n, k, stream, device);
+}
+
+int smallk_hals_step_f8(const void* A, const void* W, const void* H,
+                        const void* HHt, const void* AHt, void* W_out,
+                        void* H_out, void* gW, void* gH, void* HHt_out,
+                        void* AHt_out, void* ok, int m, int n, int k,
+                        void* stream, int device) {
+  return launch<__nv_fp8_e4m3>(A, W, H, HHt, AHt, W_out, H_out, gW, gH,
                                HHt_out, AHt_out, ok, m, n, k, stream, device);
 }
 

@@ -5,11 +5,14 @@ Reference: hierclust/include/clust_hier_generic.hpp (ClustHier :77-238,
 TrialSplit :245-376, ActualSplit :383-517), hierclust/include/
 clust_flat_generic.hpp (ClustFlat).
 
-Each node is factored on A's columns at its document subset, at the
-subset's exact width; the full operand serves the root.  On a dense A the
-subset is one `index_select` on the device, and the rank-2 solve's two
-A-products of an f32 factor go to K3 (ops.aop), so a bf16 A is never
-upcast.  A sparse A too large to densify is the root's bucketed-ELL
+Each node is factored on A's columns at its document subset; the full
+operand serves the root.  On a dense A the subset is one `index_select` on
+the device, padded with zero columns to the bucket ladder's next width
+(`bucket_width`: so that a run's solves share a few shapes, and the
+multi-split chain, engines/hier_chain.py, captures one graph a width), and
+the rank-2 solve's two A-products of an f32 factor go to K3 (ops.aop), so
+a bf16 A is never upcast.  A node's two children solve at one width, that
+of the wider, as the chain's batched pair does.  A sparse A too large to densify is the root's bucketed-ELL
 operand (ops/ell.py) plus its CSC arrays on the device
 (ops/ell_cols.CscColumns), from which each node's operand is gathered on
 the device at any width (on an H100 the gathered operand's two products
@@ -27,11 +30,14 @@ full width, then H's subset columns, as the reference does.  Torch cannot
 reproduce the reference's threefry draws, so random-mode trees match the
 reference statistically, not bit for bit; initdir mode matches it exactly.
 
-Not ported (ROADMAP slice 9): the bucket ladder and zero padding (exact
-widths compile nothing), the chunk ladder of the sparse subsets, the
-multi-split chain (hier_chain.py), pair batching, speculation, the
-prefetch pool, bit-packed results and the dispatch-budget segmentation
-(workarounds for a high-latency TPU link), and `mesh`.
+On the dense random and spectral path the multi-split chain
+(engines/hier_chain.py) runs the splits and hands any split off its common
+path back to the loop here, one split at a time.
+
+Not ported: the chunk ladder of the sparse subsets and the chain's sparse
+branches (ROADMAP slice 14b-ii), speculation, the prefetch pool, bit-packed
+results and the dispatch-budget segmentation (workarounds for a
+high-latency TPU link), and `mesh`.
 """
 
 from __future__ import annotations
@@ -64,6 +70,48 @@ from .tree import DeviceColumn, Tree, _host
 # grow are in `_Rank2Runner._subset`
 gathered_operands = 0
 masked_operands = 0
+
+# The bucket ladder of dense node subsets: powers of two from BUCKET_MIN to
+# BUCKET_POW2_MAX, then steps of BUCKET_STEP (the reference's ladder shape,
+# smallk_tpu/engines/hierclust.py:100-127; its rungs from the H100 sweep of
+# chip_smoke.py --ladder, PERF.md §7).  Only rungs below n are used: a
+# wider subset solves at its exact width.
+BUCKET_MIN = 512
+BUCKET_POW2_MAX = 4096
+BUCKET_STEP = 2048
+
+
+def bucket_widths(n: int) -> tuple:
+    """The ladder's rungs below n, ascending."""
+    out, w = [], BUCKET_MIN
+    while w < n:
+        out.append(w)
+        w = w * 2 if w < BUCKET_POW2_MAX else w + BUCKET_STEP
+    return tuple(out)
+
+
+def bucket_width(size: int, n: int):
+    """The smallest rung >= size below n, or None (exact width)."""
+    return next((w for w in bucket_widths(n) if w >= size), None)
+
+
+def gather_columns(A, idx, width: int, out=None):
+    """A's columns at `idx` (s,), then width - s zero columns: an (m, width)
+    tensor, written into `out` if given.  An e4m3 A is gathered as its
+    bytes (a copy; +0.0 is the zero byte)."""
+    if A.dtype == torch.float8_e4m3fn:
+        if out is None:
+            out = torch.empty((A.shape[0], width), dtype=A.dtype,
+                              device=A.device)
+        gather_columns(A.view(torch.uint8), idx, width,
+                       out=out.view(torch.uint8))
+        return out
+    s = idx.shape[0]
+    if width > s:
+        idx = torch.cat([idx, idx.new_zeros(width - s)])
+    out = torch.index_select(A, 1, idx, out=out)
+    out[:, s:] = 0
+    return out
 
 
 class _InitializerSource:
@@ -132,14 +180,15 @@ def _objective(op, W, H):
             - 2.0 * torch.sum(op.mm_tn(W) * H))
 
 
-def _solve_from_draw(op, draw, opts, init, restarts):
+def _solve_from_draw(op, draw, opts, init, restarts, graphs=None):
     """Initializer draw(s) + (optional spectral start) + solve loop.
 
     `draw() -> (W0, H0)` draws the next start.  With restarts > 1 the R
     random starts run one after another and the one with the lowest
     rank-2 reconstruction objective wins (ties: the lowest restart index);
     failed restarts score +inf and the node fails only if every restart
-    fails.  Returns (W, H, success, iterations).
+    fails.  `graphs`: the caller's kept graphs for `op` (nmf_solve).
+    Returns (W, H, success, iterations).
     """
     if restarts == 1:
         W0, H0 = draw()
@@ -153,10 +202,11 @@ def _solve_from_draw(op, draw, opts, init, restarts):
                         & torch.all(torch.linalg.norm(W0s, dim=0) > 0))
             if good:
                 W0, H0 = W0s, H0s
-        res = nmf_solve(op, W0, H0, opts, pg0_hint=pg0)
+        res = nmf_solve(op, W0, H0, opts, pg0_hint=pg0, graphs=graphs)
         return res.W, res.H, bool(res.success), int(res.iterations)
 
-    runs = [nmf_solve(op, *draw(), opts) for _ in range(restarts)]
+    runs = [nmf_solve(op, *draw(), opts, graphs=graphs)
+            for _ in range(restarts)]
     scores = [float(_objective(op, r.W, r.H)) if r.success else np.inf
               for r in runs]
     best = runs[int(np.argmin(scores))]  # ties -> lowest restart index
@@ -200,18 +250,28 @@ class _Rank2Runner:
         return torch.as_tensor(w_parent, dtype=self.dtype,
                                device=self.device)
 
-    def _subset(self, subset):
+    def width(self, size: int):
+        """The width a dense node subset of `size` documents solves at: its
+        bucket (`bucket_width`), or None for its exact width (a sparse
+        operand, an initdir run, a subset past the ladder)."""
+        if self.inits.initdir or not isinstance(self.a_op, DenseAOp):
+            return None
+        return bucket_width(size, self.n)
+
+    def _subset(self, subset, width=None):
         """(operand, index tensor, masked) for a node: A's columns at
-        `subset` at its exact width, or (masked: a sparse operand with no
-        columns to gather from) the full-width view with every other column
-        masked out; the full operand for the root (subset None)."""
+        `subset`, padded with zero columns to `width` (None: its exact
+        width), or (masked: a sparse operand with no columns to gather
+        from) the full-width view with every other column masked out; the
+        full operand for the root (subset None)."""
         global gathered_operands, masked_operands
         if subset is None:
             return self.a_op, None, False
         idx = torch.as_tensor(np.asarray(subset), dtype=torch.long,
                               device=self.device)
         if isinstance(self.a_op, DenseAOp):
-            return DenseAOp(self.a_op.A.index_select(1, idx)), idx, False
+            w = width or len(subset)
+            return DenseAOp(gather_columns(self.a_op.A, idx, w)), idx, False
         if self.cols is not None:
             gathered_operands += 1
             return self.cols.gathered(idx), idx, False
@@ -228,8 +288,9 @@ class _Rank2Runner:
                 self.stats.max_count += 1
         return success
 
-    def solve(self, subset=None, w_parent=None, max_attempts=3):
-        """Factor A[:, subset] (full A when subset is None).
+    def solve(self, subset=None, w_parent=None, max_attempts=3, width=None):
+        """Factor A[:, subset] (full A when subset is None), a dense subset
+        at `width` (default: its own bucket, `self.width`).
 
         Returns a _NodeSolve.  Retries with fresh initializers up to
         `max_attempts` times on solver failure (singular system),
@@ -238,7 +299,9 @@ class _Rank2Runner:
         if self.inits.initdir:
             return self._solve_hostinit(subset, w_parent, max_attempts)
 
-        op, idx, masked = self._subset(subset)
+        if subset is not None and width is None:
+            width = self.width(len(subset))
+        op, idx, masked = self._subset(subset, width)
         wp = self._wp(w_parent)
         for attempt in range(max_attempts):
             gen = torch.Generator(device=self.device)
@@ -252,8 +315,9 @@ class _Rank2Runner:
                                 device=self.device)
                 H0 = torch.rand((2, self.n), generator=gen, dtype=self.dtype,
                                 device=self.device)
-                gather = idx is not None and not masked
-                return W0, (H0.index_select(1, idx) if gather else H0)
+                if idx is None or masked:
+                    return W0, H0
+                return W0, gather_columns(H0, idx, op.shape[1])
 
             # spectral start on the first attempt only: a retry means that
             # basin failed and the reference's random restart is the escape
@@ -263,6 +327,8 @@ class _Rank2Runner:
             if self._record(success, iters):
                 if masked:
                     H = H.index_select(1, idx)
+                elif idx is not None:
+                    H = H[:, :len(subset)]  # the padding's columns go
                 left = H[0, :] > H[1, :]
                 pr = compute_priority_device(wp, W)
                 split = torch.any(left) & torch.any(~left)
@@ -323,8 +389,9 @@ class _Rank2Runner:
         return _NodeSolve(None, None, None, -1.0, False)
 
 
-def _actual_split(runner: _Rank2Runner, subset, w_parent):
-    """One split attempt on a column subset.
+def _actual_split(runner: _Rank2Runner, subset, w_parent, width=None):
+    """One split attempt on a column subset, a dense one at `width`
+    (default: its own bucket).
 
     Reference: ActualSplit (clust_hier_generic.hpp:383-517).
     Returns (priority, W (m,2), left (|subset|,) bool).
@@ -333,7 +400,7 @@ def _actual_split(runner: _Rank2Runner, subset, w_parent):
     if len(subset) <= 3:
         return -1.0, np.zeros((m, 2)), np.zeros(len(subset), dtype=bool)
 
-    ns = runner.solve(subset, w_parent)
+    ns = runner.solve(subset, w_parent, width=width)
     if not ns.ok:
         if runner.opts.on_node_failure == "leaf":
             # production mode: an unsplittable node becomes a permanent
@@ -350,8 +417,10 @@ def _actual_split(runner: _Rank2Runner, subset, w_parent):
 
 
 def _trial_split(runner: _Rank2Runner, subset, min_priority, w_parent,
-                 opts: ClustOptions):
-    """Split with outlier detection and retries.
+                 opts: ClustOptions, width=None):
+    """Split with outlier detection and retries; the first attempt at
+    `width` (the pair's: both children of a split solve at the wider's
+    bucket, as the chain's batched pair), later ones at their own.
 
     Reference: TrialSplit (clust_hier_generic.hpp:245-376).  May shrink
     `subset` by dropping outlier items; on exhausting trial_allowance the
@@ -366,7 +435,8 @@ def _trial_split(runner: _Rank2Runner, subset, min_priority, w_parent,
     priority_one = -2.0
     W = left = None
     while trial < opts.trial_allowance:
-        priority_one, W, left = _actual_split(runner, subset, w_parent)
+        priority_one, W, left = _actual_split(
+            runner, subset, w_parent, width if trial == 0 else None)
         if priority_one < 0:
             break
 
@@ -543,7 +613,17 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
                 init_counter=inits.counter,
             )
 
-    for i in range(start_i, num_clusters - 1):
+    def save(i_next):
+        if checkpoint_path:
+            _save_hier_checkpoint(
+                checkpoint_path, tree, W_buffer, L_buffer, rng.get_state(),
+                stats, i_next, config=ckpt_config,
+                init_counter=inits.counter,
+            )
+
+    def split(i):
+        """One split of the sequential engine; False when no leaf can be
+        split."""
         if i == 0:
             min_priority = np.inf
             tree.split_root(W, labels=left)
@@ -554,18 +634,19 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
             if max_priority < 0:
                 if opts.verbose:
                     print("\nHierNMF2: no further factorization possible.\n")
-                break
+                return False
             tree.split(split_index, W_buffer[split_index],
                        labels=L_buffer[split_index])
 
+        docs0, docs1 = tree.left_child_docs(), tree.right_child_docs()
+        width = (runner.width(max(len(docs0), len(docs1)))
+                 if min(len(docs0), len(docs1)) > 3 else None)
         for idx, docs, tv in (
-            (tree.index0, tree.left_child_docs(),
-             tree.left_child_topic_vector()),
-            (tree.index1, tree.right_child_docs(),
-             tree.right_child_topic_vector()),
+            (tree.index0, docs0, tree.left_child_topic_vector()),
+            (tree.index1, docs1, tree.right_child_topic_vector()),
         ):
             priority, subset, W_c, left_c = _trial_split(
-                runner, docs, min_priority, tv, opts)
+                runner, docs, min_priority, tv, opts, width)
             tree.nodes[idx].docs = subset  # TrialSplit may drop outliers
             # pop order: raw NDCG (reference) or size-scaled NDCG (graph
             # workloads — a leaf holding half the corpus must not be
@@ -579,14 +660,42 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
 
         if opts.verbose:
             print(f"[{i + 1}] ", end="", flush=True)
-
-        if checkpoint_path:
-            _save_hier_checkpoint(
-                checkpoint_path, tree, W_buffer, L_buffer, rng.get_state(),
-                stats, i + 1, config=ckpt_config, init_counter=inits.counter,
-            )
+        save(i + 1)
         if _interrupt_after is not None and (i + 1) >= _interrupt_after:
             raise KeyboardInterrupt(f"test interrupt after {i + 1} splits")
+        return True
+
+    from .hier_chain import ChainDriver
+
+    chain = (ChainDriver(runner, node_count, W, left)
+             if ChainDriver.available(runner, opts, _interrupt_after)
+             else None)
+    i = start_i
+    try:
+        while i < num_clusters - 1:
+            if chain is not None:
+                # segments of the chain; a split off its common path comes
+                # back here and runs on the sequential engine
+                i_next, outcome = chain.run_segment(i, num_clusters, tree,
+                                                    W_buffer, L_buffer,
+                                                    stats, opts)
+                if i_next > i:
+                    save(i_next)
+                i = i_next
+                if outcome == "done":
+                    if opts.verbose:
+                        print("\nHierNMF2: no further factorization "
+                              "possible.\n")
+                    break
+                if outcome == "ok" or i >= num_clusters - 1:
+                    continue
+                chain.mark_dirty()
+            if not split(i):
+                break
+            i += 1
+    finally:
+        if chain is not None:
+            chain.close()
 
     tree.compute_top_terms(opts.maxterms)
     tree.compute_assignments()

@@ -42,16 +42,19 @@ SIGNATURES = {
     "hals_step": {
         "smallk_hals_step_f32": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
         "smallk_hals_step_bf16": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
+        "smallk_hals_step_f8": ((_P,) * 12 + (_I, _I, _I, _P, _I), _I),
         "smallk_hals_max_active_clusters": ((_I,) * 4, _I),
         "smallk_cluster_probe": ((_P, _I, _P, _I), _I),
         "smallk_hals_stamps": ((_P, _I, _I), _I),
         "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "rank2_loop": {
-        "smallk_wt_a_f32": ((_P,) * 4 + (_I,) * 4 + (_P, _I), _I),
-        "smallk_wt_a_bf16": ((_P,) * 4 + (_I,) * 4 + (_P, _I), _I),
-        "smallk_h_at_f32": ((_P,) * 3 + (_I,) * 2 + (_P, _I), _I),
-        "smallk_h_at_bf16": ((_P,) * 3 + (_I,) * 2 + (_P, _I), _I),
+        # A, Wt, out, partial, m, w, slabs, rows, batch, stream, device
+        **{f"smallk_wt_a_{t}": ((_P,) * 4 + (_I,) * 5 + (_P, _I), _I)
+           for t in ("f32", "bf16", "f8")},
+        # A, H, out, m, w, batch, stream, device
+        **{f"smallk_h_at_{t}": ((_P,) * 3 + (_I,) * 3 + (_P, _I), _I)
+           for t in ("f32", "bf16", "f8")},
         "smallk_rank2_loop_f32": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
         "smallk_rank2_loop_bf16": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
         "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
@@ -61,7 +64,8 @@ SIGNATURES = {
         # stream, device, failed (an int written back)
         **{f"smallk_ell_spmm_{pair}": ((_P, _I, _P, _P) + (_I,) * 5
                                        + (_P, _I, _P), _I)
-           for pair in ("f32_f32", "bf16_f32", "f32_bf16", "f64_f64")},
+           for pair in ("f32_f32", "bf16_f32", "f8_f32", "f32_bf16",
+                        "f64_f64")},
         "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
 }

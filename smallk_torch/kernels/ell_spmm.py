@@ -126,10 +126,12 @@ def launch_plan(k: int, L: int, item: int, aligned: int) -> Plan:
 
 
 f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+f8 = torch.float8_e4m3fn
 # (vals dtype, table dtype) -> (C entry point, out dtype)
 _KERNELS = {
     (f32, f32): ("smallk_ell_spmm_f32_f32", f32),
     (bf16, f32): ("smallk_ell_spmm_bf16_f32", f32),
+    (f8, f32): ("smallk_ell_spmm_f8_f32", f32),
     (f32, bf16): ("smallk_ell_spmm_f32_bf16", f32),
     (f64, f64): ("smallk_ell_spmm_f64_f64", f64),
 }

@@ -60,6 +60,10 @@ REPLACES = "smallk_tpu/solvers/hals_pallas.py:56"
 # launch below
 launches = 0
 
+# A's storage dtypes the kernel reads -> its C entry point's suffix
+A_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float8_e4m3fn: "f8"}
+
 
 def _stride(d: int) -> int:
     """A CTA's rows (or columns) of a d-long axis, as an odd stride."""
@@ -85,7 +89,8 @@ def hals_fits(m: int, n: int, k: int, a_itemsize: int = 4) -> bool:
 def hals_step(A, W, H, HHt, AHt, *, stamped=False):
     """A (m, n); W (m, k), H (k, n), HHt (k, k), AHt (m, k) -> the step.
 
-    CUDA tensors: the kernel (A float32 or bfloat16, the rest float32, a
+    CUDA tensors: the kernel (A float32, bfloat16 or e4m3, the rest
+    float32, a
     shape that passes `hals_fits`), or an exception.  CPU tensors: the
     plain version.  `stamped` launches the study's build, whose phase
     stamps `read_stamps` returns.
@@ -97,9 +102,9 @@ def hals_step(A, W, H, HHt, AHt, *, stamped=False):
         return hals_step_reference(A, W, H, HHt, AHt)
     if dev.type != "cuda":
         raise ValueError(f"hals_step: unsupported device {dev}")
-    if A.dtype not in (torch.float32, torch.bfloat16):
+    if A.dtype not in A_DTYPES:
         raise ValueError(f"hals_step: A dtype {A.dtype} (the kernel takes "
-                         "float32 or bfloat16)")
+                         "float32, bfloat16 or float8_e4m3fn)")
     for name, t in (("W", W), ("H", H), ("HHt", HHt), ("AHt", AHt)):
         if t.dtype != torch.float32:
             raise ValueError(f"hals_step: {name} dtype {t.dtype} (the "
@@ -117,8 +122,7 @@ def hals_step(A, W, H, HHt, AHt, *, stamped=False):
     AHt2 = torch.empty((m, k), **f32)
     ok = torch.empty((), dtype=torch.uint8, device=dev)
     lib = _build.load_library("hals_step", STAMP_DEFINES if stamped else ())
-    fn = (lib.smallk_hals_step_f32 if A.dtype == torch.float32
-          else lib.smallk_hals_step_bf16)
+    fn = getattr(lib, f"smallk_hals_step_{A_DTYPES[A.dtype]}")
     err = fn(A.data_ptr(), W.data_ptr(), H.data_ptr(), HHt.data_ptr(),
              AHt.data_ptr(), W2.data_ptr(), H2.data_ptr(), gW.data_ptr(),
              gH.data_ptr(), HHt2.data_ptr(), AHt2.data_ptr(), ok.data_ptr(),

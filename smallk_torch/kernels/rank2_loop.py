@@ -10,17 +10,23 @@ slab A,
 Its two products are the two A-products of every rank-2 NMF step
 (solvers/rank2.py: W^T A and A H^T at k = 2), so K3 exports them alone,
 and `ops.aop.DenseAOp` sends every k = 2 product of an f32 factor on a
-CUDA f32 or bf16 A to them:
+CUDA f32, bf16 or e4m3 A to them:
 
     wt_a(A, Wt) -> (2, w) f32       Wt (2, m) f32
     h_at(A, H)  -> (2, m) f32       H (2, w) f32
     rank2_loop(A, Wt, iters) -> (2, m) f32, P3's whole function
 
+The two products also take a batch, A (B, m, w) with Wt (B, 2, m) or H
+(B, 2, w), in one launch whose member b is bit-equal to a launch on
+member b alone (csrc/rank2_loop.cu): hierclust's chain solves a node's
+two children as one batched pair (engines/hier_chain.py).
+
 On CUDA tensors each launches the hand-written Hopper kernel
 (csrc/rank2_loop.cu) or raises; on CPU tensors it takes its plain torch
 version (`wt_a_plain`, `h_at_plain`, `rank2_loop_plain`), and only there.
-A is read in its own dtype and every sum is in f32, as P3's
-preferred_element_type=jnp.float32; no f32 copy of A is made.
+A is read in its own dtype (f32, bf16, or e4m3 for the products) and
+every sum is in f32, as P3's preferred_element_type=jnp.float32; no f32
+copy of A is made.
 
 `wt_a` cuts A's rows into slabs, one grid row each, so that a narrow slab
 (w = 512 is 2 column blocks) still puts about four blocks on each of the
@@ -41,11 +47,16 @@ COLS = 256                # columns per wt_a block (csrc/rank2_loop.cu kCols)
 TARGET_BLOCKS = 4 * 132   # about four blocks per SM of an H100
 MIN_ROWS = 64             # fewest rows a slab is cut to
 
-# wrapper calls that launched the kernel since the last reset; the only
-# places it grows are the launches below
+# wrapper calls that launched the kernel since the last reset (a batched
+# launch counts once), and those of them with a batch; the only places
+# they grow are the launches below
 launches = 0
+batched_launches = 0
 
-_A_DTYPES = (torch.float32, torch.bfloat16)
+# A's storage dtypes the products read (the loop: the first two)
+A_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float8_e4m3fn: "f8"}
 
 
 def slab_plan(m: int, w: int) -> tuple[int, int]:
@@ -57,42 +68,47 @@ def slab_plan(m: int, w: int) -> tuple[int, int]:
 
 
 def wt_a(A, Wt):
-    """A (m, w), Wt (2, m) -> Wt . A (2, w) f32."""
-    global launches
-    m, w = _check(A, Wt, "wt_a", (2, A.shape[0]))
+    """A (m, w), Wt (2, m) -> Wt . A (2, w) f32; or a batch: A (B, m, w),
+    Wt (B, 2, m) -> (B, 2, w)."""
+    global launches, batched_launches
+    batch, m, w = _check(A, Wt, "wt_a", (2, A.shape[-2]), A_DTYPES)
     if Wt.device.type == "cpu":
         return wt_a_plain(A, Wt)
     dev = Wt.device
     slabs, rows = slab_plan(m, w)
-    out = torch.empty((2, w), dtype=torch.float32, device=dev)
-    partial = (torch.empty((slabs, 2, w), dtype=torch.float32, device=dev)
-               if slabs > 1 else out)
+    lead = A.shape[:-2]
+    out = torch.empty((*lead, 2, w), dtype=torch.float32, device=dev)
+    partial = (torch.empty((batch, slabs, 2, w), dtype=torch.float32,
+                           device=dev) if slabs > 1 else out)
     lib = _build.load_library("rank2_loop")
-    fn = (lib.smallk_wt_a_f32 if A.dtype == torch.float32
-          else lib.smallk_wt_a_bf16)
+    fn = getattr(lib, f"smallk_wt_a_{_SUFFIX[A.dtype]}")
     _raise_on(lib, fn(A.data_ptr(), Wt.data_ptr(), out.data_ptr(),
-                      partial.data_ptr(), m, w, slabs, rows,
+                      partial.data_ptr(), m, w, slabs, rows, batch,
                       torch.cuda.current_stream(dev).cuda_stream, dev.index),
               "wt_a", m, w)
     launches += 1
+    batched_launches += A.ndim == 3
     return out
 
 
 def h_at(A, H):
-    """A (m, w), H (2, w) -> H . A^T (2, m) f32."""
-    global launches
-    m, w = _check(A, H, "h_at", (2, A.shape[1]))
+    """A (m, w), H (2, w) -> H . A^T (2, m) f32; or a batch: A (B, m, w),
+    H (B, 2, w) -> (B, 2, m)."""
+    global launches, batched_launches
+    batch, m, w = _check(A, H, "h_at", (2, A.shape[-1]), A_DTYPES)
     if H.device.type == "cpu":
         return h_at_plain(A, H)
     dev = H.device
-    out = torch.empty((2, m), dtype=torch.float32, device=dev)
+    out = torch.empty((*A.shape[:-2], 2, m), dtype=torch.float32,
+                      device=dev)
     lib = _build.load_library("rank2_loop")
-    fn = (lib.smallk_h_at_f32 if A.dtype == torch.float32
-          else lib.smallk_h_at_bf16)
+    fn = getattr(lib, f"smallk_h_at_{_SUFFIX[A.dtype]}")
     _raise_on(lib, fn(A.data_ptr(), H.data_ptr(), out.data_ptr(), m, w,
-                      torch.cuda.current_stream(dev).cuda_stream, dev.index),
+                      batch, torch.cuda.current_stream(dev).cuda_stream,
+                      dev.index),
               "h_at", m, w)
     launches += 1
+    batched_launches += A.ndim == 3
     return out
 
 
@@ -100,7 +116,9 @@ def rank2_loop(A, Wt, iters: int = ITERS):
     """P3: `iters` iterations of Wt <- (Wt.A).A^T / (max|.| + 1) from Wt
     (2, m); returns the last Wt (2, m) f32."""
     global launches
-    m, w = _check(A, Wt, "rank2_loop", (2, A.shape[0]))
+    _, m, w = _check(A, Wt, "rank2_loop", (2, A.shape[0]), A_DTYPES[:2])
+    if A.ndim != 2:
+        raise ValueError("rank2_loop: A must be (m, w)")
     if iters < 0:
         raise ValueError(f"rank2_loop: iters={iters} < 0")
     if Wt.device.type == "cpu":
@@ -125,29 +143,32 @@ def rank2_loop(A, Wt, iters: int = ITERS):
     return out
 
 
-def _check(A, F, name, want):
-    """Shapes, devices, dtypes and layout the kernel takes; (m, w)."""
-    if A.ndim != 2 or tuple(F.shape) != want:
+def _check(A, F, name, want, a_dtypes):
+    """Shapes, devices, dtypes and layout the kernel takes; (batch, m, w),
+    batch 1 for an unbatched A (m, w)."""
+    lead = tuple(A.shape[:-2])
+    if A.ndim not in (2, 3) or tuple(F.shape) != lead + want:
         raise ValueError(f"{name}: A {tuple(A.shape)} and factor "
-                         f"{tuple(F.shape)} (expected {want})")
+                         f"{tuple(F.shape)} (expected {lead + want})")
     if A.device != F.device:
         raise ValueError(f"{name}: operands on different devices")
-    m, w = A.shape
-    if m < 1 or w < 1:
+    m, w = A.shape[-2:]
+    batch = lead[0] if lead else 1
+    if m < 1 or w < 1 or batch < 1:
         raise ValueError(f"{name}: empty A {tuple(A.shape)}")
     if F.device.type == "cpu":
-        return m, w
+        return batch, m, w
     if F.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {F.device}")
-    if A.dtype not in _A_DTYPES:
+    if A.dtype not in a_dtypes:
         raise ValueError(f"{name}: A dtype {A.dtype} (the kernel takes "
-                         "float32 or bfloat16)")
+                         f"{', '.join(str(d) for d in a_dtypes)})")
     if F.dtype != torch.float32:
         raise ValueError(f"{name}: factor dtype {F.dtype} (the kernel takes "
                          "float32)")
     if not (A.is_contiguous() and F.is_contiguous()):
         raise ValueError(f"{name}: A and the factor must be contiguous")
-    return m, w
+    return batch, m, w
 
 
 def _raise_on(lib, err, name, m, w):
@@ -159,12 +180,16 @@ def _raise_on(lib, err, name, m, w):
 
 def wt_a_plain(A, Wt):
     """Plain torch version of wt_a: A upcast to the factor's dtype, then
-    one product."""
+    one product (a batch: one product a member, as the kernel)."""
+    if A.ndim == 3:
+        return torch.stack([wt_a_plain(a, f) for a, f in zip(A, Wt)])
     return torch.matmul(Wt, A.to(Wt.dtype))
 
 
 def h_at_plain(A, H):
     """Plain torch version of h_at."""
+    if A.ndim == 3:
+        return torch.stack([h_at_plain(a, h) for a, h in zip(A, H)])
     return torch.matmul(H, A.to(H.dtype).T)
 
 

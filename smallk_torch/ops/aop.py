@@ -13,9 +13,9 @@ sign tests 8-bit products and collapse BPP to zero.
 Three operands, and a view:
   - DenseAOp: A as an (m, n) tensor.  Which code computes a product is a
     dispatch by device, dtype and shape: a k = 2 product of an f32 factor
-    on a CUDA A in f32 or bf16 goes to K3 (kernels/rank2_loop.py: `wt_a`,
-    `h_at`), which reads A in its own dtype and sums in f32; every other
-    product is `torch.matmul` on A upcast to the accumulation dtype (at
+    on a CUDA A in f32, bf16 or e4m3 goes to K3 (kernels/rank2_loop.py:
+    `wt_a`, `h_at`), which reads A in its own dtype and sums in f32; every
+    other product is `torch.matmul` on A upcast to the accumulation dtype (at
     the 12411 x 7984 bf16 shape a 396 MB f32 temporary per product).  A
     K3 failure raises.  `kernel_products` and `matmul_products` count the
     products that took each branch.
@@ -37,7 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..common.device import setup, torch_dtype
+from ..common.device import setup, storage_dtype
 from ..kernels import rank2_loop
 from .dense import _pet
 from .ell import EllAOp, _to_storage
@@ -49,8 +49,9 @@ matmul_products = 0
 
 
 def _kernel_product_ok(A, F, k: int) -> bool:
-    """The dispatch rule: A on CUDA in f32 or bf16, an f32 factor, k = 2."""
-    return (A.is_cuda and A.dtype in (torch.float32, torch.bfloat16)
+    """The dispatch rule: A on CUDA in f32, bf16 or e4m3, an f32 factor,
+    k = 2."""
+    return (A.is_cuda and A.dtype in rank2_loop.A_DTYPES
             and F.dtype == torch.float32 and k == 2)
 
 
@@ -93,7 +94,46 @@ class DenseAOp:
         return torch.matmul(self.A.to(pet), H.T.to(pet)).to(H.dtype)
 
     def col_sums(self):
+        if self.A.dtype == torch.float8_e4m3fn:
+            # torch has no e4m3 sum: f32 sums, rounded once
+            return torch.sum(self.A, dim=0, dtype=torch.float32).to(
+                self.A.dtype)
         return torch.sum(self.A, dim=0)
+
+
+class PairAOp:
+    """Two dense operands of one shape in one (2, m, w) buffer: the two
+    children of a hierclust node, solved as one batched pair
+    (solvers/solve.nmf_solve_pair).  `members` are their DenseAOps;
+    `products` answers both members' A-products of one kind.  Where K3
+    takes the product (the dispatch rule above), it is one batched launch,
+    each member's bits those of a launch of its own; elsewhere one product
+    a member, as each member's own operand computes it."""
+
+    def __init__(self, buf: torch.Tensor):
+        if buf.ndim != 3 or buf.shape[0] != 2 or not buf.is_contiguous():
+            raise ValueError(f"PairAOp: a contiguous (2, m, w) buffer, not "
+                             f"{tuple(buf.shape)}")
+        self.buf = buf
+        self.members = (DenseAOp(buf[0]), DenseAOp(buf[1]))
+
+    def products(self, kind: str, xs):
+        """("nt", (H0, H1)) -> (A0 H0^T, A1 H1^T); ("tn", (W0, W1)) ->
+        (W0^T A0, W1^T A1)."""
+        global kernel_products
+        if _kernel_product_ok(self.buf, xs[0], 2):
+            if kind == "nt":
+                out = rank2_loop.h_at(
+                    self.buf, torch.stack([x.contiguous() for x in xs]))
+                res = (out[0].T, out[1].T)
+            else:
+                out = rank2_loop.wt_a(
+                    self.buf, torch.stack([x.T.contiguous() for x in xs]))
+                res = (out[0], out[1])
+            kernel_products += 2
+            return res
+        return tuple(op.mm_nt(x) if kind == "nt" else op.mm_tn(x)
+                     for op, x in zip(self.members, xs, strict=True))
 
 
 class SparseAOp:
@@ -130,7 +170,7 @@ class SparseAOp:
         `pad_multiple` with zero-valued entries at the last row/col id: the
         lists stay sorted and the padding contributes nothing."""
         dev = setup(device)
-        dtype = torch_dtype(dtype)
+        dtype = storage_dtype(dtype)
         coo = A_csc.tocoo()
         order_c = np.lexsort((coo.row, coo.col))
         order_r = np.lexsort((coo.col, coo.row))
@@ -180,13 +220,15 @@ class SparseAOp:
         """out[seg, :] = sum of vals * table[gather, :] over the nonzeros,
         in the dtype of vals * table."""
         k = table.shape[1]
-        dt = torch.promote_types(vals.dtype, table.dtype)
+        # torch promotes no e4m3 type: its values widen to the table's
+        dt = (table.dtype if vals.dtype == torch.float8_e4m3fn
+              else torch.promote_types(vals.dtype, table.dtype))
         out = torch.zeros((n_out, k), dtype=dt, device=table.device)
         elem = torch.empty((), dtype=dt).element_size()
         chunk = max(1, self._GATHER_BYTES_BUDGET // (k * elem))
         for s in range(0, vals.shape[0], chunk):
             part = (table.index_select(0, gather_ids[s:s + chunk])
-                    * vals[s:s + chunk, None])
+                    * vals[s:s + chunk, None].to(dt))
             out.index_add_(0, seg_ids[s:s + chunk], part)
         return out
 
@@ -201,6 +243,10 @@ class SparseAOp:
         return out.to(H.dtype)
 
     def col_sums(self):
+        if self.dtype == torch.float8_e4m3fn:
+            ones = torch.ones((self._shape[0], 1), dtype=torch.float32,
+                              device=self.device)
+            return self.mm_tn(ones)[0].to(self.dtype)
         out = torch.zeros(self._shape[1], dtype=self.c_vals.dtype,
                           device=self.c_vals.device)
         return out.index_add_(0, self.c_cols, self.c_vals)
@@ -255,7 +301,7 @@ def densifies(A, dtype, threshold=DENSIFY_THRESHOLD_BYTES) -> bool:
     """Whether `as_aop` densifies the scipy sparse `A` in `dtype`: its
     dense image fits under `threshold` bytes."""
     m, n = A.shape
-    return m * n * torch.empty((), dtype=torch_dtype(dtype)).element_size() \
+    return m * n * torch.empty((), dtype=storage_dtype(dtype)).element_size() \
         <= threshold
 
 
@@ -279,7 +325,7 @@ def as_aop(A, dtype=torch.float32, *, device="cuda",
         raise ValueError(f"sparse_format {sparse_format!r}; expected one of "
                          f"{_SPARSE_FORMATS}")
     dev = setup(device)
-    dtype = torch_dtype(dtype)
+    dtype = storage_dtype(dtype)
     if sp.issparse(A):
         m, n = A.shape
         if not densifies(A, dtype, densify_threshold_bytes):
@@ -292,6 +338,14 @@ def as_aop(A, dtype=torch.float32, *, device="cuda",
         coo = A.tocoo()
         rows = torch.from_numpy(coo.row.astype(np.int64)).to(dev)
         cols = torch.from_numpy(coo.col.astype(np.int64)).to(dev)
+        if dtype == torch.float8_e4m3fn:
+            # torch has no e4m3 scatter-add: the values are rounded to e4m3
+            # and summed in f32, and a sum of duplicates is rounded again
+            vals = torch.from_numpy(np.ascontiguousarray(coo.data)).to(
+                dtype).to(dev)
+            dense = torch.zeros((m, n), dtype=torch.float32, device=dev)
+            dense.index_put_((rows, cols), vals.float(), accumulate=True)
+            return DenseAOp(dense.to(dtype))
         vals = torch.from_numpy(np.ascontiguousarray(coo.data)).to(
             dtype).to(dev)
         dense = torch.zeros((m, n), dtype=dtype, device=dev)

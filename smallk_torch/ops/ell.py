@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.device import setup, torch_dtype
+from ..common.device import setup, storage_dtype
 from ..kernels.ell_spmm import Buckets, ell_spmm_buckets
 
 # Quarter-step refinement of the pow-2 bucket ladder: a pow-2 class with
@@ -187,7 +187,7 @@ class EllAOp:
         families ("auto": `_DOC_BLOCK` when that axis has >= 2x that many
         entries, else monolithic; None/0 forces monolithic)."""
         dev = setup(device)
-        dtype = torch_dtype(dtype)
+        dtype = storage_dtype(dtype)
         csc = A.tocsc()
         csc.sort_indices()
         csr = A.tocsr()

@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common.device import setup, torch_dtype
+from ..common.device import setup, storage_dtype
 from ..kernels.ell_spmm import Buckets, ell_spmm, ell_spmm_buckets
 from .ell import _to_storage
 
@@ -145,7 +145,7 @@ class CscColumns:
             torch.from_numpy(csc.indptr.astype(np.int64)).to(dev),
             torch.from_numpy(csc.indices.astype(np.int32)).to(dev),
             _to_storage(csc.data.astype(np.float64),
-                        torch_dtype(dtype)).to(dev))
+                        storage_dtype(dtype)).to(dev))
 
     @property
     def nnz(self) -> int:

@@ -15,9 +15,11 @@ an H100: PERF.md §6.)  The loop hands over a state that
 nothing else holds, iteration 0's, and captures while the device still
 runs that iteration (solve.nmf_solve); its launches have loaded the
 libraries, made the cuBLAS handles and set K2's shared-memory opt-in.  A
-solve captures its own graph, since each hierclust node has an operand of
-its own; the graph and its memory pool are released when the solve
-returns (`close`).
+solve captures its own graph and releases it, with its memory pool, when
+it returns (`close`), unless its caller keeps graphs for an operand of a
+fixed address and shape: hierclust's chain (engines/hier_chain.py) keeps
+one a bucket width, and a later solve or pair at that width copies its
+state into the graph's buffers (`load`) and replays it.
 
 A capture or a replay that fails raises; nothing here runs the eager loop
 instead.  A step that reads the host (`.item()`, `bool()` of a card
@@ -67,7 +69,8 @@ def counters():
     from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from ..ops import aop
 
-    return ((rank2_loop, "launches"), (hals_step, "launches"),
+    return ((rank2_loop, "launches"), (rank2_loop, "batched_launches"),
+            (hals_step, "launches"),
             (ell_spmm, "launches"), (ell_spmm, "transposed_launches"),
             (ell_spmm, "plain_cuda_calls"), (masked_gj, "launches"),
             (masked_gj, "columns"), (aop, "kernel_products"),
@@ -100,7 +103,7 @@ class StepGraph:
     def __init__(self, step, carry):
         global captures, capture_seconds
         self.carry = carry
-        dev = carry.W.device
+        dev = _first_tensor(carry).device
         names = counters()
         before = [getattr(mod, name) for mod, name in names]
         t0 = time.perf_counter()
@@ -131,6 +134,11 @@ class StepGraph:
         captures += 1
         self._names = names
 
+    def load(self, carry) -> None:
+        """Copy `carry` (a state of the captured step's shapes, dtypes and
+        layouts) into the graph's buffers: the next replay steps from it."""
+        _copy_into(self.carry, carry)
+
     def run(self, n: int) -> int:
         """Replay the step n times; returns the steps run."""
         global replays, replay_seconds
@@ -149,3 +157,18 @@ class StepGraph:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
+
+
+def _first_tensor(state) -> torch.Tensor:
+    """The first tensor of a (nested) tuple of tensors: a solve's carry, or
+    a batched pair's two."""
+    return state if isinstance(state, torch.Tensor) else _first_tensor(
+        state[0])
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for d, t in zip(dst, src, strict=True):
+        _copy_into(d, t)

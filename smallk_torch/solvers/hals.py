@@ -87,10 +87,10 @@ def torch_step(a_op, W, H, HHt, AHt):
 
 
 def _kernel_step_ok(a_op, W, H) -> bool:
-    """The reference's `_pallas_step_ok`, for the card: dense A in f32 or
-    bf16, f32 W, CUDA tensors, and a shape that fits the kernel."""
+    """The reference's `_pallas_step_ok`, for the card: dense A in f32,
+    bf16 or e4m3, f32 W, CUDA tensors, and a shape that fits the kernel."""
     if not (isinstance(a_op, DenseAOp) and W.dtype == torch.float32
-            and a_op.A.dtype in (torch.float32, torch.bfloat16)
+            and a_op.A.dtype in k2.A_DTYPES
             and W.is_cuda):
         return False
     m, k = W.shape

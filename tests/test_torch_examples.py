@@ -8,6 +8,7 @@ import runpy
 import sys
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
 import torch
 
@@ -141,13 +142,47 @@ def test_community_graph_driver(tmp_path, capsys):
     assert nmi > 0.5
 
 
+# examples/*.py that the port carries beside the drivers
+TOP_LEVEL = ["large_corpus_demo.py", "smallk_example.py"]
+
+
 def test_drivers_mirror_the_reference_set():
+    """The port's drivers are the reference's drivers and the two
+    top-level examples, each importing the port and not the JAX package."""
     ref = sorted(os.listdir(os.path.join(REPO, "examples", "drivers")))
     port = sorted(os.listdir(os.path.join(REPO, "examples",
                                           "torch_drivers")))
     ref = [f for f in ref if f.endswith(".py")]
-    assert [f for f in port if f.endswith(".py")] == ref and len(ref) == 10
+    assert len(ref) == 10
+    for name in TOP_LEVEL:
+        assert os.path.exists(os.path.join(REPO, "examples", name))
+    ref = sorted(ref + TOP_LEVEL)
+    assert [f for f in port if f.endswith(".py")] == ref
     for name in ref:
         text = open(os.path.join(REPO, "examples", "torch_drivers",
                                  name)).read()
         assert "smallk_tpu" not in text and "smallk_torch" in text, name
+
+
+@pytest.mark.slow
+def test_smallk_example_synthetic(capsys):
+    """The facade walkthrough on its synthetic corpus, as the reference's
+    (tests/test_examples.py, marked slow there too)."""
+    out = _run("torch_drivers", "smallk_example", ["--synthetic", *CPU],
+               capsys)
+    assert "HierNmf2" in out and "W factor: (1200, 32)" in out
+
+
+def test_large_corpus_demo(capsys):
+    """The blocked bf16 EllAOp, BPP and the checkpoint driver at the
+    reference test's size, beside the reference's demo."""
+    path = os.path.join(REPO, "examples", "torch_drivers",
+                        "large_corpus_demo.py")
+    mod = runpy.run_path(path, run_name="demo")
+    W, H, total, success = mod["main"](m=400, n=500, k=8, nz_per_col=12,
+                                       iters=12, device="cpu")
+    assert success and total == 12
+    assert (W > 0).any() and (H > 0).any()
+    out = capsys.readouterr().out
+    assert "resume: returns at iteration 12" in out
+    assert "on cpu" in out

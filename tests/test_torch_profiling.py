@@ -99,3 +99,58 @@ def test_block_and_time_uses_cuda_events():
         torch.mm(x, x)
     torch.cuda.synchronize()
     assert secs <= 2 * (time.perf_counter() - t0) / 10
+
+
+@pytest.mark.cuda
+def test_two_device_traces_in_one_process_hold_their_kernels(tmp_path):
+    """Two device_trace blocks in one process: each trace holds the K3
+    kernels launched inside it, or device_trace warns that it lost some,
+    as its docstring says; none loses kernels silently."""
+    import warnings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smallk_torch.kernels import rank2_loop as k3
+
+    A = torch.rand((512, 256), device="cuda")
+    Wt = torch.rand((2, 512), device="cuda")
+    k3.wt_a(A, Wt)
+    for block, calls in (("first", 20), ("second", 7)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            with device_trace(str(tmp_path / block)):
+                for _ in range(calls):
+                    k3.wt_a(A, Wt)
+        warned = any("device_trace" in str(w.message) for w in caught)
+        with open(tmp_path / block / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        found = sum("wt_a_kernel" in k for k in names)
+        assert found == calls or warned, (block, found, names)
+
+
+def test_lost_kernels_warn(tmp_path):
+    """The check behind the warning, on traces written by hand: fewer
+    kernel records than launch calls warns, as does a graph launch with
+    none; a full trace does not."""
+    from smallk_torch.common.profiling import _warn_on_lost_kernels
+
+    def trace(*names):
+        path = tmp_path / f"t{len(names)}.json"
+        path.write_text(json.dumps({"traceEvents": [
+            {"name": n, "cat": "kernel" if n == "k" else "cuda_runtime"}
+            for n in names]}))
+        return str(path)
+
+    with pytest.warns(RuntimeWarning, match="incomplete"):
+        _warn_on_lost_kernels(trace("cudaLaunchKernel", "cudaLaunchKernel",
+                                    "k"))
+    with pytest.warns(RuntimeWarning, match="incomplete"):
+        _warn_on_lost_kernels(trace("cudaGraphLaunch"))
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        _warn_on_lost_kernels(trace("cudaLaunchKernel", "k",
+                                    "cudaGraphLaunch", "k", "k"))
