@@ -104,23 +104,22 @@ fails (nonzero exit, no result line) on any fault:
      profiler session for the device's busy share and the host's launch
      calls;
  21. the multi-split chain (engines/hier_chain.py) against the sequential
-     engine: the Reuters-shape hierclust with the chain off and on in
-     turns (CHAIN_ORDER), walls, graphs, replays, host reads a split, the
-     busy shares (the loop's busy child runs the Reuters cell on both
-     engines), NMI and whether the two trees are one; then a dense f64
-     2000 x 3000 problem on which they must be;
- 22. K3's batched launch at a pair of 12411 x 4096 bf16 members, bit-equal
-     to a launch a member, against its plain version and torch.bmm;
- 23. e4m3 A-storage: K3's, K2's and ell_spmm's e4m3 loads against their
+     engine, with and without a kept graph a bucket width
+     (hierclust.KEEP_GRAPHS): the Reuters-shape hierclust on each engine
+     of CHAIN_MODES in turns (CHAIN_ORDER), walls, graphs, replays, host
+     reads a split, the busy shares (the loop's busy child runs the
+     Reuters cell on each engine), NMI, and the trees, which must be one;
+     then a dense f64 2000 x 3000 problem on which they must be one too;
+ 22. e4m3 A-storage: K3's, K2's and ell_spmm's e4m3 loads against their
      plain versions, timed, and a path through each (Reuters hierclust,
      flatclust-shape HALS, BPP on a blocked EllAOp) with its launches
      counted;
- 24. examples/torch_drivers/large_corpus_demo.py on the card (the
+ 23. examples/torch_drivers/large_corpus_demo.py on the card (the
      checkpoint driver's segments and its resume, which runs no solve),
      two profiling.device_trace blocks in this process after its earlier
      profiles, and (with the CLIs) examples/torch_drivers/
      smallk_example.py --synthetic;
- 25. the kernel table as one JSON line, the card line, and last the result
+ 24. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -187,15 +186,13 @@ solvers/solve.AUTO_UNROLL and MU_ONE_STEP_ENTRIES are set from).
 
     python3 chip_smoke.py --slice
 
-runs only phases 21-24 (the chain phase's busy shares not measured).
+runs only phases 21-23 (the chain phase's busy shares not measured).
 
-    python3 chip_smoke.py --chain
+    python3 chip_smoke.py --ladder
 
-sweeps the chain at the Reuters shape: SEQ_PAIR_MIN_ELEMS at m x each
-width of SEQ_PAIR_WIDTHS (0: every pair's children one after another;
-None: every pair batched), then each bucket ladder of LADDERS, each
-setting run twice in turns (what hier_chain.SEQ_PAIR_MIN_ELEMS and the
-hierclust.BUCKET_* constants are set from).
+sweeps the bucket ladders of LADDERS under the chain at the Reuters shape,
+each run twice in turns (what the hierclust.BUCKET_* constants are set
+from).
 
     python3 chip_smoke.py --pair DIR
 
@@ -353,23 +350,21 @@ LOOP_MU_FIXED = 91
 SPH_NMI = 0.912
 
 # the chain phase (engines/hier_chain.py): Reuters hierclust on the
-# sequential engine, the chain (its default, children one after another)
-# and the chain with batched pairs, in the order CHAIN_ORDER; the NMI the
-# sequential engine gave that run before the chain (PERF.md) and the
-# margin the chain's keeps to it; the f64 dense problem (m, n, clusters,
-# corpus seed) on which the two engines' trees must be identical; the
-# batched K3 row's width (the Reuters root's children's bucket)
-CHAIN_MODES = {"sequential": {"CHAIN": False}, "chain": {"CHAIN": True},
-               "batched pairs": {"CHAIN": True,
-                                 "SEQ_PAIR_MIN_ELEMS": 1 << 62}}
-CHAIN_ORDER = ("sequential", "chain", "batched pairs", "batched pairs",
-               "chain", "sequential")
+# sequential engine capturing a graph a solve (PR 10's loop, at bucket
+# widths), the sequential engine keeping a graph a bucket width, and the
+# chain (the default, which keeps them too), in the order CHAIN_ORDER; the
+# NMI the sequential engine gave that run before the chain (PERF.md) and
+# the margin the chain's keeps to it; the f64 dense problem (m, n,
+# clusters, corpus seed) on which the engines' trees must be identical
+CHAIN_MODES = {"sequential": {"CHAIN": False, "KEEP_GRAPHS": False},
+               "sequential, kept graphs": {"CHAIN": False,
+                                           "KEEP_GRAPHS": True},
+               "chain": {"CHAIN": True, "KEEP_GRAPHS": True}}
+CHAIN_ORDER = ("sequential", "sequential, kept graphs", "chain", "chain",
+               "sequential, kept graphs", "sequential")
 HIER_NMI, CHAIN_NMI_MARGIN = 0.9322, 0.005
 CHAIN_F64 = (2000, 3000, 12, 7)
-PAIR_W = 4096
-# --chain: SEQ_PAIR_MIN_ELEMS at HIER_M x these widths (None: never), and
-# these bucket ladders (BUCKET_MIN, BUCKET_POW2_MAX, BUCKET_STEP)
-SEQ_PAIR_WIDTHS = (0, 1024, 2048, 4096, None)
+# --ladder: these bucket ladders (BUCKET_MIN, BUCKET_POW2_MAX, BUCKET_STEP)
 LADDERS = ((512, 4096, 2048), (512, 1 << 20, 1), (1024, 4096, 1024),
            (256, 4096, 2048), (512, 2048, 1024))
 
@@ -471,14 +466,14 @@ def reset_counts() -> None:
     masked_gj.launches = 0
     masked_gj.columns = 0
     hals_step.launches = 0
-    rank2_loop.launches = rank2_loop.batched_launches = 0
+    rank2_loop.launches = 0
     ell_spmm.launches = 0
     ell_spmm.transposed_launches = 0
     ell_spmm.plain_cuda_calls = 0
     aop.kernel_products = 0
     aop.matmul_products = 0
     solve.steps_run = solve.host_reads = solve.frozen_steps = 0
-    solve.solves = solve.pair_solves = solve.pair_steps = 0
+    solve.solves = 0
     graph.captures = graph.replays = 0
     graph.capture_seconds = graph.replay_seconds = 0.0
 
@@ -496,7 +491,6 @@ def read_counts() -> dict:
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
             "K3": rank2_loop.launches,
-            "K3_batched": rank2_loop.batched_launches,
             "ell_spmm": ell_spmm.launches,
             "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
@@ -504,19 +498,15 @@ def read_counts() -> dict:
             "matmul_products": aop.matmul_products,
             "steps": solve.steps_run, "host_reads": solve.host_reads,
             "frozen": solve.frozen_steps, "solves": solve.solves,
-            "pair_solves": solve.pair_solves, "pair_steps": solve.pair_steps,
             "captures": graph.captures, "replays": graph.replays}
 
 
 def k3_want(counts: dict) -> tuple[int, int]:
     """(K3 launches, products through K3) that a dense hierclust run must
     count: two products a step run (frozen steps too) and W'A once a
-    solve; a batched pair step is two launches of two products each, and
-    a pair solve's W'A at its start one launch a member."""
-    single = 2 * counts["steps"] + counts["solves"]
-    pair = 2 * counts["pair_solves"]
-    return (single + 2 * counts["pair_steps"] + pair,
-            single + 4 * counts["pair_steps"] + pair)
+    solve, one launch a product."""
+    want = 2 * counts["steps"] + counts["solves"]
+    return want, want
 
 
 def graph_seconds() -> tuple[float, float]:
@@ -1416,9 +1406,7 @@ def phase_hierclust(card: str) -> dict:
     if (counts["K3"], counts["kernel_products"]) != want:
         raise AssertionError(f"K3 launched {counts['K3']} times for "
                              f"{counts['steps']} steps run in "
-                             f"{counts['solves']} solves and "
-                             f"{counts['pair_steps']} in "
-                             f"{counts['pair_solves']} pairs (expected "
+                             f"{counts['solves']} solves (expected "
                              f"{want})")
     if counts["matmul_products"]:
         raise AssertionError(f"{counts['matmul_products']} k=2 f32 products "
@@ -4287,11 +4275,10 @@ def loop_cell(name: str, run, gate, card: str) -> dict:
     if not (same and same_counts):
         raise AssertionError(f"loop {name}: captured {cc} against eager "
                              f"{ce}")
-    # a graph a solve (a pair's too) at most, and none in the eager runs
-    if cc["captures"] > cc["solves"] + cc["pair_solves"] or ce["captures"]:
+    # a graph a solve at most, and none in the eager runs
+    if cc["captures"] > cc["solves"] or ce["captures"]:
         raise AssertionError(f"loop {name}: {cc['captures']} graphs in "
-                             f"{cc['solves']} solves and "
-                             f"{cc['pair_solves']} pairs")
+                             f"{cc['solves']} solves")
     return {"walls": walls, "counts": cc, "iterations": its,
             "capture_s": capture_s, "replay_s": replay_s, "outs": (e, c)}
 
@@ -4369,8 +4356,8 @@ def loop_busy_child() -> int:
     setup("cuda")
     t0 = time.perf_counter()
     cells = loop_problems()
-    # the Reuters cell on the sequential engine and with batched pairs
-    # beside the chain's (captured runs only)
+    # the Reuters cell on the sequential engine, capturing a graph a solve
+    # and keeping one a width, beside the chain's (captured runs only)
     run_chain, gate = cells["hierclust Reuters"]
     for mode in CHAIN_MODES:
         if mode != "chain":
@@ -4601,13 +4588,22 @@ def trees_identical(a, sa, b, sb) -> str | None:
     return None
 
 
-def chain_mode(mode: str, fn, *args):
-    """fn(*args) with the hierclust engine of `mode` (CHAIN_MODES)."""
-    from smallk_torch.engines import hier_chain
+@contextlib.contextmanager
+def engine(mode: str):
+    """The hierclust engine of `mode` (CHAIN_MODES): hier_chain.CHAIN and
+    hierclust.KEEP_GRAPHS set for the block."""
+    from smallk_torch.engines import hier_chain, hierclust
 
     with contextlib.ExitStack() as stack:
         for name, value in CHAIN_MODES[mode].items():
-            stack.enter_context(patched(hier_chain, name, value))
+            mod = hier_chain if name == "CHAIN" else hierclust
+            stack.enter_context(patched(mod, name, value))
+        yield
+
+
+def chain_mode(mode: str, fn, *args):
+    """fn(*args) with the hierclust engine of `mode` (CHAIN_MODES)."""
+    with engine(mode):
         return fn(*args)
 
 
@@ -4627,9 +4623,7 @@ def chain_runs(a_op, labels, opts, order, seed=2, warm=True) -> dict:
         chain_mode(mode, clust_hier, a_op, opts, Random(1))
     runs = {mode: [] for mode in order}
     for mode in order:
-        with contextlib.ExitStack() as stack:
-            for name, value in CHAIN_MODES[mode].items():
-                stack.enter_context(patched(hier_chain, name, value))
+        with engine(mode):
             chain = hier_chain.CHAIN
             reset_counts()
             torch.cuda.synchronize()
@@ -4658,9 +4652,8 @@ def phase_chain(card: str, busy: dict) -> dict:
     engine: the Reuters-shape hierclust (bf16 A, f32 factors) on each
     engine of CHAIN_MODES in the order CHAIN_ORDER, walls, graphs,
     replays and host reads a split, the busy shares from the loop's busy
-    child, NMI, and whether the trees are one; then the f64 dense
-    CHAIN_F64 problem, where they must be, on the sequential engine and
-    the chain's two modes."""
+    child, NMI, and the trees, which must all be the first run's; then the
+    f64 dense CHAIN_F64 problem, where they must be one too."""
     import torch
 
     from smallk_torch.engines.corpus import synthetic_term_doc_corpus
@@ -4669,13 +4662,11 @@ def phase_chain(card: str, busy: dict) -> dict:
     a_op, labels = hier_problem()
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
     runs = chain_runs(a_op, labels, opts, CHAIN_ORDER)
-    first = runs["sequential"][0]
+    first = runs[CHAIN_ORDER[0]][0]
     out, splits = {}, HIER_K - 1
     for mode, rs in runs.items():
-        for r in rs:
-            diff = trees_identical(first["tree"], first["stats"], r["tree"],
-                                   r["stats"])
-            r["same"] = diff is None
+        diffs = [trees_identical(first["tree"], first["stats"], r["tree"],
+                                 r["stats"]) for r in rs]
         c = rs[0]["counts"]
         name = ("hierclust Reuters" if mode == "chain"
                 else f"hierclust Reuters, {mode}")
@@ -4683,7 +4674,7 @@ def phase_chain(card: str, busy: dict) -> dict:
         out[mode] = {"walls": [r["wall"] for r in rs], "counts": c,
                      "nmi": rs[0]["nmi"], "busy": b and b["busy"],
                      "capture_s": rs[0]["capture_s"],
-                     "same": all(r["same"] for r in rs)}
+                     "same": all(d is None for d in diffs)}
         walls = ", ".join(f"{r['wall']:.4f}" for r in rs)
         log(f"[chain] Reuters hierclust {HIER_M}x{HIER_N} bf16 A, "
             f"{HIER_K} clusters, {mode}: wall {walls} s; graphs "
@@ -4691,104 +4682,45 @@ def phase_chain(card: str, busy: dict) -> dict:
             f"{1e3 * rs[0]['capture_s']:.1f} ms in all), replays "
             f"{c['replays']}, host reads {c['host_reads']} "
             f"({c['host_reads'] / splits:.1f} a split), solves "
-            f"{c['solves']} + pairs {c['pair_solves']}, K3 launches "
-            f"{c['K3']} (batched {c['K3_batched']}); device busy "
+            f"{c['solves']}, K3 launches {c['K3']}; device busy "
             + (f"{100 * b['busy']:.2f}%" if b else "not measured")
             + f"; NMI {rs[0]['nmi']:.4f}; tree "
             + ("identical to" if out[mode]["same"] else "DIFFERENT from")
-            + " the sequential engine's"
+            + f" the {CHAIN_ORDER[0]} engine's"
             + (f"; LAST_STATS {rs[0]['last']}, bails {rs[0]['bails']}"
                if rs[0]["last"] else "") + f" on {card}")
-    for mode in ("chain", "batched pairs"):
-        last = runs[mode][0]["last"]
-        if not last["committed"]:
-            raise AssertionError(f"{mode} committed no split: {last}")
-        if abs(out[mode]["nmi"] - HIER_NMI) > CHAIN_NMI_MARGIN:
-            raise AssertionError(f"{mode} NMI {out[mode]['nmi']} is not "
-                                 f"{HIER_NMI} +- {CHAIN_NMI_MARGIN}")
-    out["pair_launches"] = runs["batched pairs"][0]["counts"]["K3_batched"]
+        if not out[mode]["same"]:
+            raise AssertionError(f"Reuters {mode}: tree differs from the "
+                                 f"{CHAIN_ORDER[0]} engine's: {diffs}")
+    last = runs["chain"][0]["last"]
+    if not last["committed"]:
+        raise AssertionError(f"the chain committed no split: {last}")
+    if abs(out["chain"]["nmi"] - HIER_NMI) > CHAIN_NMI_MARGIN:
+        raise AssertionError(f"chain NMI {out['chain']['nmi']} is not "
+                             f"{HIER_NMI} +- {CHAIN_NMI_MARGIN}")
     del a_op
     torch.cuda.empty_cache()
 
     m, n, k, seed = CHAIN_F64
     A, flabels = synthetic_term_doc_corpus(m, n, k, seed=seed)
     f64 = chain_runs(as_aop(A, dtype="float64", device="cuda"), flabels,
-                     hier_opts(k, "float64"),
-                     ("sequential", "chain", "batched pairs"))
-    ref = f64["sequential"][0]
-    for mode in ("chain", "batched pairs"):
+                     hier_opts(k, "float64"), tuple(CHAIN_MODES))
+    ref = f64[CHAIN_ORDER[0]][0]
+    for mode in CHAIN_MODES:
         r = f64[mode][0]
         diff = trees_identical(ref["tree"], ref["stats"], r["tree"],
                                r["stats"])
         log(f"[chain] f64 dense {m}x{n} to {k} clusters on the card, {mode}:"
             f" tree {'identical' if diff is None else 'DIFFERENT (' + diff + ')'}"
-            f" to the sequential engine's, walls sequential "
-            f"{ref['wall']:.4f} s, {mode} {r['wall']:.4f} s, LAST_STATS "
-            f"{r['last']}, NMI {r['nmi']:.4f}")
-        if diff is not None or not r["last"]["committed"]:
+            f" to the {CHAIN_ORDER[0]} engine's, walls {CHAIN_ORDER[0]} "
+            f"{ref['wall']:.4f} s, {mode} {r['wall']:.4f} s, graphs "
+            f"{r['counts']['captures']}, LAST_STATS {r['last']}, NMI "
+            f"{r['nmi']:.4f}")
+        if diff is not None or (r["last"] and not r["last"]["committed"]):
             raise AssertionError(f"f64 {mode} tree differs ({diff}) or the "
                                  "chain committed nothing")
     torch.cuda.empty_cache()
     return out
-
-
-def phase_pair_k3(card: str) -> dict:
-    """K3's batched launch at the pair shape (both children at PAIR_W
-    columns of the Reuters corpus's m, bf16 A): bit-equal to a launch a
-    member, against its plain version; times of the batched products, of
-    the two members' single launches, of the plain version and of
-    torch.bmm after the upcast."""
-    import torch
-
-    from smallk_torch.kernels import rank2_loop as k3
-
-    m, w = HIER_M, PAIR_W
-    parts = [k3_inputs(m, w, "bfloat16", seed=b) for b in range(2)]
-    A2 = torch.stack([p[0] for p in parts])
-    Wt2 = torch.stack([p[1] for p in parts])
-    H2 = torch.stack([p[2] for p in parts])
-    before = k3.batched_launches
-    got = (k3.wt_a(A2, Wt2), k3.h_at(A2, H2))
-    torch.cuda.synchronize()
-    if k3.batched_launches != before + 2:
-        raise AssertionError("the batched K3 products did not launch")
-    same = all(torch.equal(got[0][b], k3.wt_a(A2[b], Wt2[b]))
-               and torch.equal(got[1][b], k3.h_at(A2[b], H2[b]))
-               for b in range(2))
-    want = (k3.wt_a_plain(A2, Wt2), k3.h_at_plain(A2, H2))
-    errs = [float((g - p).abs().max()) for g, p in zip(got, want)]
-    rels = [e / float(p.abs().max()) for e, p in zip(errs, want)]
-    if not same or max(rels) > K3_TOL["product"]:
-        raise AssertionError(f"batched K3: bit-equal {same}, rel {rels}")
-
-    def batched():
-        return k3.wt_a(A2, Wt2), k3.h_at(A2, H2)
-
-    def singles():
-        return [(k3.wt_a(A2[b], Wt2[b]), k3.h_at(A2[b], H2[b]))
-                for b in range(2)]
-
-    ms, single_ms = device_ms(batched, 20), device_ms(singles, 20)
-    plain = device_ms(lambda: (k3.wt_a_plain(A2, Wt2),
-                               k3.h_at_plain(A2, H2)), 10)
-    library = device_ms(lambda: (
-        torch.bmm(Wt2, A2.float()), torch.bmm(H2, A2.float().transpose(1, 2))),
-        10)
-    # two launches with a data dependency in a step (solvers/rank2.py):
-    # each reads both members' A once, 4 m w operations a member
-    one = bound(8.0 * m * w, A2.numel() * A2.element_size()
-                + 16 * (m + w))
-    b_ms, b_by = 2 * one[0], one[1]
-    log(f"[K3 pair] m={m} w={w} bf16, a batch of 2: bit-equal to a launch a "
-        f"member {same}; max|kernel - plain| {max(errs):.3e} (relative "
-        f"{max(rels):.3e}, tolerance {K3_TOL['product']:g}); device ms "
-        f"wt_a + h_at batched {ms:.4f}, the members' single launches "
-        f"{single_ms:.4f}, plain {plain:.4f}, library (torch.bmm after the "
-        f"upcast) {library:.4f}; bound {b_ms:.4f} ms ({b_by}), "
-        f"{100 * b_ms / ms:.1f}% of it, on {card}")
-    return {"max_abs_err": max(errs), "ms": ms, "single_ms": single_ms,
-            "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
-            "bound_by": b_by}
 
 
 def phase_fp8(card: str) -> dict:
@@ -5020,70 +4952,40 @@ def phase_two_traces(card: str) -> dict:
     return {"kernels": found, "warned": warned}
 
 
-def chain_study(card: str) -> None:
-    """--chain: the Reuters-shape hierclust under the chain with
-    SEQ_PAIR_MIN_ELEMS at HIER_M x each width of SEQ_PAIR_WIDTHS (0: every
-    pair's children one after another; None: every pair batched), then
-    each bucket ladder of LADDERS with the children batched and one after
-    another, each setting run twice in turns; walls, graphs, pairs and the
-    padded node columns.  Then the f32 CHAIN_F64-shape problem (m = 2000)
-    batched and one after another."""
-    from smallk_torch.engines import hier_chain
+def ladder_study(card: str) -> None:
+    """--ladder: the Reuters-shape hierclust under the chain at each bucket
+    ladder of LADDERS, the settings run twice in turns; walls, graphs, the
+    padded node columns and NMI."""
     from smallk_torch.engines import hierclust as hc
-    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
-    from smallk_torch.ops.aop import as_aop
-
-    def seq(w):
-        return {(hier_chain, "SEQ_PAIR_MIN_ELEMS"):
-                1 << 62 if w is None else HIER_M * w}
-
-    def sweep(a_op, labels, opts, settings, n):
-        walls, warm = {}, True
-        for rnd in range(2):
-            for label, patches in (settings if rnd == 0
-                                   else settings[::-1]):
-                with contextlib.ExitStack() as stack:
-                    for (mod, name), v in patches.items():
-                        stack.enter_context(patched(mod, name, v))
-                    r = chain_runs(a_op, labels, opts, ("chain",),
-                                   warm=warm)["chain"][0]
-                    padded = sum(hc.bucket_width(len(q.docs), n)
-                                 or len(q.docs) for q in r["tree"].nodes
-                                 if q.is_valid)
-                warm = False
-                c = r["counts"]
-                walls.setdefault(label, []).append(r["wall"])
-                log(f"[chain study] {label}: wall {r['wall']:.4f} s, graphs "
-                    f"{c['captures']} ({1e3 * r['capture_s']:.1f} ms), "
-                    f"pairs {c['pair_solves']}, solves {c['solves']}, K3 "
-                    f"{c['K3']} (batched {c['K3_batched']}), steps "
-                    f"{c['steps']} + pair steps {c['pair_steps']}, host "
-                    f"reads {c['host_reads']}, padded node columns {padded}"
-                    f", NMI {r['nmi']:.4f}, bails {r['bails']} on {card}")
-        for label, ws in walls.items():
-            log(f"[chain study] {label}: walls "
-                f"{', '.join(f'{w:.4f}' for w in ws)} s")
 
     a_op, labels = hier_problem()
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
-    settings = [(f"Reuters seq pair {w}", seq(w)) for w in SEQ_PAIR_WIDTHS]
-    settings += [(f"Reuters ladder {ladder} seq pair {w}",
-                  {(hc, "BUCKET_MIN"): ladder[0],
-                   (hc, "BUCKET_POW2_MAX"): ladder[1],
-                   (hc, "BUCKET_STEP"): ladder[2], **seq(w)})
-                 for ladder in LADDERS[1:] for w in (0, None)]
-    sweep(a_op, labels, opts, settings, HIER_N)
-    del a_op
-    m, n, k, s = CHAIN_F64
-    A, slabels = synthetic_term_doc_corpus(m, n, k, seed=s)
-    sweep(as_aop(A, dtype="float32", device="cuda"), slabels,
-          hier_opts(k, "float32"),
-          [(f"{m}x{n} f32 seq pair {w}", seq(w)) for w in (0, None)], n)
+    walls, warm = {}, True
+    for rnd in range(2):
+        for ladder in (LADDERS if rnd == 0 else LADDERS[::-1]):
+            with patched(hc, "BUCKET_MIN", ladder[0]), \
+                    patched(hc, "BUCKET_POW2_MAX", ladder[1]), \
+                    patched(hc, "BUCKET_STEP", ladder[2]):
+                r = chain_runs(a_op, labels, opts, ("chain",),
+                               warm=warm)["chain"][0]
+                padded = sum(hc.bucket_width(len(q.docs), HIER_N)
+                             or len(q.docs) for q in r["tree"].nodes
+                             if q.is_valid)
+            warm = False
+            c = r["counts"]
+            walls.setdefault(ladder, []).append(r["wall"])
+            log(f"[ladder] {ladder}: wall {r['wall']:.4f} s, graphs "
+                f"{c['captures']} ({1e3 * r['capture_s']:.1f} ms), solves "
+                f"{c['solves']}, K3 {c['K3']}, steps {c['steps']}, host "
+                f"reads {c['host_reads']}, padded node columns {padded}, "
+                f"NMI {r['nmi']:.4f}, bails {r['bails']} on {card}")
+    for ladder, ws in walls.items():
+        log(f"[ladder] {ladder}: walls {', '.join(f'{w:.4f}' for w in ws)} s")
 
 
 def slice_study(card: str) -> None:
-    """--slice: the phases this slice added, alone: the batched pair's K3,
-    the e4m3 loads and paths, the large-corpus demo, the chain against the
+    """--slice: the phases this slice added, alone: the e4m3 loads and
+    paths, the large-corpus demo, the chain against the
     sequential engine (busy shares not measured here), two device_trace
     blocks after a profile of this process, and the facade walkthrough."""
     import torch
@@ -5091,7 +4993,6 @@ def slice_study(card: str) -> None:
 
     from smallk_torch.kernels import rank2_loop as k3
 
-    phase_pair_k3(card)
     phase_fp8(card)
     phase_demo(card)
     phase_chain(card, {})
@@ -5157,7 +5058,7 @@ def main() -> int:
     studies = {"--k1": k1_study, "--sparse": sparse_study,
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
                "--cg": cg_study, "--facade": facade_study,
-               "--loop": loop_study, "--chain": chain_study,
+               "--loop": loop_study, "--ladder": ladder_study,
                "--slice": slice_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
@@ -5191,8 +5092,7 @@ def main() -> int:
         flagship["mu_factors"]
     torch.cuda.empty_cache()
     busy = timed("loop busy", loop_busy, card)
-    chain = timed("chain", phase_chain, card, busy)
-    pair_k3 = timed("K3 pair", phase_pair_k3, card)
+    timed("chain", phase_chain, card, busy)
     fp8 = timed("fp8", phase_fp8, card)
     timed("demo", phase_demo, card)
     timed("two traces", phase_two_traces, card)
@@ -5259,16 +5159,6 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
-    }, {
-        # both children of a split in one launch a product (the chain)
-        "name": f"rank2_loop (batched pair, m={HIER_M} w={PAIR_W} bf16)",
-        "route": "cuda",
-        "source": rank2_loop.SOURCE,
-        "replaces": rank2_loop.REPLACES,
-        "launches": chain["pair_launches"],
-        **{key: pair_k3[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
     }] + [{
         # each kernel's e4m3 load of A
         "name": f"{name} (e4m3 A, {shape})",

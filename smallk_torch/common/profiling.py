@@ -74,9 +74,13 @@ def device_trace(logdir: str):
     launched: with torch 2.11 a block of 20 launches after four earlier
     sessions kept 18, and one in chip_smoke.py's process after its other
     phases kept none (PERF.md §7).  So when a trace holds fewer kernel
-    records than the host's kernel launch calls in it, or none beside a
+    records than the host's kernel launch calls in it, or than the port's
+    own launch counters (the kernels' wrappers count every launch, a graph
+    replay its kernels' launches) moved across the block, or none beside a
     graph launch, a RuntimeWarning says that its device timeline is
-    incomplete; a block that must see every kernel runs in a process of
+    incomplete.  The counters are the check that does not depend on the
+    profiler: a trace that lost its launch calls as well as its kernels
+    still warns.  A block that must see every kernel runs in a process of
     its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -87,17 +91,30 @@ def device_trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
+    before = _port_launches()
     with profile(activities=activities) as prof:
         yield prof
         if cuda:
             torch.cuda.synchronize()
+    launched = _port_launches() - before
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
     if cuda:
-        _warn_on_lost_kernels(path)
+        _warn_on_lost_kernels(path, launched)
 
 
-def _warn_on_lost_kernels(path: str) -> None:
+def _port_launches() -> int:
+    """The launches the port's kernel wrappers have counted so far."""
+    from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop
+
+    return sum(mod.launches
+               for mod in (ell_spmm, hals_step, masked_gj, rank2_loop))
+
+
+def _warn_on_lost_kernels(path: str, launched: int = 0) -> None:
+    """Warn when the trace at `path` holds fewer kernel records than its
+    launch calls or than `launched`, the port's kernel launches in its
+    block, or none beside a graph launch."""
     import json
     import warnings
 
@@ -106,11 +123,12 @@ def _warn_on_lost_kernels(path: str) -> None:
     kernels = sum(e.get("cat") == "kernel" for e in events)
     calls = sum(e.get("name") in _LAUNCH_CALLS for e in events)
     graphs = sum(e.get("name") == "cudaGraphLaunch" for e in events)
-    if kernels < calls or (graphs and not kernels):
+    if kernels < max(calls, launched) or (graphs and not kernels):
         warnings.warn(
             f"device_trace: {path} holds {kernels} kernel records for "
-            f"{calls} kernel launch calls and {graphs} graph launches: its "
-            "device timeline is incomplete", RuntimeWarning, stacklevel=3)
+            f"{calls} kernel launch calls, {graphs} graph launches and "
+            f"{launched} launches of the port's kernels: its device "
+            "timeline is incomplete", RuntimeWarning, stacklevel=3)
 
 
 @contextlib.contextmanager

@@ -26,15 +26,6 @@
 //     or e4m3 widened by the fp8 conversion in registers) and summed in
 //     f32, as P3's preferred_element_type=jnp.float32; there is no f32 copy
 //     of A.
-//   - the two products take a batch of B independent (A, factor) members
-//     of one shape, blockIdx.z (wt_a) or blockIdx.y (h_at and the slab
-//     sum) picking the member: hierclust's chain solves a node's two
-//     children as one batched pair.  A member's blocks run the code of a
-//     single launch on that member's pointers, so its result is bit-equal
-//     to a launch of its own.  The offsets are compiled into the batched
-//     instantiations only (kBatch): with them in every launch, a single
-//     launch at the hierclust root took 0.3079 ms where it had taken
-//     0.2122 (wt_a + h_at, an H100, chip_smoke.py phase K3).
 //   - wt_a: a thread owns one column j and walks the rows of its slab with
 //     Wt[:, i] staged in shared memory, so a warp reads a row of A along
 //     contiguous j.  The rows are cut into `slabs` slabs, one grid row each,
@@ -74,21 +65,13 @@ __device__ __forceinline__ float widen(__nv_fp8_e4m3 x) {
   return static_cast<float>(x);
 }
 
-
-// dst[s, r, j] = sum over the rows i of slab s of Wt[r, i] * A[i, j], for
-// member blockIdx.z of the batch (dst's members dst_batch floats apart)
-template <typename T, bool kBatch>
+// dst[s, r, j] = sum over the rows i of slab s of Wt[r, i] * A[i, j]
+template <typename T>
 __global__ void __launch_bounds__(kCols)
 wt_a_kernel(const T* __restrict__ A, const float* __restrict__ Wt,
-            float* __restrict__ dst, int m, int w, int rows_per_slab,
-            long long dst_batch) {
+            float* __restrict__ dst, int m, int w, int rows_per_slab) {
   __shared__ float wt0[kTile];
   __shared__ float wt1[kTile];
-  if constexpr (kBatch) {
-    A += (size_t)blockIdx.z * m * w;
-    Wt += (size_t)blockIdx.z * 2 * m;
-    dst += (size_t)blockIdx.z * dst_batch;
-  }
   const int j = blockIdx.x * kCols + threadIdx.x;
   const int s = blockIdx.y;
   const int i0 = s * rows_per_slab;
@@ -119,15 +102,9 @@ wt_a_kernel(const T* __restrict__ A, const float* __restrict__ Wt,
 }
 
 // out[e] = sum over s, in order, of partial[s, e], e over the (2, w) result
-// of member blockIdx.y
-template <bool kBatch>
 __global__ void slab_sum_kernel(const float* __restrict__ partial,
                                 float* __restrict__ out, int count,
                                 int slabs) {
-  if constexpr (kBatch) {
-    partial += (size_t)blockIdx.y * slabs * count;
-    out += (size_t)blockIdx.y * count;
-  }
   const int e = blockIdx.x * kFlat + threadIdx.x;
   if (e >= count) return;
   float acc = 0.f;
@@ -135,19 +112,14 @@ __global__ void slab_sum_kernel(const float* __restrict__ partial,
   out[e] = acc;
 }
 
-// out[r, i] = sum_j H[r, j] * A[i, j] of member blockIdx.y; with maxbits
-// (a batch of one), also the running max over |out| as float bits
-template <typename T, bool kBatch>
+// out[r, i] = sum_j H[r, j] * A[i, j]; with maxbits, also the running
+// max over |out| as float bits
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 h_at_kernel(const T* __restrict__ A, const float* __restrict__ H,
             float* __restrict__ out, unsigned int* __restrict__ maxbits,
             int m, int w) {
   __shared__ unsigned int block_max[kWarps];
-  if constexpr (kBatch) {
-    A += (size_t)blockIdx.y * m * w;
-    H += (size_t)blockIdx.y * 2 * w;
-    out += (size_t)blockIdx.y * 2 * m;
-  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarps + warp;
@@ -201,69 +173,50 @@ int blocks(long long count, int per_block) {
 template <typename T>
 cudaError_t launch_wt_a(const T* A, const float* Wt, float* out,
                         float* partial, int m, int w, int slabs,
-                        int rows_per_slab, int batch, cudaStream_t stream) {
+                        int rows_per_slab, cudaStream_t stream) {
   float* dst = slabs == 1 ? out : partial;
-  const dim3 grid((unsigned)blocks(w, kCols), (unsigned)slabs,
-                  (unsigned)batch);
-  const long long dst_batch = (long long)slabs * 2 * w;
-  if (batch == 1)
-    wt_a_kernel<T, false><<<grid, kCols, 0, stream>>>(A, Wt, dst, m, w,
-                                                      rows_per_slab, 0);
-  else
-    wt_a_kernel<T, true><<<grid, kCols, 0, stream>>>(A, Wt, dst, m, w,
-                                                     rows_per_slab, dst_batch);
+  const dim3 grid((unsigned)blocks(w, kCols), (unsigned)slabs);
+  wt_a_kernel<T><<<grid, kCols, 0, stream>>>(A, Wt, dst, m, w, rows_per_slab);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return err;
-  const dim3 sum_grid((unsigned)blocks(2LL * w, kFlat), (unsigned)batch);
-  if (batch == 1)
-    slab_sum_kernel<false><<<sum_grid, kFlat, 0, stream>>>(partial, out,
-                                                           2 * w, slabs);
-  else
-    slab_sum_kernel<true><<<sum_grid, kFlat, 0, stream>>>(partial, out,
-                                                          2 * w, slabs);
+  slab_sum_kernel<<<blocks(2LL * w, kFlat), kFlat, 0, stream>>>(
+      partial, out, 2 * w, slabs);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_h_at(const T* A, const float* H, float* out,
-                        unsigned int* maxbits, int m, int w, int batch,
+                        unsigned int* maxbits, int m, int w,
                         cudaStream_t stream) {
-  const dim3 grid((unsigned)blocks(m, kWarps), (unsigned)batch);
-  if (batch == 1)
-    h_at_kernel<T, false><<<grid, kWarps * 32, 0, stream>>>(A, H, out,
-                                                            maxbits, m, w);
-  else
-    h_at_kernel<T, true><<<grid, kWarps * 32, 0, stream>>>(A, H, out, maxbits,
-                                                           m, w);
+  h_at_kernel<T><<<blocks(m, kWarps), kWarps * 32, 0, stream>>>(
+      A, H, out, maxbits, m, w);
   return cudaGetLastError();
 }
 
-bool bad_shape(int m, int w, int slabs, int rows_per_slab, int batch = 1) {
+bool bad_shape(int m, int w, int slabs, int rows_per_slab) {
   return m < 1 || w < 1 || slabs < 1 || slabs > 65535 || rows_per_slab < 1 ||
-         (long long)slabs * rows_per_slab < m || batch < 1 || batch > 65535;
+         (long long)slabs * rows_per_slab < m;
 }
 
 template <typename T>
 int wt_a(const void* A, const void* Wt, void* out, void* partial, int m,
-         int w, int slabs, int rows_per_slab, int batch, void* stream,
-         int device) {
-  if (bad_shape(m, w, slabs, rows_per_slab, batch))
-    return (int)cudaErrorInvalidValue;
+         int w, int slabs, int rows_per_slab, void* stream, int device) {
+  if (bad_shape(m, w, slabs, rows_per_slab)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_wt_a<T>((const T*)A, (const float*)Wt, (float*)out,
                              (float*)partial, m, w, slabs, rows_per_slab,
-                             batch, (cudaStream_t)stream);
+                             (cudaStream_t)stream);
 }
 
 template <typename T>
-int h_at(const void* A, const void* H, void* out, int m, int w, int batch,
-         void* stream, int device) {
-  if (bad_shape(m, w, 1, m, batch)) return (int)cudaErrorInvalidValue;
+int h_at(const void* A, const void* H, void* out, int m, int w, void* stream,
+         int device) {
+  if (bad_shape(m, w, 1, m)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_h_at<T>((const T*)A, (const float*)H, (float*)out,
-                             nullptr, m, w, batch, (cudaStream_t)stream);
+                             nullptr, m, w, (cudaStream_t)stream);
 }
 
 // Wt (2, m) holds the start and is overwritten by the result; H (2, w),
@@ -284,9 +237,9 @@ int loop(const void* A, void* Wt, void* H, void* Wn, void* partial,
     err = cudaMemsetAsync(mx, 0, sizeof(unsigned int), s);
     if (err != cudaSuccess) return (int)err;
     err = launch_wt_a<T>(a, wt, (float*)H, (float*)partial, m, w, slabs,
-                         rows_per_slab, 1, s);
+                         rows_per_slab, s);
     if (err != cudaSuccess) return (int)err;
-    err = launch_h_at<T>(a, (const float*)H, (float*)Wn, mx, m, w, 1, s);
+    err = launch_h_at<T>(a, (const float*)H, (float*)Wn, mx, m, w, s);
     if (err != cudaSuccess) return (int)err;
     scale_kernel<<<blocks(2LL * m, kFlat), kFlat, 0, s>>>(
         (const float*)Wn, wt, mx, 2 * m);
@@ -300,20 +253,17 @@ int loop(const void* A, void* Wt, void* H, void* Wn, void* partial,
 
 extern "C" {
 
-// Each returns a cudaError_t: 0 when every launch was accepted.  The
-// products take `batch` members of one shape, each member's operands
-// contiguous after the previous one's.
+// Each returns a cudaError_t: 0 when every launch was accepted.
 #define SMALLK_RANK2_PRODUCTS(SUFFIX, T)                                      \
   int smallk_wt_a_##SUFFIX(const void* A, const void* Wt, void* out,          \
                            void* partial, int m, int w, int slabs,            \
-                           int rows_per_slab, int batch, void* stream,        \
-                           int device) {                                      \
-    return wt_a<T>(A, Wt, out, partial, m, w, slabs, rows_per_slab, batch,    \
-                   stream, device);                                           \
+                           int rows_per_slab, void* stream, int device) {     \
+    return wt_a<T>(A, Wt, out, partial, m, w, slabs, rows_per_slab, stream,   \
+                   device);                                                   \
   }                                                                           \
   int smallk_h_at_##SUFFIX(const void* A, const void* H, void* out, int m,    \
-                           int w, int batch, void* stream, int device) {      \
-    return h_at<T>(A, H, out, m, w, batch, stream, device);                   \
+                           int w, void* stream, int device) {                 \
+    return h_at<T>(A, H, out, m, w, stream, device);                          \
   }
 
 SMALLK_RANK2_PRODUCTS(f32, float)

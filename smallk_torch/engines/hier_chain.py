@@ -4,51 +4,50 @@ smallk_tpu/engines/hier_chain.py (its dense gather path).
 Reference: the sequential tree loop in clust_hier_generic.hpp:77-238 (pop
 the max-priority leaf, split it, factor both children, repeat), which
 engines/hierclust.py runs one node at a time: it builds each node's
-operand from a numpy subset, reads each node's split mask and priority
-back, and captures one CUDA graph a solve.  The chain keeps the tree's
-device state on the card and runs up to CHAIN_SEG splits a segment:
+operand from a numpy subset and reads each node's split mask and priority
+back.  The chain keeps the tree's device state on the card and runs up to
+CHAIN_SEG splits a segment:
 
   - pop, partition and commit on the device: the leaves' labels (a full
     width boolean row a node), assignments, pop priorities and the W slab
     (one (m, 2) row a node) stay on the card; a step pops the
     max-priority leaf (argmax, first max, as Tree.min_max_leaf_priorities),
-    partitions its documents by its stored labels and gathers both
-    children's columns into the buffers of their bucket width;
-  - the two children are solved as one batched pair
-    (solvers/solve.nmf_solve_pair: one K3 launch a product for both, each
-    child with its own stop test and iteration count, the survivor alone
-    once its sibling stops), or from SEQ_PAIR_MIN_ELEMS elements on one
-    after another; the steps are captured as CUDA graphs once a bucket
-    width and replayed by every later split of that width;
-  - the host reads once a split besides the pair's solve loop: the
-    children's priorities and gate flags together with the next pop's
-    leaf and subset sizes (the commit is written before the read; a split
-    that bails is rolled back by rebuilding the device state);
+    partitions its documents by its stored labels and gathers each child's
+    columns into the buffer of its bucket width (the runner's
+    `dense_operand`, whose step graphs the sequential engine shares);
+  - the two children are solved one after another, each at its own bucket
+    width, as the sequential engine solves them;
+  - the host reads once a split besides the children's solve loops: their
+    priorities and gate flags together with the next pop's leaf and subset
+    sizes (the commit is written before the read; a split that bails is
+    rolled back by rebuilding the device state);
   - at the end of a segment the host replays the committed splits through
     the ordinary Tree methods, asserting the pop order, and reads the
     committed children's labels in one copy.
 
-Bit-parity with the sequential engine is by construction: the sequential
-engine solves both children of a split at the wider child's bucket width
-(hierclust.bucket_width), its subsets padded with zero columns as the
-chain's buffers are; a pair member runs every op of a single solve but the
-products, and a batched K3 launch gives each member the bits of a launch
-of its own; initializer seeds come from the same host stream (left child,
-then right child), each child's W0 and H0 drawn from its own generator at
-full width and gathered, and a bail restores the stream to the split's
-start.
+Bit-parity with the sequential engine is by construction: both solve a
+child on the same operand (its bucket width's buffer, padded with zero
+columns) with the same kept graphs; initializer seeds come from the same
+host stream (left child, then right child), each child's W0 and H0 drawn
+from its own generator at full width and gathered, and a bail restores the
+stream to the split's start.
 
 Anything off the common path bails to the sequential engine for one split,
 then the chain resumes: TrialSplit's unbalanced gate (checked on the
 device with the reference's conservative margin, so a borderline split
 bails and the host's gate decides), children with <= 3 documents, a
 solver failure (the retry ladder), subsets wider than the ladder, and a
-pop-order mismatch.  With `restarts` > 1 the pair runs R times, the
-children's R draws in the sequential order, and each child keeps its best.
+pop-order mismatch.  With `restarts` > 1 each child runs its R draws, as
+the sequential engine does, and keeps its best.
 
 The chain runs only on the common fast path: a dense operand, random or
 spectral init, RANK2, no initdir, and no test interrupt.  Checkpoints are
 written at segment granularity (clust_hier saves after every segment).
+
+On an H100 at the Reuters shape the chain is no faster than the
+sequential engine once that one keeps a graph a bucket width too
+(hierclust.KEEP_GRAPHS): both spend their time in the solves' host reads
+every U steps (chip_smoke.py phase `chain`, PERF.md).
 """
 
 from __future__ import annotations
@@ -57,33 +56,14 @@ import numpy as np
 import torch
 
 from ..common.options import NmfAlgorithm
-from ..ops.aop import DenseAOp, PairAOp
-from ..solvers.rank2 import spectral_init_rank2
-from ..solvers.solve import nmf_solve_pair, reference_pg1
-from .hierclust import (
-    _objective,
-    _solve_from_draw,
-    bucket_widths,
-    gather_columns,
-)
+from ..ops.aop import DenseAOp
+from .hierclust import _solve_from_draw, bucket_widths, gather_columns
 from .priority import compute_priority_device
 
 # Module switches, as solvers/graph.CAPTURE (tests and chip_smoke.py time
 # the engine with and without them; not options of the user's)
 CHAIN = True          # run the multi-split chain where it is available
 CHAIN_SEG = 32        # splits a segment between host replays
-# From buckets of this many elements (m x width) on, the two children are
-# solved one after another, each replaying the width's single-solve graph,
-# and not as the batched pair (the reference's SEQ_PAIR_MIN_ELEMS,
-# hier_chain.py:88-98).  On an H100 (chip_smoke.py --chain, PERF.md §7)
-# one after another was as fast or faster at every width of the Reuters
-# shape and at m = 2000: a pair's batched products save ~0.1 ms a step at
-# 4096 columns, but it needs a graph of its own and one for the survivor
-# at each width, and at 12 clusters those captures cost more (131-261 ms
-# against 36-44 ms in all).  So every pair runs one after another; the
-# batched pair stays for runs with more splits a width to amortize them.
-SEQ_PAIR_MIN_ELEMS = 0
-
 # Telemetry of the most recent clust_hier run, and its bails by reason:
 # "gate" (the unbalanced gate), "small" (a child of <= 3 documents),
 # "failed" (a solver failure), "wide" (a subset past the ladder), "pop"
@@ -92,75 +72,10 @@ LAST_STATS = {"segments": 0, "committed": 0, "bails": 0, "resyncs": 0}
 LAST_BAILS: dict = {}
 
 
-class _Slot:
-    """A bucket width's operand buffers and the graphs captured on them:
-    for batched pairs the two children's operands in one (2, m, w) buffer
-    (`pair`), else one (m, w) operand the children take in turn
-    (`single`)."""
-
-    def __init__(self, A, width: int, batched: bool):
-        shape = (A.shape[0], width)
-        if batched:
-            self.pair = PairAOp(torch.empty((2, *shape), dtype=A.dtype,
-                                            device=A.device))
-            self.single = self.pair.members[0]
-        else:
-            self.pair = None
-            self.single = DenseAOp(torch.empty(shape, dtype=A.dtype,
-                                               device=A.device))
-        self.graphs: dict = {}
-
-    def close(self) -> None:
-        for g in self.graphs.values():
-            g.close()
-        self.graphs.clear()
-
-
-def _solve_pair(runner, op: PairAOp, draws, init: str, restarts: int,
-                graphs):
-    """Both children's factorizations, each member as hierclust's
-    _solve_from_draw solves one node: the draw(s), the spectral start per
-    child, best-of-R restarts.  Returns ((W, H, success, iters) x 2)."""
-    opts = runner.quiet_opts
-    if restarts == 1:
-        starts = [d() for d in draws]
-        pg0 = (None, None)
-        if init == "spectral":
-            pg0, spec = [], []
-            for member, (W0, H0) in zip(op.members, starts):
-                pg0.append(reference_pg1(member, W0, H0, opts))
-                W0s, H0s = spectral_init_rank2(member, H0)
-                good = bool(torch.all(torch.isfinite(W0s))
-                            & torch.all(torch.linalg.norm(W0s, dim=0) > 0))
-                spec.append((W0s, H0s) if good else (W0, H0))
-            starts = spec
-        res = nmf_solve_pair(op, [s[0] for s in starts],
-                             [s[1] for s in starts], opts, tuple(pg0),
-                             graphs)
-        return tuple((r.W, r.H, bool(r.success), int(r.iterations))
-                     for r in res)
-
-    runs = []
-    for _ in range(restarts):
-        starts = [d() for d in draws]
-        runs.append(nmf_solve_pair(op, [s[0] for s in starts],
-                                   [s[1] for s in starts], opts,
-                                   graphs=graphs))
-    out = []
-    for b, member in enumerate(op.members):
-        mine = [r[b] for r in runs]
-        scores = [float(_objective(member, r.W, r.H)) if r.success
-                  else np.inf for r in mine]
-        best = mine[int(np.argmin(scores))]  # ties -> lowest restart index
-        out.append((best.W, best.H, any(r.success for r in mine),
-                    int(best.iterations)))
-    return tuple(out)
-
-
 class ChainDriver:
-    """Host side of the chain: owns the device state and the pair slots,
-    runs segments, replays committed splits through the Tree, and rebuilds
-    the device state after sequential (bail) splits."""
+    """Host side of the chain: owns the device state, runs segments,
+    replays committed splits through the Tree, and rebuilds the device
+    state after sequential (bail) splits."""
 
     def __init__(self, runner, node_count: int, root_W=None, root_left=None):
         global LAST_STATS, LAST_BAILS
@@ -168,9 +83,7 @@ class ChainDriver:
         self.nc = node_count
         self.m, self.n = runner.m, runner.n
         self.device = runner.device
-        self.A = runner.a_op.A
         self.root_W, self.root_left = root_W, root_left
-        self.slots: dict = {}
         self._dirty = True
         self._head = None   # the next pop: (device tensors, host values)
         LAST_STATS = {"segments": 0, "committed": 0, "bails": 0,
@@ -187,12 +100,6 @@ class ChainDriver:
                 and opts.priority_method in ("ndcg", "size_ndcg")
                 and opts.nmf_opts.algorithm == NmfAlgorithm.RANK2
                 and interrupt_after is None)
-
-    def close(self) -> None:
-        """Release every captured graph and buffer."""
-        for slot in self.slots.values():
-            slot.close()
-        self.slots.clear()
 
     def mark_dirty(self) -> None:
         """The host tree advanced outside the chain (a sequential split):
@@ -281,19 +188,19 @@ class ChainDriver:
             if i + s > 0 and maxpp < 0:
                 outcome = "done"
                 break
-            width = runner.width(max(s0, s1))
+            widths = (runner.width(s0), runner.width(s1))
             if (i + s == 0) != (p == self.nc):
                 reason = "pop"
             elif min(s0, s1) <= 3:
                 reason = "small"
-            elif width is None:
+            elif None in widths:
                 reason = "wide"
             else:
                 state = rng.get_state()
                 seeds = (int(runner.inits.next_seed()),
                          int(runner.inits.next_seed()))
                 rec, reason = self._split(i + s, p_t, p, (mask0, mask1),
-                                          (s0, s1), width, seeds, opts)
+                                          (s0, s1), widths, seeds, opts)
                 if rec is not None:
                     committed.append((state, rec))
                     continue
@@ -312,45 +219,30 @@ class ChainDriver:
         LAST_STATS["committed"] += i_next - i
         return i_next, outcome
 
-    def _slot(self, width: int, batched: bool) -> _Slot:
-        slot = self.slots.get((width, batched))
-        if slot is None:
-            slot = self.slots[width, batched] = _Slot(self.A, width,
-                                                      batched)
-        return slot
-
-    def _split(self, i, p_t, p, masks, sizes, width, seeds, opts):
-        """Split `i` of leaf p: gather, batched pair solve, gates, commit
+    def _split(self, i, p_t, p, masks, sizes, widths, seeds, opts):
+        """Split `i` of leaf p: gather and solve each child, gates, commit
         on the device, and the next pop.  Returns (the split's record for
         the replay, None), or (None, the reason) when it bails (the device
         state is then rebuilt from the host)."""
         runner, dev, n = self.runner, self.device, self.n
-        batched = self.m * width < SEQ_PAIR_MIN_ELEMS
-        slot = self._slot(width, batched)
-        idx, draws, solved = [], [], []
-        for b, (mask, seed) in enumerate(zip(masks, seeds)):
+        idx, solved = [], []
+        for mask, seed, width in zip(masks, seeds, widths):
             ix = torch.nonzero(mask).squeeze(1)
-            gather_columns(self.A, ix, width, out=(
-                slot.pair.buf[b] if batched else slot.single.A))
+            op, graphs = runner.dense_operand(ix, width)
             idx.append(ix)
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
 
-            def draw(gen=gen, ix=ix):
+            def draw(gen=gen, ix=ix, width=width):
                 W0 = torch.rand((self.m, 2), generator=gen,
                                 dtype=runner.dtype, device=dev)
                 H0 = torch.rand((2, n), generator=gen, dtype=runner.dtype,
                                 device=dev)
                 return W0, gather_columns(H0, ix, width)
 
-            draws.append(draw)
-            if not batched:
-                solved.append(_solve_from_draw(
-                    slot.single, draw, runner.quiet_opts, runner.init,
-                    runner.restarts, slot.graphs))
-        if batched:
-            solved = _solve_pair(runner, slot.pair, draws, runner.init,
-                                 runner.restarts, slot.graphs)
+            solved.append(_solve_from_draw(op, draw, runner.quiet_opts,
+                                           runner.init, runner.restarts,
+                                           graphs))
         if not all(r[2] for r in solved):
             return None, "failed"
 

@@ -7,13 +7,12 @@ clust_flat_generic.hpp (ClustFlat).
 
 Each node is factored on A's columns at its document subset; the full
 operand serves the root.  On a dense A the subset is one `index_select` on
-the device, padded with zero columns to the bucket ladder's next width
-(`bucket_width`: so that a run's solves share a few shapes, and the
-multi-split chain, engines/hier_chain.py, captures one graph a width), and
+the device into the buffer of the bucket ladder's next width, padded with
+zero columns (`bucket_width`), so that a run's solves share a few shapes
+and, with KEEP_GRAPHS, one captured step graph a width (solvers/graph.py);
 the rank-2 solve's two A-products of an f32 factor go to K3 (ops.aop), so
-a bf16 A is never upcast.  A node's two children solve at one width, that
-of the wider, as the chain's batched pair does.  A sparse A too large to densify is the root's bucketed-ELL
-operand (ops/ell.py) plus its CSC arrays on the device
+a bf16 A is never upcast.  A sparse A too large to densify is the root's
+bucketed-ELL operand (ops/ell.py) plus its CSC arrays on the device
 (ops/ell_cols.CscColumns), from which each node's operand is gathered on
 the device at any width (on an H100 the gathered operand's two products
 took 0.32-1.08 ms at every share of the documents from 1/8 to 7/8, the
@@ -79,6 +78,13 @@ masked_operands = 0
 BUCKET_MIN = 512
 BUCKET_POW2_MAX = 4096
 BUCKET_STEP = 2048
+
+# Module switch, as solvers/graph.CAPTURE (chip_smoke.py times the engine
+# with it off and on; not an option of the user's): dense subsets gather
+# into one buffer a bucket width and keep the solve's captured step graph
+# on it for the run, so that a later solve at that width replays it; off,
+# each solve captures a graph of its own and releases it
+KEEP_GRAPHS = True
 
 
 def bucket_widths(n: int) -> tuple:
@@ -240,6 +246,9 @@ class _Rank2Runner:
         # reference's fused node programs do not
         self.quiet_opts = dataclasses.replace(opts.nmf_opts, verbose=False)
         self.m, self.n = a_op.shape
+        # with KEEP_GRAPHS, width -> (the width's operand buffer, the step
+        # graphs kept on it): every dense subset of that bucket solves there
+        self.slots = {}
 
     def _wp(self, w_parent):
         """The parent topic vector as an (m,) tensor on the device."""
@@ -258,27 +267,53 @@ class _Rank2Runner:
             return None
         return bucket_width(size, self.n)
 
-    def _subset(self, subset, width=None):
-        """(operand, index tensor, masked) for a node: A's columns at
-        `subset`, padded with zero columns to `width` (None: its exact
-        width), or (masked: a sparse operand with no columns to gather
-        from) the full-width view with every other column masked out; the
-        full operand for the root (subset None)."""
+    def dense_operand(self, idx, width):
+        """(operand, kept graphs) of a dense subset at `idx`: A's columns
+        padded with zero columns to `width` (None: its exact width).  With
+        KEEP_GRAPHS a bucket's subset is gathered into the width's buffer
+        and comes with the graphs kept on it (the operand stays valid until
+        the next subset of that width); else it is a tensor of its own and
+        its solve keeps no graph."""
+        if width is None or not KEEP_GRAPHS:
+            w = width or idx.shape[0]
+            return DenseAOp(gather_columns(self.a_op.A, idx, w)), None
+        slot = self.slots.get(width)
+        if slot is None:
+            A = self.a_op.A
+            slot = self.slots[width] = (
+                DenseAOp(torch.empty((self.m, width), dtype=A.dtype,
+                                     device=A.device)), {})
+        gather_columns(self.a_op.A, idx, width, out=slot[0].A)
+        return slot
+
+    def close(self) -> None:
+        """Release every kept graph and operand buffer."""
+        for _, graphs in self.slots.values():
+            for g in graphs.values():
+                g.close()
+        self.slots.clear()
+
+    def _subset(self, subset):
+        """(operand, index tensor, masked, kept graphs) for a node: A's
+        columns at `subset` (a dense A: at the subset's bucket width,
+        `dense_operand`), or (masked: a sparse operand with no columns to
+        gather from) the full-width view with every other column masked
+        out; the full operand for the root (subset None)."""
         global gathered_operands, masked_operands
         if subset is None:
-            return self.a_op, None, False
+            return self.a_op, None, False, None
         idx = torch.as_tensor(np.asarray(subset), dtype=torch.long,
                               device=self.device)
         if isinstance(self.a_op, DenseAOp):
-            w = width or len(subset)
-            return DenseAOp(gather_columns(self.a_op.A, idx, w)), idx, False
+            op, graphs = self.dense_operand(idx, self.width(len(subset)))
+            return op, idx, False, graphs
         if self.cols is not None:
             gathered_operands += 1
-            return self.cols.gathered(idx), idx, False
+            return self.cols.gathered(idx), idx, False, None
         masked_operands += 1
         mask = torch.zeros(self.n, dtype=self.dtype, device=self.device)
         mask[idx] = 1.0
-        return MaskedAOp(self.a_op, mask), idx, True
+        return MaskedAOp(self.a_op, mask), idx, True, None
 
     def _record(self, success, iterations):
         if success:
@@ -288,9 +323,8 @@ class _Rank2Runner:
                 self.stats.max_count += 1
         return success
 
-    def solve(self, subset=None, w_parent=None, max_attempts=3, width=None):
-        """Factor A[:, subset] (full A when subset is None), a dense subset
-        at `width` (default: its own bucket, `self.width`).
+    def solve(self, subset=None, w_parent=None, max_attempts=3):
+        """Factor A[:, subset] (full A when subset is None).
 
         Returns a _NodeSolve.  Retries with fresh initializers up to
         `max_attempts` times on solver failure (singular system),
@@ -299,9 +333,7 @@ class _Rank2Runner:
         if self.inits.initdir:
             return self._solve_hostinit(subset, w_parent, max_attempts)
 
-        if subset is not None and width is None:
-            width = self.width(len(subset))
-        op, idx, masked = self._subset(subset, width)
+        op, idx, masked, graphs = self._subset(subset)
         wp = self._wp(w_parent)
         for attempt in range(max_attempts):
             gen = torch.Generator(device=self.device)
@@ -323,7 +355,7 @@ class _Rank2Runner:
             # basin failed and the reference's random restart is the escape
             init = self.init if attempt == 0 else "random"
             W, H, success, iters = _solve_from_draw(
-                op, draw, self.quiet_opts, init, self.restarts)
+                op, draw, self.quiet_opts, init, self.restarts, graphs)
             if self._record(success, iters):
                 if masked:
                     H = H.index_select(1, idx)
@@ -360,7 +392,7 @@ class _Rank2Runner:
                 row_support[np.unique(sub.tocoo().row)] = True
             else:
                 row_support = np.any(np.asarray(sub) != 0, axis=1)
-        op, _, masked = self._subset(subset)
+        op, _, masked, _ = self._subset(subset)
 
         for _ in range(max_attempts):
             W0, H0 = self.inits.next()
@@ -389,9 +421,8 @@ class _Rank2Runner:
         return _NodeSolve(None, None, None, -1.0, False)
 
 
-def _actual_split(runner: _Rank2Runner, subset, w_parent, width=None):
-    """One split attempt on a column subset, a dense one at `width`
-    (default: its own bucket).
+def _actual_split(runner: _Rank2Runner, subset, w_parent):
+    """One split attempt on a column subset.
 
     Reference: ActualSplit (clust_hier_generic.hpp:383-517).
     Returns (priority, W (m,2), left (|subset|,) bool).
@@ -400,7 +431,7 @@ def _actual_split(runner: _Rank2Runner, subset, w_parent, width=None):
     if len(subset) <= 3:
         return -1.0, np.zeros((m, 2)), np.zeros(len(subset), dtype=bool)
 
-    ns = runner.solve(subset, w_parent, width=width)
+    ns = runner.solve(subset, w_parent)
     if not ns.ok:
         if runner.opts.on_node_failure == "leaf":
             # production mode: an unsplittable node becomes a permanent
@@ -417,10 +448,8 @@ def _actual_split(runner: _Rank2Runner, subset, w_parent, width=None):
 
 
 def _trial_split(runner: _Rank2Runner, subset, min_priority, w_parent,
-                 opts: ClustOptions, width=None):
-    """Split with outlier detection and retries; the first attempt at
-    `width` (the pair's: both children of a split solve at the wider's
-    bucket, as the chain's batched pair), later ones at their own.
+                 opts: ClustOptions):
+    """Split with outlier detection and retries.
 
     Reference: TrialSplit (clust_hier_generic.hpp:245-376).  May shrink
     `subset` by dropping outlier items; on exhausting trial_allowance the
@@ -435,8 +464,7 @@ def _trial_split(runner: _Rank2Runner, subset, min_priority, w_parent,
     priority_one = -2.0
     W = left = None
     while trial < opts.trial_allowance:
-        priority_one, W, left = _actual_split(
-            runner, subset, w_parent, width if trial == 0 else None)
+        priority_one, W, left = _actual_split(runner, subset, w_parent)
         if priority_one < 0:
             break
 
@@ -638,15 +666,14 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
             tree.split(split_index, W_buffer[split_index],
                        labels=L_buffer[split_index])
 
-        docs0, docs1 = tree.left_child_docs(), tree.right_child_docs()
-        width = (runner.width(max(len(docs0), len(docs1)))
-                 if min(len(docs0), len(docs1)) > 3 else None)
         for idx, docs, tv in (
-            (tree.index0, docs0, tree.left_child_topic_vector()),
-            (tree.index1, docs1, tree.right_child_topic_vector()),
+            (tree.index0, tree.left_child_docs(),
+             tree.left_child_topic_vector()),
+            (tree.index1, tree.right_child_docs(),
+             tree.right_child_topic_vector()),
         ):
             priority, subset, W_c, left_c = _trial_split(
-                runner, docs, min_priority, tv, opts, width)
+                runner, docs, min_priority, tv, opts)
             tree.nodes[idx].docs = subset  # TrialSplit may drop outliers
             # pop order: raw NDCG (reference) or size-scaled NDCG (graph
             # workloads — a leaf holding half the corpus must not be
@@ -694,8 +721,7 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
                 break
             i += 1
     finally:
-        if chain is not None:
-            chain.close()
+        runner.close()
 
     tree.compute_top_terms(opts.maxterms)
     tree.compute_assignments()

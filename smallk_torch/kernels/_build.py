@@ -49,11 +49,11 @@ SIGNATURES = {
         "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "rank2_loop": {
-        # A, Wt, out, partial, m, w, slabs, rows, batch, stream, device
-        **{f"smallk_wt_a_{t}": ((_P,) * 4 + (_I,) * 5 + (_P, _I), _I)
+        # A, Wt, out, partial, m, w, slabs, rows, stream, device
+        **{f"smallk_wt_a_{t}": ((_P,) * 4 + (_I,) * 4 + (_P, _I), _I)
            for t in ("f32", "bf16", "f8")},
-        # A, H, out, m, w, batch, stream, device
-        **{f"smallk_h_at_{t}": ((_P,) * 3 + (_I,) * 3 + (_P, _I), _I)
+        # A, H, out, m, w, stream, device
+        **{f"smallk_h_at_{t}": ((_P,) * 3 + (_I,) * 2 + (_P, _I), _I)
            for t in ("f32", "bf16", "f8")},
         "smallk_rank2_loop_f32": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
         "smallk_rank2_loop_bf16": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),

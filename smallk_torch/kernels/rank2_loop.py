@@ -16,11 +16,6 @@ CUDA f32, bf16 or e4m3 A to them:
     h_at(A, H)  -> (2, m) f32       H (2, w) f32
     rank2_loop(A, Wt, iters) -> (2, m) f32, P3's whole function
 
-The two products also take a batch, A (B, m, w) with Wt (B, 2, m) or H
-(B, 2, w), in one launch whose member b is bit-equal to a launch on
-member b alone (csrc/rank2_loop.cu): hierclust's chain solves a node's
-two children as one batched pair (engines/hier_chain.py).
-
 On CUDA tensors each launches the hand-written Hopper kernel
 (csrc/rank2_loop.cu) or raises; on CPU tensors it takes its plain torch
 version (`wt_a_plain`, `h_at_plain`, `rank2_loop_plain`), and only there.
@@ -47,11 +42,9 @@ COLS = 256                # columns per wt_a block (csrc/rank2_loop.cu kCols)
 TARGET_BLOCKS = 4 * 132   # about four blocks per SM of an H100
 MIN_ROWS = 64             # fewest rows a slab is cut to
 
-# wrapper calls that launched the kernel since the last reset (a batched
-# launch counts once), and those of them with a batch; the only places
-# they grow are the launches below
+# wrapper calls that launched the kernel since the last reset; the only
+# places it grows are the launches below
 launches = 0
-batched_launches = 0
 
 # A's storage dtypes the products read (the loop: the first two)
 A_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
@@ -68,47 +61,40 @@ def slab_plan(m: int, w: int) -> tuple[int, int]:
 
 
 def wt_a(A, Wt):
-    """A (m, w), Wt (2, m) -> Wt . A (2, w) f32; or a batch: A (B, m, w),
-    Wt (B, 2, m) -> (B, 2, w)."""
-    global launches, batched_launches
-    batch, m, w = _check(A, Wt, "wt_a", (2, A.shape[-2]), A_DTYPES)
+    """A (m, w), Wt (2, m) -> Wt . A (2, w) f32."""
+    global launches
+    m, w = _check(A, Wt, "wt_a", (2, A.shape[0]), A_DTYPES)
     if Wt.device.type == "cpu":
         return wt_a_plain(A, Wt)
     dev = Wt.device
     slabs, rows = slab_plan(m, w)
-    lead = A.shape[:-2]
-    out = torch.empty((*lead, 2, w), dtype=torch.float32, device=dev)
-    partial = (torch.empty((batch, slabs, 2, w), dtype=torch.float32,
-                           device=dev) if slabs > 1 else out)
+    out = torch.empty((2, w), dtype=torch.float32, device=dev)
+    partial = (torch.empty((slabs, 2, w), dtype=torch.float32, device=dev)
+               if slabs > 1 else out)
     lib = _build.load_library("rank2_loop")
     fn = getattr(lib, f"smallk_wt_a_{_SUFFIX[A.dtype]}")
     _raise_on(lib, fn(A.data_ptr(), Wt.data_ptr(), out.data_ptr(),
-                      partial.data_ptr(), m, w, slabs, rows, batch,
+                      partial.data_ptr(), m, w, slabs, rows,
                       torch.cuda.current_stream(dev).cuda_stream, dev.index),
               "wt_a", m, w)
     launches += 1
-    batched_launches += A.ndim == 3
     return out
 
 
 def h_at(A, H):
-    """A (m, w), H (2, w) -> H . A^T (2, m) f32; or a batch: A (B, m, w),
-    H (B, 2, w) -> (B, 2, m)."""
-    global launches, batched_launches
-    batch, m, w = _check(A, H, "h_at", (2, A.shape[-1]), A_DTYPES)
+    """A (m, w), H (2, w) -> H . A^T (2, m) f32."""
+    global launches
+    m, w = _check(A, H, "h_at", (2, A.shape[1]), A_DTYPES)
     if H.device.type == "cpu":
         return h_at_plain(A, H)
     dev = H.device
-    out = torch.empty((*A.shape[:-2], 2, m), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((2, m), dtype=torch.float32, device=dev)
     lib = _build.load_library("rank2_loop")
     fn = getattr(lib, f"smallk_h_at_{_SUFFIX[A.dtype]}")
     _raise_on(lib, fn(A.data_ptr(), H.data_ptr(), out.data_ptr(), m, w,
-                      batch, torch.cuda.current_stream(dev).cuda_stream,
-                      dev.index),
+                      torch.cuda.current_stream(dev).cuda_stream, dev.index),
               "h_at", m, w)
     launches += 1
-    batched_launches += A.ndim == 3
     return out
 
 
@@ -116,9 +102,7 @@ def rank2_loop(A, Wt, iters: int = ITERS):
     """P3: `iters` iterations of Wt <- (Wt.A).A^T / (max|.| + 1) from Wt
     (2, m); returns the last Wt (2, m) f32."""
     global launches
-    _, m, w = _check(A, Wt, "rank2_loop", (2, A.shape[0]), A_DTYPES[:2])
-    if A.ndim != 2:
-        raise ValueError("rank2_loop: A must be (m, w)")
+    m, w = _check(A, Wt, "rank2_loop", (2, A.shape[0]), A_DTYPES[:2])
     if iters < 0:
         raise ValueError(f"rank2_loop: iters={iters} < 0")
     if Wt.device.type == "cpu":
@@ -144,20 +128,17 @@ def rank2_loop(A, Wt, iters: int = ITERS):
 
 
 def _check(A, F, name, want, a_dtypes):
-    """Shapes, devices, dtypes and layout the kernel takes; (batch, m, w),
-    batch 1 for an unbatched A (m, w)."""
-    lead = tuple(A.shape[:-2])
-    if A.ndim not in (2, 3) or tuple(F.shape) != lead + want:
+    """Shapes, devices, dtypes and layout the kernel takes; (m, w)."""
+    if A.ndim != 2 or tuple(F.shape) != want:
         raise ValueError(f"{name}: A {tuple(A.shape)} and factor "
-                         f"{tuple(F.shape)} (expected {lead + want})")
+                         f"{tuple(F.shape)} (expected {want})")
     if A.device != F.device:
         raise ValueError(f"{name}: operands on different devices")
-    m, w = A.shape[-2:]
-    batch = lead[0] if lead else 1
-    if m < 1 or w < 1 or batch < 1:
+    m, w = A.shape
+    if m < 1 or w < 1:
         raise ValueError(f"{name}: empty A {tuple(A.shape)}")
     if F.device.type == "cpu":
-        return batch, m, w
+        return m, w
     if F.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {F.device}")
     if A.dtype not in a_dtypes:
@@ -168,7 +149,7 @@ def _check(A, F, name, want, a_dtypes):
                          "float32)")
     if not (A.is_contiguous() and F.is_contiguous()):
         raise ValueError(f"{name}: A and the factor must be contiguous")
-    return batch, m, w
+    return m, w
 
 
 def _raise_on(lib, err, name, m, w):
@@ -180,16 +161,12 @@ def _raise_on(lib, err, name, m, w):
 
 def wt_a_plain(A, Wt):
     """Plain torch version of wt_a: A upcast to the factor's dtype, then
-    one product (a batch: one product a member, as the kernel)."""
-    if A.ndim == 3:
-        return torch.stack([wt_a_plain(a, f) for a, f in zip(A, Wt)])
+    one product."""
     return torch.matmul(Wt, A.to(Wt.dtype))
 
 
 def h_at_plain(A, H):
     """Plain torch version of h_at."""
-    if A.ndim == 3:
-        return torch.stack([h_at_plain(a, h) for a, h in zip(A, H)])
     return torch.matmul(H, A.to(H.dtype).T)
 
 

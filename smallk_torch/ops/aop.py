@@ -101,41 +101,6 @@ class DenseAOp:
         return torch.sum(self.A, dim=0)
 
 
-class PairAOp:
-    """Two dense operands of one shape in one (2, m, w) buffer: the two
-    children of a hierclust node, solved as one batched pair
-    (solvers/solve.nmf_solve_pair).  `members` are their DenseAOps;
-    `products` answers both members' A-products of one kind.  Where K3
-    takes the product (the dispatch rule above), it is one batched launch,
-    each member's bits those of a launch of its own; elsewhere one product
-    a member, as each member's own operand computes it."""
-
-    def __init__(self, buf: torch.Tensor):
-        if buf.ndim != 3 or buf.shape[0] != 2 or not buf.is_contiguous():
-            raise ValueError(f"PairAOp: a contiguous (2, m, w) buffer, not "
-                             f"{tuple(buf.shape)}")
-        self.buf = buf
-        self.members = (DenseAOp(buf[0]), DenseAOp(buf[1]))
-
-    def products(self, kind: str, xs):
-        """("nt", (H0, H1)) -> (A0 H0^T, A1 H1^T); ("tn", (W0, W1)) ->
-        (W0^T A0, W1^T A1)."""
-        global kernel_products
-        if _kernel_product_ok(self.buf, xs[0], 2):
-            if kind == "nt":
-                out = rank2_loop.h_at(
-                    self.buf, torch.stack([x.contiguous() for x in xs]))
-                res = (out[0].T, out[1].T)
-            else:
-                out = rank2_loop.wt_a(
-                    self.buf, torch.stack([x.T.contiguous() for x in xs]))
-                res = (out[0], out[1])
-            kernel_products += 2
-            return res
-        return tuple(op.mm_nt(x) if kind == "nt" else op.mm_tn(x)
-                     for op, x in zip(self.members, xs, strict=True))
-
-
 class SparseAOp:
     """Sparse operand in dual-sorted COO form.
 

@@ -17,9 +17,10 @@ runs that iteration (solve.nmf_solve); its launches have loaded the
 libraries, made the cuBLAS handles and set K2's shared-memory opt-in.  A
 solve captures its own graph and releases it, with its memory pool, when
 it returns (`close`), unless its caller keeps graphs for an operand of a
-fixed address and shape: hierclust's chain (engines/hier_chain.py) keeps
-one a bucket width, and a later solve or pair at that width copies its
-state into the graph's buffers (`load`) and replays it.
+fixed address and shape: dense hierclust keeps one a bucket width
+(engines/hierclust.py, its sequential loop and its chain alike), and a
+later solve at that width copies its state into the graph's buffers
+(`load`) and replays it.
 
 A capture or a replay that fails raises; nothing here runs the eager loop
 instead.  A step that reads the host (`.item()`, `bool()` of a card
@@ -69,8 +70,7 @@ def counters():
     from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop
     from ..ops import aop
 
-    return ((rank2_loop, "launches"), (rank2_loop, "batched_launches"),
-            (hals_step, "launches"),
+    return ((rank2_loop, "launches"), (hals_step, "launches"),
             (ell_spmm, "launches"), (ell_spmm, "transposed_launches"),
             (ell_spmm, "plain_cuda_calls"), (masked_gj, "launches"),
             (masked_gj, "columns"), (aop, "kernel_products"),
@@ -103,7 +103,7 @@ class StepGraph:
     def __init__(self, step, carry):
         global captures, capture_seconds
         self.carry = carry
-        dev = _first_tensor(carry).device
+        dev = carry.W.device
         names = counters()
         before = [getattr(mod, name) for mod, name in names]
         t0 = time.perf_counter()
@@ -157,13 +157,6 @@ class StepGraph:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
-
-
-def _first_tensor(state) -> torch.Tensor:
-    """The first tensor of a (nested) tuple of tensors: a solve's carry, or
-    a batched pair's two."""
-    return state if isinstance(state, torch.Tensor) else _first_tensor(
-        state[0])
 
 
 def _copy_into(dst, src) -> None:

@@ -108,12 +108,7 @@ def _optimal_active_set_w(W, HHt, AHt):
     return torch.stack([w0, w1], dim=1)
 
 
-def step_products(W, H, state: Rank2State):
-    """One step as a generator of its two A-products: it yields ("nt", H)
-    and then ("tn", W), is sent A H^T and W^T A in turn, and returns
-    (W, H, gradW, gradH, state, ok).  `step` sends one operand's products;
-    hierclust's chain sends a batched pair's (solve.nmf_solve_pair), so the
-    two share every op of the step but the products."""
+def step(a_op, W, H, state: Rank2State):
     WtW, WtA = state
 
     # solve W'W H = W'A, then optimal active-set fix-up
@@ -121,7 +116,7 @@ def step_products(W, H, state: Rank2State):
     H = _optimal_active_set_h(H, WtW, WtA)
 
     HHt = gram_t(H)
-    AHt = yield "nt", H
+    AHt = a_op.mm_nt(H)
 
     # solve W (HH') = AH'
     W, ok_w = _system_solve_w(HHt, AHt)
@@ -137,30 +132,13 @@ def step_products(W, H, state: Rank2State):
     gradW = gemm(W, HHt) - AHt
 
     WtW = gram(W)
-    WtA = yield "tn", W
+    WtA = a_op.mm_tn(W)
     gradH = gemm(WtW, H) - WtA
 
     ok = ok_h & ok_w & norms_ok
     # isfinite, not just not-NaN: f32 overflow yields Inf without NaN
     ok = ok & torch.all(torch.isfinite(gradW)) & torch.all(torch.isfinite(gradH))
     return W, H, gradW, gradH, Rank2State(WtW=WtW, WtA=WtA), ok
-
-
-def run_products(gen, product):
-    """Drive a `step_products` generator: `product(kind, x)` answers each
-    request; returns the generator's value."""
-    try:
-        request = next(gen)
-        while True:
-            request = gen.send(product(*request))
-    except StopIteration as stop:
-        return stop.value
-
-
-def step(a_op, W, H, state: Rank2State):
-    return run_products(
-        step_products(W, H, state),
-        lambda kind, x: a_op.mm_nt(x) if kind == "nt" else a_op.mm_tn(x))
 
 
 # Subspace-iteration count for the spectral initializer

@@ -86,8 +86,6 @@ steps_run = 0     # solver steps run, frozen ones included
 host_reads = 0    # reads of (done, failed, it, metric) by the host
 frozen_steps = 0  # steps run after the solve was done, failed or at max_iter
 solves = 0        # nmf_solve calls
-pair_solves = 0   # nmf_solve_pair calls (two solves each)
-pair_steps = 0    # pair steps run (a step of both members, frozen ones too)
 
 
 class SolveResult(NamedTuple):
@@ -173,39 +171,27 @@ class _Loop:
     """One frozen step of the solve (`step`) and the host's read."""
 
     def __init__(self, solver, a_op, opts: NmfOptions, have_pg0: bool,
-                 unroll: int, device, freeze: bool = False):
+                 unroll: int, device):
         self.solver, self.a_op, self.opts = solver, a_op, opts
         self.method = opts.prog_est_algorithm
         self.have_pg0 = have_pg0
         self.interval = max(1, opts.check_interval)
         self.unroll = unroll
-        # at U = 1 the host reads after every step and runs the next only
-        # while the solve goes on: no step is frozen, and none is selected;
-        # a member of a pair is frozen at every U (its sibling runs on)
-        self.freeze = freeze or unroll > 1
         # the metric of the step at iteration i in slot i % U (verbose)
         self.metrics = (torch.zeros(unroll, dtype=torch.float64,
                                     device=device)
                         if opts.verbose else None)
 
-    def frozen(self, c: Carry):
-        """Whether the step from `c` is frozen (None: no select)."""
-        if not self.freeze:
-            return None
-        return c.done | c.failed | (c.it >= self.opts.max_iter)
-
     def step(self, c: Carry, out: Carry | None = None) -> Carry:
         """The reference's one_step; with `out` (the graph's static carry,
         which `c` may be) the new state is written there."""
-        frozen = self.frozen(c)
-        return self.advance(c, frozen, self.solver.step(self.a_op, c.W, c.H,
-                                                        c.sstate), out)
-
-    def advance(self, c: Carry, frozen, stepped, out: Carry | None = None):
-        """The rest of one_step after the solver's step `stepped` (W, H,
-        gradW, gradH, solver state, ok): progress, stop test, freeze."""
         o = self.opts
-        W, H, gW, gH, sstate, ok = stepped
+        # at U = 1 the host reads after every step and runs the next only
+        # while the solve goes on: no step is frozen, and none is selected
+        frozen = (c.done | c.failed | (c.it >= o.max_iter)
+                  if self.unroll > 1 else None)
+        W, H, gW, gH, sstate, ok = self.solver.step(self.a_op, c.W, c.H,
+                                                    c.sstate)
         failed = c.failed | ~ok
 
         at_check = (c.it >= o.min_iter) & (
@@ -317,7 +303,7 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
     `pg0_hint`: an externally supplied PG_RATIO denominator (see
     `reference_pg1`), used in place of the first iteration's PG.
     `graphs`: a dict of captured steps kept by the caller between solves
-    on one operand (`_step_runner`; hierclust's chain, one a width).
+    on one operand (`_step_runner`; hierclust, one a bucket width).
     """
     global steps_run, frozen_steps, solves
     solver = get_solver(opts.algorithm)
@@ -391,179 +377,3 @@ def reference_pg1(a_op, W0, H0, opts: NmfOptions):
     st = solver.init(a_op, W0, H0)
     W, H, gW, gH, st, ok = solver.step(a_op, W0, H0, st)
     return projected_gradient_norm(gW, gH, W, H)
-
-
-def _run_pair(gens, product):
-    """Drive two `step_products` generators in lockstep: each request of
-    one kind from both is answered by one `product(kind, (x0, x1))`."""
-    requests = [next(g) for g in gens]
-    while True:
-        kind = requests[0][0]
-        if any(r[0] != kind for r in requests):
-            raise RuntimeError(f"pair step out of step: {requests}")
-        ys = product(kind, tuple(r[1] for r in requests))
-        values, nxt = [], []
-        for g, y in zip(gens, ys, strict=True):
-            try:
-                nxt.append(g.send(y))
-            except StopIteration as stop:
-                values.append(stop.value)
-        if values:
-            if nxt:
-                raise RuntimeError("pair step out of step: one member ended")
-            return values
-        requests = nxt
-
-
-def _clone(state):
-    """A copy of a (nested) tuple of tensors."""
-    if isinstance(state, torch.Tensor):
-        return state.clone()
-    return type(state)._make(_clone(t) for t in state) if hasattr(
-        state, "_make") else tuple(_clone(t) for t in state)
-
-
-def pair_step(loops, product, cs, out=None):
-    """One step of both members of a pair: each member's `_Loop` step (its
-    own freeze, progress and stop test), their A-products sent as one
-    batched `product`; with `out` (the graph's static carries) the new
-    states are written there."""
-    frozen = [loop.frozen(c) for loop, c in zip(loops, cs)]
-    gens = [loop.solver.step_products(c.W, c.H, c.sstate)
-            for loop, c in zip(loops, cs)]
-    stepped = _run_pair(gens, product)
-    outs = out if out is not None else (None, None)
-    return tuple(loop.advance(c, f, r, o) for loop, c, f, r, o
-                 in zip(loops, cs, frozen, stepped, outs, strict=True))
-
-
-def nmf_solve_pair(pair_op, W0s, H0s, opts: NmfOptions,
-                   pg0_hints=(None, None), graphs=None):
-    """Two RANK2 solves of one shape as one batched pair: hierclust's
-    chain solves a node's two children so (engines/hier_chain.py).
-
-    `pair_op` holds the two members' operands (`.members`) and answers
-    both members' A-products of one kind in one call (`.products`: on the
-    card one batched K3 launch, whose member b is bit-equal to a launch of
-    its own).  Each member keeps its own state, progress, stop test and
-    iteration count.  The pair steps both members until one of them is
-    done, failed or at max_iter (its steps frozen meanwhile); then the
-    other one goes on alone, a single solve's step on its own operand.  So
-    member b's result is bit-equal to `nmf_solve(pair_op.members[b],
-    W0s[b], H0s[b], opts, pg0_hints[b])`, and the pair costs
-    max(i0, i1) member steps and not 2 x max(i0, i1).  The host reads the
-    running members' (done, failed, it, metric) after iteration 0 and
-    every U steps.
-
-    On the card at U > 1 the pair's step, and the survivor's, are captured
-    as CUDA graphs.  `graphs`, a dict the caller keeps for operands at one
-    address and shape, holds them between pairs: a later pair copies its
-    state into a graph's buffers and replays it, so a run captures once a
-    width (the caller closes the graphs).  Returns two SolveResults.
-    """
-    global pair_solves, pair_steps, host_reads, steps_run, frozen_steps
-    if opts.algorithm != NmfAlgorithm.RANK2:
-        raise ValueError(f"nmf_solve_pair: RANK2 only, not {opts.algorithm}")
-    if opts.verbose:
-        raise ValueError("nmf_solve_pair prints no progress: verbose=False")
-    solver = rank2
-    method = opts.prog_est_algorithm
-    dev, dt = W0s[0].device, W0s[0].dtype
-    npdt = np.float64 if dt == torch.float64 else np.float32
-    unroll = opts.loop_unroll if opts.loop_unroll > 0 \
-        else auto_unroll(opts, W0s[0], H0s[0])
-    applies = graph.applies(opts.algorithm, W0s[0], unroll)
-
-    loops, cs = [], []
-    for op, W0, H0, pg0 in zip(pair_op.members, W0s, H0s, pg0_hints,
-                               strict=True):
-        pstate = prog_init(method, W0)
-        have_pg0 = pg0 is not None and method == NmfProgressAlgorithm.PG_RATIO
-        if have_pg0:
-            pstate = torch.as_tensor(pg0, dtype=dt, device=dev)
-        cs.append(initial_carry(solver, op, W0, H0, pstate))
-        loops.append(_Loop(solver, op, opts, have_pg0, unroll, dev,
-                           freeze=True))
-    cs = list(cs)
-
-    def step(c, out=None):
-        return pair_step(loops, pair_op.products, c, out)
-
-    def read(members):
-        vals = torch.cat([t.reshape(1).double() for b in members
-                          for t in (cs[b].done, cs[b].failed, cs[b].it,
-                                    cs[b].metric)]).tolist()
-        for i, b in enumerate(members):
-            v = vals[4 * i:4 * i + 4]
-            state[b] = (bool(v[0]), bool(v[1]), int(v[2]), npdt(v[3]))
-
-    def running():
-        return [b for b, (d, f, it, _) in enumerate(state)
-                if not (d or f) and it < opts.max_iter]
-
-    state = [(False, False, 0, npdt(1.0))] * 2
-    steps = solo_steps = solo_start = 0
-    runners, cached, solo = [], False, None
-    try:
-        if opts.max_iter > 0:
-            cs = list(step(tuple(cs)))
-            steps = 1
-            if opts.max_iter > 1:
-                runner, cached = _step_runner(
-                    step, tuple(cs), ("pair", unroll,
-                                      tuple(lp.have_pg0 for lp in loops)),
-                    graphs, applies)
-                runners.append((runner, cached))
-            read((0, 1))
-            host_reads += 1
-        while running():
-            live = running()
-            if len(live) == 1 and solo is None:
-                # the sibling stopped: the survivor goes on alone, in a
-                # graph of its own (captured on a copy: the pair graph's
-                # buffers stay the pair graph's)
-                solo = live[0]
-                solo_start = state[solo][2]
-                key = ("solo", solo, unroll, loops[solo].have_pg0)
-                capture = applies and (graphs is None or key not in graphs)
-                runner, c = _step_runner(
-                    loops[solo].step,
-                    _clone(cs[solo]) if capture else cs[solo], key, graphs,
-                    applies)
-                runners.append((runner, c))
-                cached = cached or c
-            runner = runners[-1][0]
-            n = min(unroll, opts.max_iter - min(state[b][2] for b in live))
-            if solo is None:
-                steps += runner.run(n)
-                cs = list(runner.carry)
-                read((0, 1))
-            else:
-                solo_steps += runner.run(n)
-                cs[solo] = runner.carry
-                read((solo,))
-            host_reads += 1
-    finally:
-        for runner, kept in runners:
-            if not kept:
-                runner.close()
-        pair_steps += steps
-        pair_solves += 1
-        steps_run += solo_steps
-        if solo is not None:
-            frozen_steps += solo_steps - (state[solo][2] - solo_start)
-
-    out = []
-    for c, (done, failed, it, metric) in zip(cs, state):
-        W, H = c.W, c.H
-        if opts.normalize and not failed:
-            W, H, _ = normalize_and_scale(W, H)
-        elif cached:
-            # the graph's buffers: the next pair overwrites them
-            W, H = W.clone(), H.clone()
-        out.append(SolveResult(
-            W=W, H=H, iterations=it, converged=done,
-            success=not failed and (done or it >= opts.max_iter),
-            metric=metric,
-            prog_state=c.pstate.clone() if cached else c.pstate))
-    return tuple(out)

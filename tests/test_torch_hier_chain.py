@@ -12,9 +12,11 @@ the same corpus.
 
 Each of the chain's bails is driven by a test: the unbalanced gate, a
 child of <= 3 documents, a solver failure, a subset past the ladder and a
-pop order the host tree does not share.  The batched pair itself is held
-to two single solves, bit-equal in f64.  Tests marked `cuda` hold the same
-on the card (skipped without one).
+pop order the host tree does not share.  Both engines solve a dense
+subset at its own bucket width, in the width's operand buffer with the
+step graphs kept on it (hierclust.KEEP_GRAPHS); the trees do not depend on
+that switch.  Tests marked `cuda` hold the same on the card (skipped
+without one).
 """
 
 import dataclasses
@@ -36,7 +38,6 @@ from smallk_torch.engines import hierclust as hc
 from smallk_torch.engines.corpus import synthetic_term_doc_corpus
 from smallk_torch.engines.hierclust import clust_hier
 from smallk_torch.engines.scoring import nmi
-from smallk_torch.ops.aop import PairAOp
 from smallk_torch.solvers import solve as tsolve
 
 torch.set_num_threads(1)
@@ -283,28 +284,89 @@ def test_chain_ineligible_paths_fall_back(monkeypatch, tmp_path):
     assert calls == []
 
 
-@pytest.mark.parametrize("batched", [False, True],
-                         ids=["one_after_another", "batched"])
-def test_root_runs_once_and_children_in_the_chain(monkeypatch, batched):
+@pytest.mark.parametrize("keep", [True, False],
+                         ids=["kept_graphs", "graph_a_solve"])
+def test_root_runs_once_and_children_in_the_chain(monkeypatch, keep):
     """On the clean path the host's node solve runs for the root only;
-    every child is solved in the chain, in batched pairs or one after
-    another (SEQ_PAIR_MIN_ELEMS)."""
+    every child is solved in the chain, one after another, each at its own
+    bucket width, in that width's kept buffer (KEEP_GRAPHS) or in a tensor
+    of its own."""
     A, _ = _corpus()
-    monkeypatch.setattr(hier_chain, "SEQ_PAIR_MIN_ELEMS",
-                        1 << 62 if batched else 0)
+    monkeypatch.setattr(hc, "KEEP_GRAPHS", keep)
     real, subsets = hc._Rank2Runner.solve, []
+    real_op, operands = hc._Rank2Runner.dense_operand, []
 
     def spy(self, subset=None, *a, **kw):
         subsets.append(subset)
         return real(self, subset, *a, **kw)
 
+    def spy_op(self, idx, width):
+        op, graphs = real_op(self, idx, width)
+        operands.append((idx.shape[0], width, op, graphs))
+        return op, graphs
+
     monkeypatch.setattr(hc._Rank2Runner, "solve", spy)
-    pairs = tsolve.pair_solves
+    monkeypatch.setattr(hc._Rank2Runner, "dense_operand", spy_op)
     tree, stats = clust_hier(A, _opts(8), Random(21), device="cpu")
     assert subsets == [None]
     assert int(np.sum(tree.is_leaf)) == 8
-    assert stats.nmf_count == 15  # root + 7 pairs
-    assert tsolve.pair_solves - pairs == (7 if batched else 0)
+    assert stats.nmf_count == 15  # root + 7 pairs of children
+    assert len(operands) == 14
+    for size, width, op, graphs in operands:
+        assert width == hc.bucket_width(size, A.shape[1])
+        assert op.shape == (A.shape[0], width)
+        assert (graphs is not None) == keep
+    if keep:  # one buffer a width, shared by every subset of that width
+        for width in {w for _, w, _, _ in operands}:
+            assert len({id(op.A) for _, w, op, _ in operands
+                        if w == width}) == 1
+
+
+def test_dense_operand_pads_and_reuses_the_width_buffer(monkeypatch):
+    """dense_operand gathers the subset's columns, then zero columns to the
+    width; with KEEP_GRAPHS into one buffer and one graph dict a width,
+    without into a tensor of its own and no graphs; an exact width (None)
+    keeps nothing."""
+    A = np.arange(1.0, 1.0 + 12 * 40).reshape(12, 40)
+    runner = hc._Rank2Runner(hc.as_aop(A, "float64", device="cpu"),
+                             _opts(4), hc._InitializerSource(
+                                 12, 40, Random(1), None), hc.ClustStats(),
+                             torch.float64)
+    idx = torch.tensor([3, 7, 1])
+    for keep in (True, False):
+        monkeypatch.setattr(hc, "KEEP_GRAPHS", keep)
+        op, graphs = runner.dense_operand(idx, 8)
+        np.testing.assert_array_equal(op.A[:, :3].numpy(), A[:, [3, 7, 1]])
+        assert not op.A[:, 3:].any()
+        op2, graphs2 = runner.dense_operand(torch.tensor([0, 2]), 8)
+        assert (op2.A.data_ptr() == op.A.data_ptr()) == keep
+        if keep:
+            assert graphs is not None and graphs2 is graphs
+        else:
+            assert graphs is None and graphs2 is None
+        op3, graphs3 = runner.dense_operand(idx, None)
+        assert op3.shape == (12, 3) and graphs3 is None
+    runner.close()
+    assert runner.slots == {}
+
+
+def test_kept_graphs_solve_equals_a_solve_of_its_own():
+    """nmf_solve with a graph dict on the CPU captures nothing and gives
+    the bits of a solve without one."""
+    g = torch.Generator().manual_seed(3)
+    m, w = 80, 96
+    A = hc.DenseAOp(torch.rand((m, w), generator=g, dtype=torch.float64))
+    W0 = torch.rand((m, 2), generator=g, dtype=torch.float64)
+    H0 = torch.rand((2, w), generator=g, dtype=torch.float64)
+    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.RANK2, height=m,
+                      width=w, k=2, max_iter=800, verbose=False,
+                      dtype="float64")
+    graphs = {}
+    kept = tsolve.nmf_solve(A, W0, H0, opts, graphs=graphs)
+    own = tsolve.nmf_solve(A, W0, H0, opts)
+    assert graphs == {}
+    assert kept.iterations == own.iterations
+    assert torch.equal(kept.W, own.W) and torch.equal(kept.H, own.H)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -320,8 +382,8 @@ def test_bit_identical_graph_options(monkeypatch, dtype):
 
 @pytest.mark.parametrize("leaf", [False, True], ids=["raise", "leaf"])
 def test_on_node_failure_under_the_chain(monkeypatch, leaf):
-    """Every child's solve fails (in the chain's pair and in the host's
-    retry ladder): the chain bails, and the sequential engine raises or,
+    """Every child's solve fails (in the chain and in the host's retry
+    ladder): the chain bails, and the sequential engine raises or,
     with on_node_failure="leaf", keeps both root children as leaves."""
     A = _planted(m=96, n=1400, k=5, seed=4)
     opts = dataclasses.replace(_opts(5),
@@ -333,17 +395,12 @@ def test_on_node_failure_under_the_chain(monkeypatch, leaf):
             return real(self, subset, *a, **kw)
         return hc._NodeSolve(None, None, None, -1.0, False)
 
-    def failing_pair(*a, **kw):
-        res = tsolve.nmf_solve_pair(*a, **kw)
-        return tuple(r._replace(success=False) for r in res)
-
     def failing_single(*a, **kw):
         W, H, _, iters = hc._solve_from_draw(*a, **kw)
         return W, H, False, iters
 
     monkeypatch.setattr(hc._Rank2Runner, "solve", failing_solve)
-    # the chain's children fail too, batched or one after another
-    monkeypatch.setattr(hier_chain, "nmf_solve_pair", failing_pair)
+    # the chain's children fail too
     monkeypatch.setattr(hier_chain, "_solve_from_draw", failing_single)
     if not leaf:
         with pytest.raises(RuntimeError):
@@ -388,85 +445,50 @@ def test_chain_checkpoint_resume(monkeypatch, tmp_path):
     _assert_identical(ref_tree, ref_stats, tree, stats)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("spectral", [False, True], ids=["random",
-                                                         "spectral"])
-def test_pair_is_two_single_solves(dtype, spectral):
-    """The batched pair against nmf_solve on each member: bit-equal W, H
-    and iteration counts, the members at different iteration counts (the
-    finished one frozen while its sibling runs on)."""
-    from smallk_torch.solvers.rank2 import spectral_init_rank2
-
-    g = torch.Generator().manual_seed(3)
-    m, w = 80, 96
-    buf = torch.rand((2, m, w), generator=g, dtype=dtype)
-    buf[1, :, 70:] = 0  # a padded member
-    W0 = [torch.rand((m, 2), generator=g, dtype=dtype) for _ in range(2)]
-    H0 = [torch.rand((2, w), generator=g, dtype=dtype) for _ in range(2)]
-    H0[1][:, 70:] = 0
-    opts = NmfOptions(tol=1e-4, algorithm=NmfAlgorithm.RANK2, height=m,
-                      width=w, k=2, max_iter=800, verbose=False,
-                      dtype=str(dtype).split(".")[1])
-    op = PairAOp(buf)
-    pg0 = (None, None)
-    if spectral:
-        pg0 = tuple(tsolve.reference_pg1(mb, a, b, opts)
-                    for mb, a, b in zip(op.members, W0, H0))
-        W0, H0 = map(list, zip(*(spectral_init_rank2(mb, h)
-                                 for mb, h in zip(op.members, H0))))
-    pair = tsolve.nmf_solve_pair(op, W0, H0, opts, pg0)
-    its = []
-    for b in range(2):
-        one = tsolve.nmf_solve(op.members[b], W0[b], H0[b], opts, pg0[b])
-        assert pair[b].iterations == one.iterations
-        assert pair[b].success == one.success
-        assert torch.equal(pair[b].W, one.W)
-        assert torch.equal(pair[b].H, one.H)
-        its.append(one.iterations)
-    assert its[0] != its[1]
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("batched", [False, True],
-                         ids=["one_after_another", "batched"])
+@pytest.mark.parametrize("keep", [True, False],
+                         ids=["kept_graphs", "graph_a_solve"])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_cuda_chain_equals_sequential(monkeypatch, dtype, batched):
+def test_cuda_chain_equals_sequential(monkeypatch, dtype, keep):
     """On the card: the chain's tree is the sequential engine's (f64: the
-    products through cuBLAS a member; f32: K3, batched launches in a
-    pair), with one graph captured a width and kind used."""
+    products through cuBLAS; f32: K3), with KEEP_GRAPHS one graph captured
+    a bucket width in each run, without it one a solve."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from smallk_torch.solvers import graph
 
     A, _ = _corpus(np.float64 if dtype == "float64" else np.float32,
                    m=2000, n=3000, k=12, seed=7)
-    monkeypatch.setattr(hier_chain, "CHAIN", False)
-    ref = clust_hier(A, _opts(12, dtype=dtype), Random(21), device="cuda")
-    monkeypatch.setattr(hier_chain, "CHAIN", True)
-    monkeypatch.setattr(hier_chain, "SEQ_PAIR_MIN_ELEMS",
-                        1 << 62 if batched else 0)
-    real, pair_captures = graph.StepGraph.__init__, []
+    monkeypatch.setattr(hc, "KEEP_GRAPHS", keep)
+    real, widths = graph.StepGraph.__init__, []
 
     def spy(self, step, carry):
-        if type(carry) is tuple:  # a pair's two carries
-            pair_captures.append(carry[0].H.shape)
+        widths.append(carry.H.shape[1])
         real(self, step, carry)
 
     monkeypatch.setattr(graph.StepGraph, "__init__", spy)
-    out = clust_hier(A, _opts(12, dtype=dtype), Random(21), device="cuda")
-    _assert_identical(*ref, *out)
+    runs = []
+    for chain in (False, True):
+        monkeypatch.setattr(hier_chain, "CHAIN", chain)
+        widths.clear()
+        runs.append(clust_hier(A, _opts(12, dtype=dtype), Random(21),
+                               device="cuda"))
+        buckets = [w for w in widths if w in hc.bucket_widths(3000)]
+        assert buckets
+        if keep:
+            assert len(buckets) == len(set(buckets))
+        else:
+            assert len(buckets) > len(set(buckets))
+    _assert_identical(*runs[0], *runs[1])
     assert hier_chain.LAST_STATS["committed"] >= 8
-    # one capture a width used
-    assert len(pair_captures) == len(set(pair_captures))
-    assert (len(pair_captures) >= 1) == batched
 
 
 @pytest.mark.parametrize("variant", ["random", "spectral", "restarts",
                                      "size_ndcg_f32"])
-def test_children_batched_bit_identical(monkeypatch, variant):
-    """With SEQ_PAIR_MIN_ELEMS above every bucket the chain solves the two
-    children as one batched pair (the survivor alone once its sibling
-    stops): still the sequential tree."""
+def test_kept_graphs_switch_keeps_the_tree(monkeypatch, variant):
+    """The chain with KEEP_GRAPHS off (each subset in a tensor of its own)
+    against the sequential engine with it on (the widths' buffers): still
+    one tree."""
     dtype = "float32" if variant.endswith("f32") else "float64"
     A, _ = _corpus(np.float32 if dtype == "float32" else np.float64)
     opts = _opts(10, dtype=dtype)
@@ -476,8 +498,9 @@ def test_children_batched_bit_identical(monkeypatch, variant):
         opts = dataclasses.replace(opts, restarts=3)
     elif variant.startswith("size_ndcg"):
         opts = dataclasses.replace(opts, priority_method="size_ndcg")
-    monkeypatch.setattr(hier_chain, "SEQ_PAIR_MIN_ELEMS", 1 << 62)
-    pairs = tsolve.pair_solves
-    _assert_identical(*_seq_vs_chain(A, opts, 21, 32, monkeypatch))
+    monkeypatch.setattr(hier_chain, "CHAIN", False)
+    ref = clust_hier(A, opts, Random(21), device="cpu")
+    monkeypatch.setattr(hc, "KEEP_GRAPHS", False)
+    monkeypatch.setattr(hier_chain, "CHAIN", True)
+    _assert_identical(*ref, *clust_hier(A, opts, Random(21), device="cpu"))
     assert hier_chain.LAST_STATS["committed"] == 9
-    assert tsolve.pair_solves - pairs >= 9

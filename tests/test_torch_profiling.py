@@ -133,7 +133,8 @@ def test_two_device_traces_in_one_process_hold_their_kernels(tmp_path):
 def test_lost_kernels_warn(tmp_path):
     """The check behind the warning, on traces written by hand: fewer
     kernel records than launch calls warns, as does a graph launch with
-    none; a full trace does not."""
+    none, and fewer than the port's launch counters moved, even where the
+    trace lost its launch calls too; a full trace does not."""
     from smallk_torch.common.profiling import _warn_on_lost_kernels
 
     def trace(*names):
@@ -148,9 +149,17 @@ def test_lost_kernels_warn(tmp_path):
                                     "k"))
     with pytest.warns(RuntimeWarning, match="incomplete"):
         _warn_on_lost_kernels(trace("cudaGraphLaunch"))
+    with pytest.warns(RuntimeWarning, match="incomplete"):
+        _warn_on_lost_kernels(trace(), launched=3)
+    with pytest.warns(RuntimeWarning, match="incomplete"):
+        _warn_on_lost_kernels(trace("cudaLaunchKernel", "k", "k"),
+                              launched=3)
     import warnings
 
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         _warn_on_lost_kernels(trace("cudaLaunchKernel", "k",
                                     "cudaGraphLaunch", "k", "k"))
+        _warn_on_lost_kernels(trace("cudaLaunchKernel", "k",
+                                    "cudaGraphLaunch", "k", "k", "k"),
+                              launched=4)

@@ -199,41 +199,3 @@ def test_cuda_kernel_matches_plain(m, w, bf16):
     assert k3.launches == before + 3
     for got, want, tol in pairs:
         assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol
-
-
-def test_plain_batch_is_each_member_alone():
-    """A batch of two members (hierclust's chain pair) against one call
-    a member: bit-equal in f64 and f32."""
-    for dt in (torch.float64, torch.float32):
-        g = torch.Generator().manual_seed(5)
-        A = torch.rand((2, 70, 33), generator=g, dtype=dt)
-        Wt = torch.rand((2, 2, 70), generator=g, dtype=dt)
-        H = torch.rand((2, 2, 33), generator=g, dtype=dt)
-        got = (k3.wt_a(A, Wt), k3.h_at(A, H))
-        assert got[0].shape == (2, 2, 33) and got[1].shape == (2, 2, 70)
-        for b in range(2):
-            assert torch.equal(got[0][b], k3.wt_a(A[b], Wt[b]))
-            assert torch.equal(got[1][b], k3.h_at(A[b], H[b]))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,w", [(257, 130), (12411, 512), (12411, 8192),
-                                 (100, 3)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
-def test_cuda_batched_pair_bit_equal_to_single_launches(m, w, dtype):
-    """The batched launch (a grid dimension over the pair) gives each
-    member the bits of a launch of its own, and one launch a product."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    g = torch.Generator().manual_seed(m + w)
-    A = torch.rand((2, m, w), generator=g).to(getattr(torch, dtype)).cuda()
-    Wt = torch.rand((2, 2, m), generator=g).cuda()
-    H = torch.rand((2, 2, w), generator=g).cuda()
-    before = k3.launches
-    pair = (k3.wt_a(A, Wt), k3.h_at(A, H))
-    assert k3.launches == before + 2
-    for b in range(2):
-        assert torch.equal(pair[0][b], k3.wt_a(A[b], Wt[b]))
-        assert torch.equal(pair[1][b], k3.h_at(A[b], H[b]))
-    rel = (pair[0] - k3.wt_a_plain(A, Wt)).abs().max() / pair[0].abs().max()
-    assert float(rel) <= 2e-5
