@@ -51,6 +51,11 @@ fails (nonzero exit, no result line) on any fault:
      launches bit-equal) and at the shapes of P1 (scripts/tpu_batch29.py)
      and P2 (scripts/tpu_batch33.py), the transposed output bit-equal to
      the row output transposed; kernel, plain and torch.sparse.mm times;
+ 12b. seg_spmm, the sorted segmented gather-SpMM of the static sparse
+     node operand, against its plain version evaluated in f64 (SEG_CASES:
+     every dtype pair, row and transposed output, chunk-keyed and
+     entry-keyed, one key holding most entries), two launches and an eager
+     against a captured launch bit-equal;
  13. sparse parity in f64: run_nmf BPP and MU on a blocked EllAOp and on
      a SparseAOp, the card against the CPU;
  14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
@@ -68,10 +73,13 @@ fails (nonzero exit, no result line) on any fault:
      matrix as a DenseAOp: equal trees in f64 initdir mode, the f32
      random-mode NMI within HIER_NMI_MARGIN of the dense run's;
  16. sparse hierclust at the flagship's size: the planted 50,000 x
-     1,000,000 corpus (bf16 A, f32 factors, 12 clusters) through the root's
-     EllAOp and the nodes' operands gathered on the card, a warm-up run
-     and the timed run with ell_spmm's launches counted; the root's and a 1/8 node's products timed against
-     their plain version, the torch-ops formulation and torch.sparse.mm;
+     1,000,000 corpus (bf16 A, f32 factors, 12 clusters) through its chunk
+     table, every node and the root on the static operand of its chunk
+     width (seg_spmm), a warm-up run and the timed run with seg_spmm's and
+     ell_spmm's launches gated exactly against each solve's steps; the
+     root's (EllAOp and static operand) and a 1/8 node's products timed
+     against their plain version, the torch-ops formulation,
+     torch.sparse.mm and index_add_;
  17. the user-facing entry points over the kernels (facade): the stateful
      facade's Nmf(8) (BPP) on the main path's operand, bit-equal to a
      direct run_nmf from the same draws, K1 = 2 x iterations + pivot
@@ -110,6 +118,11 @@ fails (nonzero exit, no result line) on any fault:
      reads a split, the busy shares (the loop's busy child runs the
      Reuters cell on each engine), NMI, and the trees, which must be one;
      then a dense f64 2000 x 3000 problem on which they must be one too;
+ 21b. the same on the sparse hierclust cell (phase `sparse chain`: the
+     50,000 x 1,000,000 corpus on the static operand, S, G and C in turns,
+     walls, graphs, replays, host reads, node-build ms, the root's steps,
+     busy shares, NMI at least SPARSE_CHAIN_NMI, one tree), then an f64
+     sparse 2000 x 6000 problem whose trees must be identical;
  22. e4m3 A-storage: K3's, K2's and ell_spmm's e4m3 loads against their
      plain versions, timed, and a path through each (Reuters hierclust,
      flatclust-shape HALS, BPP on a blocked EllAOp) with its launches
@@ -160,10 +173,17 @@ wrapper's host cost, and the flatclust HALS path under torch.profiler.
     python3 chip_smoke.py --cols
 
 runs only the sparse hierclust operand study: at k = 2 on the 50,000 x
-1,000,000 corpus, the root's EllAOp, the gathered operand (long slices cut
-and uncut), the torch-ops formulation and torch.sparse.mm at the root and
-at a 1/8 node, then the gathered operand against the masked view of the
-root at shares 1/8 to 7/8 of the documents.
+1,000,000 corpus, the root's EllAOp and its static operand (beside the
+torch-ops formulation, torch.sparse.mm and index_add_), the static operand
+against the masked view of the root at shares 1/8 to 7/8 of the documents,
+the chunk length sweep (product ms, padding, table bytes at L0 = 16 to
+128) and sparse hierclust's wall at L0 = 32, 64 and 128.
+
+    python3 chip_smoke.py --sparse-chain
+
+runs only phase 21b, with the busy shares of its runs from a profile of
+the sparse cell on each engine in a process of its own (`--loop-busy
+sparse`).
 
     python3 chip_smoke.py --cg
 
@@ -186,7 +206,7 @@ solvers/solve.AUTO_UNROLL and MU_ONE_STEP_ENTRIES are set from).
 
     python3 chip_smoke.py --slice
 
-runs only phases 21-23 (the chain phase's busy shares not measured).
+runs only phases 21-23 (the chain phases' busy shares not measured).
 
     python3 chip_smoke.py --ladder
 
@@ -265,6 +285,18 @@ HIER_PRIORITY_TOL = 1e-10
 # ell_spmm against its plain version: max |kernel - plain| / max |plain|.
 # f32 sums of up to 128 terms in other orders; f64 the same sums.
 ELL_TOL = {"float32": 2e-5, "float64": 1e-12}
+# seg_spmm against its plain version (evaluated in f64), each output entry
+# relative to its own sum of |val * table| (within_rows grows the f32 value
+# with the entry's segment):
+# (capacity, live entries, keys, k, table rows, key shift, heavy share)
+SEG_TOL = {"float32": 2e-5, "float64": 1e-12}
+SEG_CASES = [(40, 33, 7, 2, 9, 0, 0.0), (5000, 4999, 40, 3, 400, 0, 0.8),
+             (1 << 16, 60_000, 3000, 2, 50_000, 5, 0.0),
+             (1 << 20, 1_000_000, 50_000, 2, 1_000_000, 0, 0.6),
+             (20_000, 19_000, 800, 8, 5000, 2, 0.3),
+             (3000, 2000, 100, 1, 700, 0, 0.0)]
+SEG_PAIRS = (("float32", "float32"), ("bfloat16", "float32"),
+             ("float8_e4m3fn", "float32"), ("float64", "float64"))
 # (G, L, B, k, vals, table) of the probes the kernel replaces:
 # P1 scripts/tpu_batch29.py:38-45, P2 scripts/tpu_batch33.py:27-29, 56-58
 ELL_PROBES = {"P1": (8192, 128, 8192, 128, "float32", "bfloat16"),
@@ -316,9 +348,12 @@ CLI_M, CLI_N, CLI_NZ = 30000, 20000, 80   # f32 dense image 2.4 GB > 2 GiB
 # on its own), HIER_TOPICS planted topics, seed 11; a node of 1/SPH_NODE of
 # the documents is timed beside the root
 SPH_M, SPH_N, SPH_TOPICS, SPH_NODE = 50_000, 1_000_000, 16, 8
-# --cols: shares of the documents at which the gathered operand is set
-# against the masked view of the root
+# --cols: shares of the documents at which the static operand is set
+# against the masked view of the root, the chunk lengths swept at the root
+# and a node, and those at which sparse hierclust's wall is taken
 CUT_SHARES = (1 / 8, 1 / 4, 1 / 2, 3 / 4, 7 / 8)
+COLS_L0 = (16, 32, 64, 128)
+COLS_L0_WALL = (32, 64, 128)
 # sparse against dense: 50,000 x 40,000 (bf16 image 4 GB, sparse on its
 # own; dense it fits the card); the f64 initdir comparison at
 # SVD_INITDIR_K clusters reads at most SVD_INIT_FILES initializer pairs
@@ -364,6 +399,13 @@ CHAIN_ORDER = ("sequential", "sequential, kept graphs", "chain", "chain",
                "sequential, kept graphs", "sequential")
 HIER_NMI, CHAIN_NMI_MARGIN = 0.9322, 0.005
 CHAIN_F64 = (2000, 3000, 12, 7)
+# the sparse chain phase: the sparse hierclust cell (50,000 x 1,000,000,
+# host_A given) on each engine of CHAIN_MODES in the order CHAIN_ORDER, on
+# the static operand, whose NMI must reach SPARSE_CHAIN_NMI (0.9120
+# measured, PERF.md); the f64 sparse problem (m, n, clusters, corpus seed)
+# on which the engines must give one tree too
+SPARSE_CHAIN_NMI = 0.91
+SPARSE_F64 = (2000, 6000, 12, 7)
 # --ladder: these bucket ladders (BUCKET_MIN, BUCKET_POW2_MAX, BUCKET_STEP)
 LADDERS = ((512, 4096, 2048), (512, 1 << 20, 1), (1024, 4096, 1024),
            (256, 4096, 2048), (512, 2048, 1024))
@@ -459,10 +501,12 @@ def reset_counts() -> None:
     """Every kernel's launch count, the product branch counts and the solve
     loop's counts (steps run, host reads, frozen steps, solves, graphs
     captured and replayed) to 0, just before a path is driven."""
-    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
+                                      rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
     from smallk_torch.solvers import graph, solve
 
+    seg_spmm.launches = seg_spmm.plain_cuda_calls = 0
     masked_gj.launches = 0
     masked_gj.columns = 0
     hals_step.launches = 0
@@ -479,12 +523,13 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches of K1, K2, K3 and ell_spmm (and ell_spmm's transposed
-    ones), the columns K1 solved, ell_spmm's plain-version calls on CUDA
-    tensors, the dense products that went to K3 and to torch.matmul, and
+    """Launches of K1, K2, K3, ell_spmm (and ell_spmm's transposed
+    ones) and seg_spmm, the columns K1 solved, ell_spmm's and seg_spmm's
+    plain-version calls on CUDA tensors, the dense products that went to K3 and to torch.matmul, and
     the solve loop's counts, since the last reset_counts().  Launches
     replayed from a CUDA graph count once a replay (solvers/graph.py)."""
-    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
+                                      rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
     from smallk_torch.solvers import graph, solve
 
@@ -494,6 +539,8 @@ def read_counts() -> dict:
             "ell_spmm": ell_spmm.launches,
             "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
+            "seg_spmm": seg_spmm.launches,
+            "seg_plain_cuda": seg_spmm.plain_cuda_calls,
             "kernel_products": aop.kernel_products,
             "matmul_products": aop.matmul_products,
             "steps": solve.steps_run, "host_reads": solve.host_reads,
@@ -1732,6 +1779,124 @@ def phase_ell_spmm() -> dict:
             "probes": probes}
 
 
+def seg_inputs(cap, n_live, n_keys, k, B, shift, heavy, vt, tt, seed):
+    """seg_spmm's inputs on the card: sorted keys (one per 2^shift
+    entries) over n_keys, a share `heavy` of them on one key, gather
+    indices with ~10% sentinels, values in `vt` and a (B, k) table in
+    `tt`."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    nk = -(-cap // (1 << shift))
+    key = np.sort(rng.randint(0, n_keys, nk))
+    if heavy:
+        lo = int(nk * 0.3)
+        key[lo:lo + int(heavy * nk)] = key[lo]
+        key = np.sort(key)
+    gather = rng.randint(0, B, cap)
+    gather[rng.rand(cap) < 0.1] = B
+    dev = "cuda"
+    return (torch.from_numpy(key.astype(np.int32)).to(dev),
+            torch.from_numpy(gather.astype(np.int32)).to(dev),
+            torch.from_numpy(rng.rand(cap) + 0.1).to(dev).float().to(
+                getattr(torch, vt)),
+            torch.from_numpy(rng.rand(B, k)).to(dev).to(getattr(torch, tt)),
+            torch.tensor(n_live, dtype=torch.int64, device=dev))
+
+
+def within_rows(got, want, rowsum, rowlen, tol: float, grow: bool):
+    """Each output entry of a sum against the plain version evaluated in
+    f64 (`want`), on its own terms: |got - want| at most `tol` times that
+    entry's sum of |val * table| (`rowsum`), grown, for an f32 sum (`grow`),
+    as the square root of its segment's entries (`rowlen`) past 128, as the
+    rounding of a long sum of positive terms grows.  A key no entry has
+    must come out 0.  Returns (within, the largest error as a share of its
+    entry's rowsum)."""
+    err = (got.double() - want).abs()
+    grown = (rowlen.double() / 128).clamp(min=1.0).sqrt() if grow else 1.0
+    within = bool((err <= tol * grown * rowsum).all())
+    share = (float((err / rowsum.clamp(min=1e-300)).max()) if err.numel()
+             else 0.0)
+    return within, share
+
+
+def phase_seg_spmm() -> dict:
+    """seg_spmm against its plain version (evaluated in f64) on SEG_CASES
+    at every dtype pair, row and transposed output: within within_rows, two
+    launches bit-equal, and an eager launch bit-equal to a captured one
+    (a CUDA graph replayed)."""
+    import torch
+
+    from smallk_torch.kernels import seg_spmm as kmod
+
+    worst_abs = worst_rel = 0.0
+    for i, (cap, n_live, n_keys, k, B, shift, heavy) in enumerate(SEG_CASES):
+        for vt, tt in SEG_PAIRS:
+            key, gather, val, table, nl = seg_inputs(
+                cap, n_live, n_keys, k, B, shift, heavy, vt, tt, seed=i)
+            acc = kmod.sum_dtype(table.dtype)
+            for tr in (False, True):
+                shape = (k, n_keys) if tr else (n_keys, k)
+                args = (key, gather, val, table)
+                before = kmod.launches
+                got = kmod.seg_spmm(*args, torch.empty(shape, dtype=acc,
+                                                       device="cuda"),
+                                    nl, shift, tr)
+                again = kmod.seg_spmm(*args, torch.empty_like(got), nl, shift,
+                                      tr)
+                captured = torch.empty_like(got)
+                graph = torch.cuda.CUDAGraph()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side), torch.cuda.graph(graph):
+                    kmod.seg_spmm(*args, captured, nl, shift, tr)
+                torch.cuda.current_stream().wait_stream(side)
+                graph.replay()
+                torch.cuda.synchronize()
+                if kmod.launches != before + 3:
+                    raise AssertionError("seg_spmm did not launch its kernel")
+                # the plain version in f64, each entry's sum of
+                # |val * table| and its segment's entries, in out's layout
+                want, rowsum, rowlen = (
+                    kmod.seg_spmm_reference(
+                        key, gather, v, t, torch.empty(
+                            shape, dtype=torch.float64, device="cuda"),
+                        nl, shift, tr)
+                    for v, t in ((val.double(), table.double()),
+                                 (val.double().abs(), table.double().abs()),
+                                 (torch.ones(val.shape, dtype=torch.float64,
+                                             device="cuda"),
+                                  torch.ones(table.shape,
+                                             dtype=torch.float64,
+                                             device="cuda"))))
+                diff = float((got.double() - want).abs().max())
+                tol = SEG_TOL[str(acc)[6:]]
+                within, rel = within_rows(got, want, rowsum, rowlen, tol,
+                                          acc == torch.float32)
+                label = (f"cap={cap} live={n_live} keys={n_keys} k={k} B={B} "
+                         f"shift={shift} heavy={heavy} vals {vt} table {tt} "
+                         f"{'transposed' if tr else 'row'}")
+                if not (within and torch.equal(got, again)
+                        and torch.equal(got, captured)
+                        and bool(torch.isfinite(got).all())):
+                    raise AssertionError(
+                        f"seg_spmm {label}: worst entry {rel:.3e} of its "
+                        f"sum of |val * table| (tolerance {tol:g}, f32 "
+                        f"grown by its segment), two launches "
+                        f"{'equal' if torch.equal(got, again) else 'DIFFER'},"
+                        f" captured "
+                        f"{'equal' if torch.equal(got, captured) else 'DIFFERS'}")
+                worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel,
+                                                                 rel)
+        log(f"[seg_spmm] case {i}: cap={cap} live={n_live} keys={n_keys} k={k}"
+            f" B={B} shift={shift} heavy={heavy}, every pair {SEG_PAIRS} "
+            f"and layout: within tolerance, two launches and eager against "
+            f"captured bit-equal")
+    log(f"[seg_spmm] max|kernel - plain (f64)| {worst_abs:.3e}; the worst "
+        f"entry {worst_rel:.3e} of its sum of |val * table|")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+
+
 def phase_sparse_parity() -> None:
     """run_nmf BPP and MU in f64 on a blocked EllAOp, the card (through
     ell_spmm) against the CPU (its plain version), and on a SparseAOp
@@ -1821,9 +1986,10 @@ def flagship_problem():
 
 @contextlib.contextmanager
 def plain_ell():
-    """EllAOp's and GatheredColsAOp's products through ell_spmm's plain
-    version, bucket by bucket and block by block as the kernel runs them
-    (ell_spmm_reference on the card, counted as plain calls).  Each entry
+    """EllAOp's and ChunkColsAOp's products (and an archived tree's
+    GatheredColsAOp's) through
+    ell_spmm's and seg_spmm's plain versions, bucket by bucket and block by
+    block as the kernel runs them (on the card, counted as plain calls).  Each entry
     point an operand module imports is swapped for its plain version, so
     an archived tree's package (`--times`) is swapped too."""
     from smallk_torch.kernels import ell_spmm as kmod
@@ -1832,6 +1998,10 @@ def plain_ell():
     plain = {"ell_spmm": kmod.ell_spmm_reference,
              "ell_spmm_buckets": getattr(kmod, "ell_spmm_buckets_reference",
                                          None)}
+    if hasattr(ell_cols, "seg_spmm"):  # an archived tree may have none
+        from smallk_torch.kernels import seg_spmm as smod
+
+        plain["seg_spmm"] = smod.seg_spmm_reference
     saved = [(mod, name, getattr(mod, name)) for mod in (ell, ell_cols)
              for name in plain if hasattr(mod, name)]
     for mod, name, _ in saved:
@@ -2774,14 +2944,40 @@ def sparse_corpus(n: int):
     return A, labels, time.perf_counter() - t0
 
 
-def subset_entries(cols, idx) -> dict:
-    """A column subset's nonzeros on the card (CscColumns.entries) with
-    their values in f32 and their count: what the torch-ops products and
-    torch.sparse.mm read."""
-    e = cols.entries(idx)
-    e["vals"] = cols.data[e["pos"]].float()
-    e["nnz"] = int(e["pos"].numel())
-    return e
+def chunk_operand(chunks, idx):
+    """The static operand (ChunkColsAOp) of the documents `idx` (a tensor
+    on the card) at their chunk width, loaded, with its build's host ms
+    (one build timed, the buffers allocated before)."""
+    from smallk_torch.engines.hierclust import bucket_for
+    from smallk_torch.ops.ell_cols import ChunkColsAOp
+
+    sub = idx.cpu().numpy()
+    wc = bucket_for(max(len(sub), chunks.subset_chunk_count(sub)))
+    op = ChunkColsAOp(chunks, wc)
+    plan = chunks.gather_host(sub, wc)
+    ms = wall_ms(lambda: op.load(*plan[1:]), 1)
+    return op, ms
+
+
+def subset_entries(op, w: int) -> dict:
+    """A column subset's nonzeros on the card, from its loaded static
+    operand `op` (w documents): `terms`, `local` columns and `vals` in f32,
+    in column order; `order` their stable sort by term, `lens` the entries
+    a column and `row_lens` a term, `nnz` their count: what the torch-ops
+    products, torch.sparse.mm and index_add_ read."""
+    import torch
+
+    n = int(op.n_tn)
+    L0 = op.chunks.L0
+    rows = op.rows[:n].long()
+    live = rows < op.m
+    local = op.slot[:n // L0].long().repeat_interleave(L0)[live]
+    terms = rows[live]
+    return {"terms": terms, "local": local, "vals": op.vals[:n][live].float(),
+            "order": torch.argsort(terms, stable=True),
+            "lens": torch.bincount(local, minlength=w),
+            "row_lens": torch.bincount(terms, minlength=op.m),
+            "nnz": int(live.sum()), "w": w}
 
 
 def torch_ops_products(e):
@@ -2834,98 +3030,124 @@ def wall_ms(fn, iters: int = 3) -> float:
     return float(np.median(times))
 
 
-def long_sum_tol(op, side: str) -> float:
-    """Relative tolerance between two f32 sums of a product's longest
-    chain of terms taken in other orders: ELL_TOL's f32 value (sums of up
-    to 128 terms), grown as the square root of the chain's length past
-    128, as the rounding of a long sum of positive terms grows."""
-    from smallk_torch.ops.ell_cols import GatheredColsAOp
+def entry_sums(e, x, side: str, m: int):
+    """A subset's k = 2 product of side `side` ("tn": W'A with x = W;
+    "nt": AH' with x = H at the subset's width) evaluated in f64 from its
+    entries `e` (`subset_entries`), each output entry's sum of
+    |val * factor|, and its segment's entries (a column's for W'A, a
+    term's for AH'), in the product's layout."""
+    import torch
 
-    if isinstance(op, GatheredColsAOp):
-        buckets, split = op.cols if side == "tn" else op.rows
-        longest = [idx.shape[1] for _, idx, _ in buckets]
-        if split is not None:
-            longest += [split[0].shape[1], split[3].shape[1]]
-    else:
-        fam = ((op.col_buckets, op.col_blocks) if side == "tn"
-               else (op.row_buckets, op.row_blocks))
-        buckets = fam[0] or [b for _, bk in fam[1] for b in bk]
-        longest = [idx.shape[1] for _, idx, _ in buckets]
-    return ELL_TOL["float32"] * max(1.0, (max(longest, default=1) / 128)
-                                    ** 0.5)
+    tn = side == "tn"
+    keys, rows = (e["local"], e["terms"]) if tn else (e["terms"], e["local"])
+    table = (x if tn else x.T).double()
+    part = e["vals"].double()[:, None] * table[rows]
+    n_out = e["w"] if tn else m
+    want, rowsum = (torch.zeros((n_out, table.shape[1]), dtype=torch.float64,
+                                device=part.device).index_add_(0, keys, p)
+                    for p in (part, part.abs()))
+    rowlen = (e["lens"] if tn else e["row_lens"]).double()[:, None]
+    return (want.T, rowsum.T, rowlen.T) if tn else (want, rowsum, rowlen)
 
 
-def node_products(cols, idx, label: str, op=None, root_op=None) -> dict:
+def node_products(op, e, label: str, root_op=None, idx=None,
+                  build_ms=None) -> dict:
     """One node's k = 2 products (f32 factors on the bf16 corpus) through
-    `op`'s ell_spmm launches (by default the gathered operand, whose build
-    is timed), held to their plain version, the torch-ops formulation and
-    torch.sparse.mm, and timed (CUDA events over calls back to back; the
-    plain version once, between synchronizes), with the launches a product
-    makes and its bound; given the root's operand, also the masked view's
-    time at this subset."""
+    `op` (the root's EllAOp or a static operand; `e` the subset's entries,
+    `subset_entries`), held with the plain version, the torch-ops
+    formulation and torch.sparse.mm to the product evaluated in f64, entry
+    by entry (`within_rows` at ELL_TOL's f32 value), and timed (CUDA events over calls back to back; the plain version once,
+    between synchronizes), with the kernel launches a product makes, its
+    bound and, for a static operand, index_add_ (the contributions made
+    beforehand) as its library call; given the root's operand and the
+    subset `idx`, also the masked view's time at this subset."""
     import torch
 
     from smallk_torch.kernels import ell_spmm as kmod
+    from smallk_torch.kernels import seg_spmm as smod
     from smallk_torch.ops.aop import MaskedAOp
+    from smallk_torch.ops.ell_cols import ChunkColsAOp
 
-    m, w = cols.shape[0], len(idx)
-    out = {}
-    if op is None:
-        out["build_ms"] = wall_ms(lambda: cols.gathered(idx))
-        op = cols.gathered(idx)
-    e = subset_entries(cols, idx)
-    out["nnz"] = e["nnz"]
+    m, w, nnz = op.shape[0], e["w"], e["nnz"]
+    static = isinstance(op, ChunkColsAOp)
+    out = {"nnz": nnz, "w": op.shape[1]}
+    if build_ms is not None:
+        out["build_ms"] = build_ms
     gen = torch.Generator(device="cuda").manual_seed(w)
     W = torch.rand((m, 2), generator=gen, device="cuda")
-    H = torch.rand((2, w), generator=gen, device="cuda")
+    H = torch.zeros((2, op.shape[1]), device="cuda")
+    H[:, :w] = torch.rand((2, w), generator=gen, device="cuda")
     tops, lib = torch_ops_products(e), library_products(e, m, w)
     for side, x, fn in (("tn", W, op.mm_tn), ("nt", H, op.mm_nt)):
-        before = kmod.launches
-        got = fn(x)
-        launches = kmod.launches - before
+        cut = (lambda y: y[:, :w]) if side == "tn" else (lambda y: y)
+        xw = x if side == "tn" else x[:, :w]
+        before = (kmod.launches, smod.launches)
+        got = cut(fn(x))
+        launches = {"ell_spmm": kmod.launches - before[0],
+                    "seg_spmm": smod.launches - before[1]}
         with plain_ell():
-            want = fn(x)
+            want = cut(fn(x))
             plain_ms = wall_ms(lambda: fn(x), 1)
-        scale = float(want.abs().max())
         err = float((got - want).abs().max())
-        others = max(float((tops[side == "nt"](x) - want).abs().max()),
-                     float((lib[side == "nt"](x) - want).abs().max()))
-        tol = long_sum_tol(op, side) * scale
-        if not (err <= tol and others <= tol
+        exact = entry_sums(e, xw, side, m)
+        held = {name: within_rows(y, *exact, ELL_TOL["float32"], True)
+                for name, y in (("kernel", got), ("plain", want),
+                                ("torch ops", tops[side == "nt"](xw)),
+                                ("library", lib[side == "nt"](xw)))}
+        del exact
+        if not (all(ok for ok, _ in held.values())
                 and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"{label} {side}: kernel {err}, torch ops "
-                                 f"and library {others} from the plain "
-                                 f"version (tolerance {tol})")
+            worst = ", ".join(f"{k} {v[1]:.2e}" for k, v in held.items())
+            raise AssertionError(
+                f"{label} {side}: worst entry of each against the product "
+                f"in f64, as a share of its sum of |val * factor|: {worst} "
+                f"(tolerance {ELL_TOL['float32']:g}, grown by the entry's "
+                f"segment); max|kernel - plain| {err}")
         n_out = w * 2 if side == "tn" else m * 2
         n_tab = m * 2 if side == "tn" else w * 2
-        b_ms, b_by = bound(2.0 * e["nnz"] * 2,
-                           e["nnz"] * (4 + 2) + 4 * (n_tab + n_out))
-        out[side] = {"ell_ms": back_to_back_ms(lambda: fn(x), 5),
+        b_ms, b_by = bound(2.0 * nnz * 2, nnz * (4 + 2) + 4 * (n_tab + n_out))
+        out[side] = {"ms": back_to_back_ms(lambda: fn(x), 5),
                      "plain_ms": plain_ms,
                      "ops_ms": back_to_back_ms(
-                         lambda: tops[side == "nt"](x), 3),
-                     "library_ms": back_to_back_ms(
-                         lambda: lib[side == "nt"](x), 5),
+                         lambda: tops[side == "nt"](xw), 3),
+                     "sparse_mm_ms": back_to_back_ms(
+                         lambda: lib[side == "nt"](xw), 5),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "launches": launches, "err": err}
+        if static:
+            # index_add_ of the contributions, made beforehand, at the keys
+            # (local column for W'A, term for AH')
+            keys, src = ((e["local"], e["vals"][:, None] * W[e["terms"]])
+                         if side == "tn" else
+                         (e["terms"], e["vals"][:, None] * xw.T[e["local"]]))
+            dst = torch.zeros((w if side == "tn" else m, 2), device="cuda")
+            out[side]["library_ms"] = back_to_back_ms(
+                lambda: dst.index_add_(0, keys, src), 5)
+            out[side]["device_ms"] = device_ms(lambda: fn(x), 20)
+        else:
+            out[side]["library_ms"] = out[side]["sparse_mm_ms"]
     if root_op is not None:
-        mask = torch.zeros(cols.shape[1], device="cuda")
+        mask = torch.zeros(root_op.shape[1], device="cuda")
         mask[idx] = 1.0
         masked = MaskedAOp(root_op, mask)
-        Hf = torch.zeros((2, cols.shape[1]), device="cuda")
-        Hf[:, idx] = H
+        Hf = torch.zeros((2, root_op.shape[1]), device="cuda")
+        Hf[:, idx] = H[:, :w]
         out["masked_ms"] = back_to_back_ms(
             lambda: (masked.mm_tn(W), masked.mm_nt(Hf)), 3)
     t, n_ = out["tn"], out["nt"]
-    log(f"[cols] {label}: w={w} nnz={e['nnz']}"
-        + (f", gathered operand built in {out['build_ms']:.2f} ms"
+    kern = "seg_spmm" if static else "ell_spmm"
+    log(f"[cols] {label}: w={w} (operand width {op.shape[1]}) nnz={nnz}"
+        + (f", operand built in {out['build_ms']:.2f} ms"
            if "build_ms" in out else "")
-        + f"; ms per product (W'A / AH'): ell_spmm {t['ell_ms']:.4f} / "
-        f"{n_['ell_ms']:.4f} ({t['launches']} / {n_['launches']} launches, "
-        f"max|kernel - plain| {t['err']:.2e} / {n_['err']:.2e}), plain "
-        f"{t['plain_ms']:.2f} / {n_['plain_ms']:.2f}, torch ops "
+        + f"; ms per product (W'A / AH'): {kern} {t['ms']:.4f} / "
+        f"{n_['ms']:.4f} ({t['launches'][kern]} / {n_['launches'][kern]} "
+        f"launches, max|kernel - plain| {t['err']:.2e} / {n_['err']:.2e})"
+        + (f", device {t['device_ms']:.4f} / {n_['device_ms']:.4f}, "
+           f"index_add_ {t['library_ms']:.4f} / {n_['library_ms']:.4f}"
+           if static else "")
+        + f", plain {t['plain_ms']:.2f} / {n_['plain_ms']:.2f}, torch ops "
         f"{t['ops_ms']:.4f} / {n_['ops_ms']:.4f}, torch.sparse.mm "
-        f"{t['library_ms']:.4f} / {n_['library_ms']:.4f}, bound "
+        f"{t['sparse_mm_ms']:.4f} / {n_['sparse_mm_ms']:.4f}, bound "
         f"{t['bound_ms']:.4f} / {n_['bound_ms']:.4f} ({t['bound_by']})"
         + (f"; masked view of the root, both products {out['masked_ms']:.4f}"
            if root_op is not None else ""))
@@ -2934,59 +3156,116 @@ def node_products(cols, idx, label: str, op=None, root_op=None) -> dict:
 
 def cols_study(card: str) -> None:
     """The node operand's products at k = 2 on the 50,000 x 1,000,000
-    corpus: the root's EllAOp; at the root and at a node of 1/SPH_NODE of
-    the documents the gathered operand (its long slices cut, and uncut),
-    the torch-ops formulation and torch.sparse.mm (how ops/ell_cols chose
-    its formulation); then the gathered operand against the masked view of
-    the root across shares of the documents (why hierclust gathers every
-    node)."""
+    corpus: at the root the EllAOp and the full-width static operand (the
+    measurement that routes a root with a chunk table to the static
+    operand, engines/hierclust.py); the static operand
+    against the masked view of the root at every share of CUT_SHARES
+    (hierclust.MASKED_SHARE); the chunk length sweep over COLS_L0 at the
+    root and a 1/SPH_NODE node (product ms, padding, table bytes), and
+    sparse hierclust's wall at each L0 of COLS_L0_WALL, two runs each in
+    turns (ell_cols.MEDIAN_PER_CHUNK)."""
     import torch
 
+    from smallk_torch import Random
+    from smallk_torch.engines import hier_chain
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.scoring import nmi
     from smallk_torch.ops import ell_cols
     from smallk_torch.ops.aop import as_aop
-    from smallk_torch.ops.ell_cols import CscColumns
+    from smallk_torch.ops.ell_cols import CscChunks
 
-    A, _, gen_s = sparse_corpus(SPH_N)
+    A, labels, gen_s = sparse_corpus(SPH_N)
     t0 = time.perf_counter()
     a_op = as_aop(A, dtype="bfloat16", device="cuda")
     ell_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
+    chunks = CscChunks.from_scipy(A, "bfloat16", device="cuda")
     torch.cuda.synchronize()
-    csc_s = time.perf_counter() - t0
-    log(f"[cols] corpus {SPH_M}x{SPH_N}, {A.nnz} nonzeros: generator "
-        f"{gen_s:.2f} s, EllAOp build {ell_s:.2f} s, CSC copy {csc_s:.2f} s "
-        f"(host seconds) on {card}")
+    chunk_s = time.perf_counter() - t0
+    lens = chunks.lens
+    log(f"[cols] corpus {SPH_M}x{SPH_N}, {A.nnz} nonzeros, median column "
+        f"length {int(np.median(lens[lens > 0]))}: generator {gen_s:.2f} s, "
+        f"EllAOp build {ell_s:.2f} s, chunk table build {chunk_s:.2f} s (host "
+        f"seconds; L0 {chunks.L0}, {chunks.C} chunks, "
+        f"{chunks.table_bytes / 1e9:.3f} GB, padding {chunks.padding:.3f}) "
+        f"on {card}")
     everything = torch.arange(SPH_N, device="cuda")
-    perm = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)).cuda()
-    node_products(cols, everything, "root, the EllAOp", op=a_op)
-    for label, idx in (("root", everything),
-                       (f"1/{SPH_NODE} node", perm[:SPH_N // SPH_NODE])):
-        node_products(cols, idx, f"{label}, gathered")
-        # the same operand with no slice cut into pieces
-        with patched(ell_cols, "_MAX_LEN", 1 << 30):
-            node_products(cols, idx, f"{label}, gathered, slices uncut")
+    perm = np.random.RandomState(3).permutation(SPH_N)
+    op, ms = chunk_operand(chunks, everything)
+    e = subset_entries(op, SPH_N)
+    node_products(a_op, e, "root, the EllAOp")
+    node_products(op, e, "root, static operand", build_ms=ms)
+    del op, e
     for share in CUT_SHARES:
-        idx = perm[:int(share * SPH_N)]
-        node_products(cols, idx, f"node of {share:g} of the documents",
-                      root_op=a_op)
+        idx = torch.from_numpy(np.sort(perm[:int(share * SPH_N)])).cuda()
+        op, ms = chunk_operand(chunks, idx)
+        node_products(op, subset_entries(op, len(idx)),
+                      f"node of {share:g} of the documents, static operand",
+                      root_op=a_op, idx=idx, build_ms=ms)
+        del op
+        torch.cuda.empty_cache()
+    del chunks
+    idx = torch.from_numpy(np.sort(perm[:SPH_N // SPH_NODE])).cuda()
+    for L0 in COLS_L0:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ch = CscChunks.from_scipy(A, "bfloat16", L0=L0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[cols] L0 {L0}: {ch.C} chunks, table {ch.table_bytes / 1e9:.3f}"
+            f" GB, padding {ch.padding:.3f}, built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for label, sub in (("root", everything),
+                           (f"1/{SPH_NODE} node", idx)):
+            op, ms = chunk_operand(ch, sub)
+            node_products(op, subset_entries(op, len(sub)),
+                          f"L0 {L0}, {label}, static operand", build_ms=ms)
+            del op
+        del ch
+    torch.cuda.empty_cache()
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    walls = {}
+    for rnd in range(2):
+        for L0 in (COLS_L0_WALL if rnd == 0 else COLS_L0_WALL[::-1]):
+            with patched(ell_cols, "chunk_length", lambda lens, L0=L0: L0):
+                if rnd == 0:  # warm-up
+                    hc.clust_hier(a_op, opts, Random(1), host_A=A)
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tree, stats = hc.clust_hier(a_op, opts, Random(2), host_A=A)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            c = read_counts()
+            walls.setdefault(L0, []).append(wall)
+            log(f"[cols] sparse hierclust at L0 {L0}: wall {wall:.4f} s, "
+                f"graphs {c['captures']}, solves {c['solves']}, steps "
+                f"{c['steps']}, seg_spmm {c['seg_spmm']}, NMI "
+                f"{nmi(tree.assignments, labels):.4f}, chain "
+                f"{hier_chain.LAST_STATS} on {card}")
+            torch.cuda.empty_cache()
+    for L0, ws in walls.items():
+        log(f"[cols] sparse hierclust at L0 {L0}: walls "
+            f"{', '.join(f'{w:.4f}' for w in ws)} s")
 
 
 def phase_sparse_hierclust(card: str) -> dict:
     """Hierclust on the planted 50,000 x 1,000,000 corpus (bf16 A, above
     the densify threshold), f32 factors, HIER_K clusters, as the
     Reuters-shape phase runs it: a warm-up run with another seed, the
-    timed run with the launches counted, and the node products timed at
-    the root and at a 1/SPH_NODE node.  (The device's busy share on this
-    path comes from the loop phase's profile in a process of its own.)"""
+    timed run with the launches gated exactly against each solve's operand
+    and steps (sparse_launch_gate), and the node products timed at the
+    root (its EllAOp and its static operand) and at a 1/SPH_NODE node.
+    (The device's busy share on this path comes from the loop phase's
+    profile in a process of its own.)"""
     import torch
 
     from smallk_torch import ClustStats, Random
+    from smallk_torch.engines import hier_chain
     from smallk_torch.engines import hierclust as hc
     from smallk_torch.engines.scoring import nmi
     from smallk_torch.engines.tree import _host
     from smallk_torch.ops.aop import as_aop
-    from smallk_torch.ops.ell_cols import CscColumns
+    from smallk_torch.ops.ell_cols import CscChunks
 
     A, labels, gen_s = sparse_corpus(SPH_N)
     t0 = time.perf_counter()
@@ -3002,26 +3281,27 @@ def phase_sparse_hierclust(card: str) -> dict:
     stats = ClustStats()
     reset_counts()
     hc.gathered_operands = hc.masked_operands = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tree, stats = hc.clust_hier(a_op, opts, Random(2), stats, host_A=A)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with recorded_solves() as solves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, stats = hc.clust_hier(a_op, opts, Random(2), stats, host_A=A)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
     tiers = (hc.gathered_operands, hc.masked_operands)
     leaves = sum(tree.is_leaf)
     score = nmi(tree.assignments, labels)
     log(f"[sparse hierclust] {SPH_M}x{SPH_N} ({A.nnz} nonzeros) bf16 A, f32 "
         f"factors, {HIER_K} clusters: generator {gen_s:.2f} s, EllAOp build "
-        f"{ell_s:.2f} s (host); wall {wall:.4f} s (its CSC copy included), "
-        f"nmf_count {stats.nmf_count}, converged "
+        f"{ell_s:.2f} s (host); wall {wall:.4f} s (its chunk table build "
+        f"included), nmf_count {stats.nmf_count}, converged "
         f"{stats.nmf_count - stats.max_count}, iter_count {stats.iter_count},"
         f" {stats.iter_count / wall:.1f} rank-2 it/s, NMI {score:.4f}, leaves "
-        f"{leaves}, outliers {len(tree.outliers)}, ell_spmm launches "
-        f"{counts['ell_spmm']} (transposed "
-        f"{counts['ell_spmm_transposed']}), node operands gathered/masked "
-        f"{tiers[0]}/{tiers[1]}, dense products {counts['kernel_products']} "
-        f"+ {counts['matmul_products']}; warm-up wall {warm:.4f} s; on "
+        f"{leaves}, outliers {len(tree.outliers)}, seg_spmm launches "
+        f"{counts['seg_spmm']}, ell_spmm launches {counts['ell_spmm']} "
+        f"(transposed {counts['ell_spmm_transposed']}), node operands "
+        f"static/masked {tiers[0]}/{tiers[1]}, graphs {counts['captures']}, "
+        f"chain {hier_chain.LAST_STATS}; warm-up wall {warm:.4f} s; on "
         f"{card}")
     # TrialSplit may drop outlier documents, which stay unassigned as the
     # reference leaves them (printed above)
@@ -3033,22 +3313,30 @@ def phase_sparse_hierclust(card: str) -> dict:
             if not np.isfinite(tv).all() or (tv < 0).any():
                 raise AssertionError(f"node {q}: topic vector not finite "
                                      "and nonnegative")
-    if counts["ell_spmm"] < 2 * counts["steps"] or counts["ell_plain_cuda"]:
-        raise AssertionError(f"sparse hierclust bypassed ell_spmm: {counts}")
-    if counts["matmul_products"] or counts["kernel_products"]:
-        raise AssertionError(f"sparse hierclust made dense products: {counts}")
+    sparse_launch_gate("sparse hierclust", counts, solves)
+    if not counts["seg_spmm"] or round(score, 3) != SPH_NMI:
+        raise AssertionError(f"sparse hierclust: no seg_spmm launch or NMI "
+                             f"{score}, not {SPH_NMI}: {counts}")
 
     # the node products at the root and at a 1/SPH_NODE node
-    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
-    root = node_products(cols, torch.arange(SPH_N, device="cuda"),
-                         "sparse hierclust root, the EllAOp", op=a_op)
-    idx = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)[
-        :SPH_N // SPH_NODE]).cuda()
-    node = node_products(cols, idx, f"sparse hierclust 1/{SPH_NODE} node")
-    transposed = counts["ell_spmm_transposed"]
-    return {"launches": {"tn": transposed,
-                         "nt": counts["ell_spmm"] - transposed},
-            "wall": wall, "root": root, "node": node, "nmi": score,
+    chunks = CscChunks.from_scipy(A, "bfloat16", device="cuda")
+    everything = torch.arange(SPH_N, device="cuda")
+    op, ms = chunk_operand(chunks, everything)
+    e = subset_entries(op, SPH_N)
+    root = node_products(a_op, e, "sparse hierclust root, the EllAOp")
+    root_static = node_products(op, e, "sparse hierclust root, static "
+                                "operand", build_ms=ms)
+    del op
+    idx = torch.from_numpy(np.sort(np.random.RandomState(3).permutation(
+        SPH_N)[:SPH_N // SPH_NODE])).cuda()
+    op, ms = chunk_operand(chunks, idx)
+    node = node_products(op, subset_entries(op, len(idx)),
+                         f"sparse hierclust 1/{SPH_NODE} node, static "
+                         "operand", build_ms=ms)
+    del op, chunks
+    torch.cuda.empty_cache()
+    return {"launches": counts["seg_spmm"], "wall": wall, "root": root,
+            "root_static": root_static, "node": node, "nmi": score,
             "corpus": (A, labels), "op": a_op}
 
 
@@ -3117,8 +3405,9 @@ def phase_sparse_dense(card: str) -> None:
     (ns, its, cs, gs, asg), (nd, itd, cd, _, adn) = (scores["sparse"],
                                                      scores["dense"])
     log(f"[sparse vs dense f32] {SPH_M}x{SVD_N} random mode, {HIER_K} "
-        f"clusters: NMI sparse {ns:.4f} (ell_spmm launches "
-        f"{cs['ell_spmm']}, gathered node operands {gs}), dense {nd:.4f} "
+        f"clusters: NMI sparse {ns:.4f} (seg_spmm launches "
+        f"{cs['seg_spmm']}, ell_spmm {cs['ell_spmm']}, static node operands "
+        f"{gs}), dense {nd:.4f} "
         f"(K3 launches {cd['K3']}); iterations {its}/{itd}, assignments "
         f"agree on {100 * np.mean(asg == adn):.2f}% of the documents")
     if ns < nd - HIER_NMI_MARGIN or not gs or cs["matmul_products"] \
@@ -3489,7 +3778,7 @@ def api_hierclust_sparse(card: str, sparse: dict) -> dict:
     """api.Hierclust.cluster(12) (its defaults: f32 A, min_iter 5) on the
     50,000 x 1,000,000 corpus of phase_sparse_hierclust, with its seed:
     12 leaves, NMI within FACADE_NMI_MARGIN of that phase's run, the
-    products through ell_spmm and none dense."""
+    products through seg_spmm and ell_spmm and none dense."""
     from smallk_torch.api import Hierclust
     from smallk_torch.engines.scoring import nmi
 
@@ -3509,15 +3798,17 @@ def api_hierclust_sparse(card: str, sparse: dict) -> dict:
         f"{sparse['wall']:.4f} s), nmf_count {stats.nmf_count}, iter_count "
         f"{stats.iter_count}, leaves {leaves}, NMI {score:.4f} (phase "
         f"{sparse['nmi']:.4f}), ell_spmm launches {counts['ell_spmm']}, "
-        f"plain calls on cuda {counts['ell_plain_cuda']}, dense products "
+        f"seg_spmm launches {counts['seg_spmm']}, plain calls on cuda "
+        f"{counts['ell_plain_cuda'] + counts['seg_plain_cuda']}, dense products "
         f"{counts['kernel_products']} + {counts['matmul_products']} on {card}")
     if leaves != HIER_K:
         raise AssertionError(f"api.Hierclust: {leaves} leaves")
     if abs(score - sparse["nmi"]) > FACADE_NMI_MARGIN:
         raise AssertionError(f"api.Hierclust NMI {score} against the "
                              f"phase's {sparse['nmi']}")
-    if counts["ell_spmm"] < 2 * stats.iter_count or counts["ell_plain_cuda"]:
-        raise AssertionError(f"api.Hierclust bypassed ell_spmm: {counts}")
+    if counts["ell_spmm"] + counts["seg_spmm"] < 2 * stats.iter_count \
+            or counts["ell_plain_cuda"] or counts["seg_plain_cuda"]:
+        raise AssertionError(f"api.Hierclust bypassed its kernels: {counts}")
     if counts["kernel_products"] or counts["matmul_products"]:
         raise AssertionError(f"api.Hierclust made dense products: {counts}")
     return {"wall": wall, "nmi": score}
@@ -3935,23 +4226,27 @@ def sparse_hier_times() -> dict:
     from smallk_torch import ClustStats, Random
     from smallk_torch.engines import hierclust as hc
     from smallk_torch.engines.scoring import nmi
+    from smallk_torch.ops import ell_cols
     from smallk_torch.ops.aop import as_aop
-    from smallk_torch.ops.ell_cols import CscColumns
 
     A, labels, _ = sparse_corpus(SPH_N)
     a_op = as_aop(A, dtype="bfloat16", device="cuda")
-    cols = CscColumns.from_scipy(A, "bfloat16", device="cuda")
-    idx = torch.from_numpy(np.random.RandomState(3).permutation(SPH_N)[
-        :SPH_N // SPH_NODE]).cuda()
+    idx = torch.from_numpy(np.sort(np.random.RandomState(3).permutation(
+        SPH_N)[:SPH_N // SPH_NODE])).cuda()
+    if hasattr(ell_cols, "CscChunks"):  # the static operand
+        cols = ell_cols.CscChunks.from_scipy(A, "bfloat16", device="cuda")
+        node_op = chunk_operand(cols, idx)[0]
+    else:
+        cols = ell_cols.CscColumns.from_scipy(A, "bfloat16", device="cuda")
+        node_op = cols.gathered(idx)
     res = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for label, op in (("root", a_op), (f"1/{SPH_NODE} node",
-                                       cols.gathered(idx))):
+    for label, op in (("root", a_op), (f"1/{SPH_NODE} node", node_op)):
         W = torch.rand((SPH_M, 2), generator=gen, device="cuda")
         H = torch.rand((2, op.shape[1]), generator=gen, device="cuda")
         res[f"k=2 {label} W'A ms"] = back_to_back_ms(lambda: op.mm_tn(W), 5)
         res[f"k=2 {label} AH' ms"] = back_to_back_ms(lambda: op.mm_nt(H), 5)
-    del cols
+    del cols, node_op
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
     hc.clust_hier(a_op, opts, Random(1), host_A=A)
     torch.cuda.synchronize()
@@ -4033,31 +4328,64 @@ def loop_flatclust_cell():
     return run, gate
 
 
-def product_launches(op) -> tuple[int, int, int]:
+def product_launches(op) -> tuple[int, int, int, int, int]:
     """ell_spmm launches of one W'A, of them the transposed ones, and of
-    one AH' of an EllAOp or a GatheredColsAOp, from its buckets (a bucket
-    with no rows launches nothing; a gathered operand's split long slices
-    launch a partial product and a transposed or row-mode fold)."""
+    one AH' of a node operand, then seg_spmm's of one W'A and one AH': an
+    EllAOp's from its buckets (a bucket with no rows launches nothing), a
+    masked view's from its base, a ChunkColsAOp's one seg_spmm a
+    product."""
+    from smallk_torch.ops.aop import MaskedAOp
     from smallk_torch.ops.ell import EllAOp
-    from smallk_torch.ops.ell_cols import GatheredColsAOp
+    from smallk_torch.ops.ell_cols import ChunkColsAOp
 
-    if isinstance(op, EllAOp):
-        tn = sum(p.launching for _, _, p in op.col_packs)
-        return tn, tn, sum(p.launching for _, _, p in op.row_packs)
-    if not isinstance(op, GatheredColsAOp):
-        raise TypeError(f"no ell_spmm launch count for {type(op)}")
+    if isinstance(op, MaskedAOp):
+        return product_launches(op.base)
+    if isinstance(op, ChunkColsAOp):
+        return 0, 0, 0, 1, 1
+    if not isinstance(op, EllAOp):
+        raise TypeError(f"no launch count for {type(op)}")
+    tn = sum(p.launching for _, _, p in op.col_packs)
+    return tn, tn, sum(p.launching for _, _, p in op.row_packs), 0, 0
 
-    def split(family):
-        parts = getattr(op, family)[1]
-        if parts is None:
-            return 0, 0
-        p_idx, _, _, refs, _ = parts
-        return int(p_idx.shape[0] > 0), int(refs.shape[0] > 0)
 
-    (tn_part, tn_fold), (nt_part, nt_fold) = split("cols"), split("rows")
-    tn_t = op._packs["cols"].launching + tn_fold
-    return (tn_t + tn_part, tn_t,
-            op._packs["rows"].launching + nt_part + nt_fold)
+def sparse_launch_gate(label: str, counts: dict, solves) -> dict:
+    """The launches a sparse hierclust run must count, from the operand
+    and the steps of each of its solves (recorded by wrapping
+    hierclust.nmf_solve): a solve runs W'A once and then one W'A and one AH'
+    a step, each at its operand's launches (product_launches); nothing
+    through a plain version or a dense product.  Returns the expected
+    counts."""
+    want = {"ell_spmm": sum(tn * (s + 1) + nt * s
+                            for (tn, _, nt, _, _), s in solves),
+            "ell_spmm_transposed": sum(tn_t * (s + 1)
+                                       for (_, tn_t, _, _, _), s in solves),
+            "seg_spmm": sum(a * (s + 1) + b * s
+                            for (_, _, _, a, b), s in solves),
+            "solves": len(solves), "steps": sum(s for _, s in solves)}
+    if any(counts[k] != v for k, v in want.items()) \
+            or counts["ell_plain_cuda"] or counts["seg_plain_cuda"] \
+            or counts["kernel_products"] or counts["matmul_products"]:
+        raise AssertionError(f"{label}: {counts}, expected {want}")
+    return want
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """hierclust.nmf_solve wrapped for the block: yields the list of
+    (product_launches(op), steps run) of each solve, in order."""
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.solvers import solve
+
+    solves = []
+
+    def recorded(op, *args, **kwargs):
+        before = solve.steps_run
+        res = solve.nmf_solve(op, *args, **kwargs)
+        solves.append((product_launches(op), solve.steps_run - before))
+        return res
+
+    with patched(hc, "nmf_solve", recorded):
+        yield solves
 
 
 def loop_hier_cell(a_op, labels, host_A=None):
@@ -4068,7 +4396,6 @@ def loop_hier_cell(a_op, labels, host_A=None):
     from smallk_torch import Random
     from smallk_torch.engines import hierclust as hc
     from smallk_torch.engines.scoring import nmi
-    from smallk_torch.solvers import solve
 
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
     sparse = host_A is not None
@@ -4077,15 +4404,8 @@ def loop_hier_cell(a_op, labels, host_A=None):
         o = dataclasses.replace(opts, nmf_opts=dataclasses.replace(
             opts.nmf_opts, loop_unroll=unroll))
         solves = []
-
-        def recorded(op, *args, **kwargs):
-            before = solve.steps_run
-            res = solve.nmf_solve(op, *args, **kwargs)
-            solves.append((product_launches(op), solve.steps_run - before))
-            return res
-
-        with patched(hc, "nmf_solve", recorded) if sparse \
-                else contextlib.nullcontext():
+        with recorded_solves() if sparse else contextlib.nullcontext([]) \
+                as solves:
             tree, stats = hc.clust_hier(a_op, o, Random(2), host_A=host_A)
         leaves = sum(tree.is_leaf)
         # the splits: every node's documents
@@ -4099,20 +4419,8 @@ def loop_hier_cell(a_op, labels, host_A=None):
         if out["leaves"] != HIER_K:
             raise AssertionError(f"loop hierclust: {out['leaves']} leaves")
         if sparse:
-            # a solve on an operand: W'A once and then one W'A and one AH'
-            # a step run, each at that operand's launches
-            solves = out["solves"]
-            want = sum(tn * (s + 1) + nt * s for (tn, _, nt), s in solves)
-            want_t = sum(tn_t * (s + 1) for (_, tn_t, _), s in solves)
-            if len(solves) != counts["solves"] \
-                    or sum(s for _, s in solves) != counts["steps"] \
-                    or counts["ell_spmm"] != want \
-                    or counts["ell_spmm_transposed"] != want_t \
-                    or counts["ell_plain_cuda"] or counts["kernel_products"] \
-                    or counts["matmul_products"]:
-                raise AssertionError(f"loop sparse hierclust: {counts}, "
-                                     f"ell_spmm expected {want}, "
-                                     f"transposed {want_t}")
+            sparse_launch_gate("loop sparse hierclust", counts,
+                               out["solves"])
             if round(out["nmi"], 3) != SPH_NMI:
                 raise AssertionError(f"loop sparse hierclust: NMI "
                                      f"{out['nmi']}, not {SPH_NMI}")
@@ -4325,27 +4633,32 @@ def phase_loop(card: str, flag: dict, sparse: dict) -> dict:
     return out
 
 
-def loop_problems() -> dict:
-    """The four loop cells built from their seeds, for the processes of
-    their own (--loop-busy, --loop)."""
+def loop_problems(only=None) -> dict:
+    """The loop cells built from their seeds (`only="sparse"`: the sparse
+    hierclust cell alone), for the processes of their own (--loop-busy,
+    --loop)."""
     from smallk_torch.ops.aop import as_aop
     from smallk_torch.ops.ell import EllAOp
 
-    cells = {"flatclust HALS": loop_flatclust_cell()}
-    a_op, labels = hier_problem()
-    cells["hierclust Reuters"] = loop_hier_cell(a_op, labels)
+    cells = {}
+    if only is None:
+        cells["flatclust HALS"] = loop_flatclust_cell()
+        a_op, labels = hier_problem()
+        cells["hierclust Reuters"] = loop_hier_cell(a_op, labels)
     A, slabels, _ = sparse_corpus(SPH_N)
     cells["sparse hierclust 50k x 1M"] = loop_hier_cell(
         as_aop(A, dtype="bfloat16", device="cuda"), slabels, host_A=A)
     return cells
 
 
-def loop_busy_child() -> int:
+def loop_busy_child(only=None) -> int:
     """--loop-busy: each loop cell once eager and once captured inside one
     torch.profiler session, in this process of its own (a second session
-    in a process loses kernel records: PERF.md §7).  For each run: the
-    device's busy share of its wall (the union of kernel intervals) and the
-    host's launch calls (kernels and graphs).  Prints LOOP_BUSY {json}."""
+    in a process loses kernel records: PERF.md §7); the hierclust cells
+    also on the other engines (captured only).  For each run: the device's
+    busy share of its wall (the union of kernel intervals) and the host's
+    launch calls (kernels and graphs).  `only="sparse"`: the sparse cell
+    and its engines alone.  Prints LOOP_BUSY {json}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -4355,31 +4668,36 @@ def loop_busy_child() -> int:
 
     setup("cuda")
     t0 = time.perf_counter()
-    cells = loop_problems()
-    # the Reuters cell on the sequential engine, capturing a graph a solve
-    # and keeping one a width, beside the chain's (captured runs only)
-    run_chain, gate = cells["hierclust Reuters"]
-    for mode in CHAIN_MODES:
-        if mode != "chain":
-            cells[f"hierclust Reuters, {mode}"] = (
-                lambda *a, mode=mode: chain_mode(mode, run_chain, *a), gate)
-    FA, W0, H0 = flagship_problem()
-    op = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
-    del FA
-    cells["flagship MU k=128"] = loop_flagship_cell(
-        {"op": op, "W0": W0, "H0": H0})
-    for name in ("flatclust HALS", "hierclust Reuters",
-                 *(f"hierclust Reuters, {mode}" for mode in CHAIN_MODES
-                   if mode != "chain")):  # warm-ups
-        cells[name][0]()
+    sparse = "sparse hierclust 50k x 1M"
+    cells = loop_problems(only)
+    # the hierclust cells on the sequential engine, capturing a graph a
+    # solve and keeping one a width, beside the chain's (captured runs only)
+    engines = []
+    for cell in ("hierclust Reuters", sparse):
+        if cell not in cells:
+            continue
+        run_chain, gate = cells[cell]
+        for mode in CHAIN_MODES:
+            if mode != "chain":
+                engines.append(f"{cell}, {mode}")
+                cells[engines[-1]] = (lambda *a, mode=mode, r=run_chain:
+                                      chain_mode(mode, r, *a), gate)
+    if only is None:
+        FA, W0, H0 = flagship_problem()
+        op = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
+        del FA
+        cells["flagship MU k=128"] = loop_flagship_cell(
+            {"op": op, "W0": W0, "H0": H0})
+    for name in ("flatclust HALS", "hierclust Reuters", *engines):
+        if name in cells:  # warm-ups
+            cells[name][0]()
     torch.cuda.synchronize()
     stamps = [("problems and warm-ups", time.perf_counter() - t0)]
     walls = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for name, (run, _) in cells.items():
-            for capture in ((True,) if name.startswith(
-                    "hierclust Reuters, ") else (False, True)):
+            for capture in ((True,) if name in engines else (False, True)):
                 label = f"loop|{name}|{'captured' if capture else 'eager'}"
                 time.sleep(0.25)  # windows apart on either clock
                 with patched(graph, "CAPTURE", capture), \
@@ -4440,11 +4758,13 @@ def loop_busy_child() -> int:
     return 0
 
 
-def loop_busy(card: str) -> dict:
-    """Runs --loop-busy in a process of its own; returns its shares."""
+def loop_busy(card: str, only=None) -> dict:
+    """Runs --loop-busy (with `only`) in a process of its own; returns its
+    shares."""
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           "--loop-busy"], capture_output=True, text=True,
-                          timeout=900, cwd=ROOT)
+                           "--loop-busy", *([only] if only else [])],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=ROOT)
     lines = proc.stdout.splitlines()
     for line in lines:
         if not line.startswith("LOOP_BUSY "):
@@ -4723,6 +5043,153 @@ def phase_chain(card: str, busy: dict) -> dict:
     return out
 
 
+def sparse_chain_runs(a_op, A, labels, opts, order, seed=2,
+                      warm=True) -> dict:
+    """clust_hier on the sparse `a_op` (its host matrix `A`) with the
+    engines of `order`, after a warm-up of each (with `warm`): per mode,
+    each run's wall, counts (gated by sparse_launch_gate), graph seconds,
+    host ms in node operand builds, the root's steps, NMI, tree and the
+    chain's telemetry."""
+    import torch
+
+    from smallk_torch import Random
+    from smallk_torch.engines import hier_chain
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.ops import ell_cols
+
+    build = [0.0]
+
+    def timed(fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            build[0] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    for mode in dict.fromkeys(order) if warm else ():
+        chain_mode(mode, clust_hier, a_op, opts, Random(1), None, None, A)
+    runs = {mode: [] for mode in order}
+    for mode in order:
+        with engine(mode), recorded_solves() as solves, \
+                patched(ell_cols.ChunkColsAOp, "load",
+                        timed(ell_cols.ChunkColsAOp.load)):
+            chain = hier_chain.CHAIN
+            build[0] = 0.0
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, stats = clust_hier(a_op, opts, Random(seed), host_A=A)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            seconds = graph_seconds()
+        sparse_launch_gate(f"sparse {mode}", counts, solves)
+        runs[mode].append({
+            "wall": wall, "counts": counts, "capture_s": seconds[0],
+            "build_ms": 1e3 * build[0], "root_steps": solves[0][1],
+            "tree": tree, "stats": stats,
+            "nmi": None if labels is None else nmi(tree.assignments,
+                                                   labels),
+            "last": dict(hier_chain.LAST_STATS) if chain else None,
+            "bails": dict(hier_chain.LAST_BAILS) if chain else None})
+    return runs
+
+
+def phase_sparse_chain(card: str, busy: dict, sparse=None) -> dict:
+    """The sparse hierclust cell on each engine of CHAIN_MODES in the order
+    CHAIN_ORDER (the corpus and operand of phase_sparse_hierclust when
+    given): walls,
+    graphs and capture ms, replays, host reads a split, node-build ms, the
+    root's steps, NMI and the busy shares (the loop's busy child runs the
+    sparse cell on each engine), the trees of S, G and C one and NMI at
+    least SPARSE_CHAIN_NMI; then the f64 SPARSE_F64 problem on the card,
+    where S, G and C must give one tree too."""
+    import torch
+
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+    from smallk_torch.ops.aop import as_aop
+
+    if sparse is None:
+        A, labels, _ = sparse_corpus(SPH_N)
+        a_op = as_aop(A, dtype="bfloat16", device="cuda")
+    else:
+        (A, labels), a_op = sparse["corpus"], sparse["op"]
+    opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
+    runs = sparse_chain_runs(a_op, A, labels, opts, CHAIN_ORDER)
+    first = runs[CHAIN_ORDER[0]][0]
+    out, splits = {}, HIER_K - 1
+    for mode, rs in runs.items():
+        diffs = [trees_identical(first["tree"], first["stats"], r["tree"],
+                                 r["stats"]) for r in rs]
+        c = rs[0]["counts"]
+        b = busy.get(f"sparse hierclust 50k x 1M, {mode}"
+                     if mode != "chain" else "sparse hierclust 50k x 1M",
+                     {}).get("captured")
+        out[mode] = {"walls": [r["wall"] for r in rs], "counts": c,
+                     "nmi": rs[0]["nmi"], "busy": b and b["busy"],
+                     "capture_s": rs[0]["capture_s"],
+                     "build_ms": [r["build_ms"] for r in rs],
+                     "same": all(d is None for d in diffs)}
+        walls = ", ".join(f"{r['wall']:.4f}" for r in rs)
+        builds = ", ".join(f"{r['build_ms']:.1f}" for r in rs)
+        log(f"[sparse chain] {SPH_M}x{SPH_N} bf16 A, {HIER_K} clusters, "
+            f"{mode}: wall {walls} s;"
+            f" graphs {c['captures']} (capture + instantiate "
+            f"{1e3 * rs[0]['capture_s']:.1f} ms in all), replays "
+            f"{c['replays']}, host reads {c['host_reads']} "
+            f"({c['host_reads'] / splits:.1f} a split), solves {c['solves']},"
+            f" steps {c['steps']}, root steps {rs[0]['root_steps']}, node "
+            f"builds {builds} host ms, seg_spmm {c['seg_spmm']}, ell_spmm {c['ell_spmm']}; "
+            f"device busy "
+            + (f"{100 * b['busy']:.2f}%" if b else "not measured")
+            + f"; NMI {rs[0]['nmi']:.4f}; tree "
+            + ("identical to" if out[mode]["same"] else "DIFFERENT from")
+            + f" the {CHAIN_ORDER[0]} engine's"
+            + (f"; LAST_STATS {rs[0]['last']}, bails {rs[0]['bails']}"
+               if rs[0]["last"] else "") + f" on {card}")
+        if not out[mode]["same"] or rs[0]["nmi"] < SPARSE_CHAIN_NMI:
+            raise AssertionError(f"sparse {mode}: tree differs from the "
+                                 f"{CHAIN_ORDER[0]} engine's ({diffs}) or "
+                                 f"NMI {rs[0]['nmi']} is below "
+                                 f"{SPARSE_CHAIN_NMI}")
+    last = runs["chain"][0]["last"]
+    if not last["committed"]:
+        raise AssertionError(f"the sparse chain committed no split: {last}")
+    del runs
+    torch.cuda.empty_cache()
+
+    m, n, k, seed = SPARSE_F64
+    A, flabels = synthetic_term_doc_corpus(m, n, k, seed=seed)
+    op = as_aop(A, dtype="float64", device="cuda", densify_threshold_bytes=0)
+    f64 = sparse_chain_runs(op, A, flabels, hier_opts(k, "float64"),
+                            tuple(CHAIN_MODES), warm=False)
+    ref = f64[CHAIN_ORDER[0]][0]
+    for mode in CHAIN_MODES:
+        r = f64[mode][0]
+        diff = trees_identical(ref["tree"], ref["stats"], r["tree"],
+                               r["stats"])
+        log(f"[sparse chain] f64 sparse {m}x{n} to {k} clusters on the card,"
+            f" {mode}: tree "
+            f"{'identical' if diff is None else 'DIFFERENT (' + diff + ')'}"
+            f" to the {CHAIN_ORDER[0]} engine's, walls {ref['wall']:.4f} / "
+            f"{r['wall']:.4f} s, graphs {r['counts']['captures']}, seg_spmm "
+            f"{r['counts']['seg_spmm']}, LAST_STATS {r['last']}, NMI "
+            f"{r['nmi']:.4f}")
+        if diff is not None or (r["last"] and not r["last"]["committed"]):
+            raise AssertionError(f"f64 sparse {mode} tree differs ({diff}) "
+                                 "or the chain committed nothing")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_chain_study(card: str) -> None:
+    """--sparse-chain: phase `sparse chain` alone, with the busy shares of
+    its runs from `--loop-busy sparse` (the sparse cell on each engine)."""
+    phase_sparse_chain(card, loop_busy(card, "sparse"))
+
+
 def phase_fp8(card: str) -> dict:
     """e4m3 A-storage: each kernel's e4m3 load against its plain version
     and timed (K3's products at the hierclust root shape, K2 at the
@@ -4996,6 +5463,7 @@ def slice_study(card: str) -> None:
     phase_fp8(card)
     phase_demo(card)
     phase_chain(card, {})
+    phase_sparse_chain(card, {})
     A, Wt, _ = k3_inputs(512, 256, "float32")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         for _ in range(50):
@@ -5034,10 +5502,11 @@ def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
     sys.path.insert(0, str(ROOT))
-    if sys.argv[1:] == ["--loop-busy"]:
-        return loop_busy_child()
+    if sys.argv[1:2] == ["--loop-busy"] and sys.argv[2:] in ([], ["sparse"]):
+        return loop_busy_child(*sys.argv[2:])
     from smallk_torch.common.device import setup
-    from smallk_torch.kernels import ell_spmm, hals_step, masked_gj, rank2_loop
+    from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
+                                      rank2_loop, seg_spmm)
 
     setup("cuda")
     card = card_line()
@@ -5059,7 +5528,7 @@ def main() -> int:
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
                "--cg": cg_study, "--facade": facade_study,
                "--loop": loop_study, "--ladder": ladder_study,
-               "--slice": slice_study}
+               "--slice": slice_study, "--sparse-chain": sparse_chain_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -5075,6 +5544,7 @@ def main() -> int:
     k2 = timed("K2", phase_k2)
     k3 = timed("K3", phase_k3)
     ell = timed("ell_spmm", phase_ell_spmm)
+    seg = timed("seg_spmm", phase_seg_spmm)
     timed("slice", phase_slice_parity)
     timed("nnls parity", phase_nnls_parity)
     timed("sparse parity", phase_sparse_parity)
@@ -5088,11 +5558,13 @@ def main() -> int:
     sparse_hier = timed("sparse hierclust", phase_sparse_hierclust, card)
     timed("facade", phase_facade, card, sparse_hier, flagship["mu_factors"])
     timed("loop", phase_loop, card, flagship, sparse_hier)
-    del sparse_hier["corpus"], sparse_hier["op"], flagship["op"], \
-        flagship["mu_factors"]
+    del flagship["op"], flagship["mu_factors"]
     torch.cuda.empty_cache()
     busy = timed("loop busy", loop_busy, card)
     timed("chain", phase_chain, card, busy)
+    timed("sparse chain", phase_sparse_chain, card, busy, sparse_hier)
+    del sparse_hier["corpus"], sparse_hier["op"]
+    torch.cuda.empty_cache()
     fp8 = timed("fp8", phase_fp8, card)
     timed("demo", phase_demo, card)
     timed("two traces", phase_two_traces, card)
@@ -5193,36 +5665,25 @@ def main() -> int:
         **{key: flagship["wta"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }] + [{
-        # the sparse hierclust root's products at k = 2 (an entry a lane,
-        # long rows shared by warps); launches: that run's transposed (W'A)
-        # or row-mode (AH') ones, at every node
-        "name": f"ell_spmm (sparse hierclust root {side}, k=2, m={SPH_M} "
-                f"n={SPH_N})",
+        # the sparse hierclust products at k = 2 on the static operand
+        # (seg_spmm) at the root and at a 1/SPH_NODE node; launches: every
+        # product of the run's static operands (device ms; library:
+        # index_add_)
+        "name": f"seg_spmm (sparse hierclust {where} {side}, k=2, static "
+                f"operand, m={SPH_M})",
         "route": "cuda",
-        "source": ell_spmm.SOURCE,
-        "replaces": ell_spmm.REPLACES["P2"],
-        "launches": sparse_hier["launches"][side],
-        "max_abs_err": sparse_hier["root"][side]["err"],
-        "ms": sparse_hier["root"][side]["ell_ms"],
-        "plain_ms": sparse_hier["root"][side]["plain_ms"],
-        "bound_ms": sparse_hier["root"][side]["bound_ms"],
-        "bound_by": sparse_hier["root"][side]["bound_by"],
-        "library_ms": sparse_hier["root"][side]["library_ms"],
-    } for side in ("tn", "nt")] + [{
-        # the same products at a 1/SPH_NODE node's gathered operand
-        "name": f"ell_spmm (sparse hierclust 1/{SPH_NODE} node {side}, k=2, "
-                f"gathered operand)",
-        "route": "cuda",
-        "source": ell_spmm.SOURCE,
-        "replaces": ell_spmm.REPLACES["P2"],
-        "launches": sparse_hier["launches"][side],
-        "max_abs_err": sparse_hier["node"][side]["err"],
-        "ms": sparse_hier["node"][side]["ell_ms"],
-        "plain_ms": sparse_hier["node"][side]["plain_ms"],
-        "bound_ms": sparse_hier["node"][side]["bound_ms"],
-        "bound_by": sparse_hier["node"][side]["bound_by"],
-        "library_ms": sparse_hier["node"][side]["library_ms"],
-    } for side in ("tn", "nt")]}))
+        "source": seg_spmm.SOURCE,
+        "replaces": seg_spmm.REPLACES,
+        "launches": sparse_hier["launches"],
+        "max_abs_err": max(seg["max_abs_err"], sparse_hier[key][side]["err"]),
+        "ms": sparse_hier[key][side]["device_ms"],
+        "plain_ms": sparse_hier[key][side]["plain_ms"],
+        "bound_ms": sparse_hier[key][side]["bound_ms"],
+        "bound_by": sparse_hier[key][side]["bound_by"],
+        "library_ms": sparse_hier[key][side]["library_ms"],
+    } for where, key in (("root", "root_static"),
+                         (f"1/{SPH_NODE} node", "node"))
+        for side in ("tn", "nt")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

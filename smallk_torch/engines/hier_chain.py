@@ -1,5 +1,6 @@
-"""Multi-split chain for HierNMF2 on a dense operand — port of
-smallk_tpu/engines/hier_chain.py (its dense gather path).
+"""Multi-split chain for HierNMF2 — port of smallk_tpu/engines/
+hier_chain.py (its dense gather path, its sparse chunk path and its masked
+branch).
 
 Reference: the sequential tree loop in clust_hier_generic.hpp:77-238 (pop
 the max-priority leaf, split it, factor both children, repeat), which
@@ -13,22 +14,28 @@ CHAIN_SEG splits a segment:
     (one (m, 2) row a node) stay on the card; a step pops the
     max-priority leaf (argmax, first max, as Tree.min_max_leaf_priorities),
     partitions its documents by its stored labels and gathers each child's
-    columns into the buffer of its bucket width (the runner's
-    `dense_operand`, whose step graphs the sequential engine shares);
+    columns into the buffer of its width, the runner's operand and rule
+    (whose step graphs the sequential engine shares): a dense child's
+    bucket width (`dense_operand`); a sparse child's chunk width, the rung
+    at or above max(its documents, its chunks) (the reference's sizing,
+    smallk_tpu/engines/hier_chain.py:399-411), into the static operand
+    from the chunk table's device plan of its mask (`sparse_operand`,
+    `CscChunks.gather_device`), or past the cut-over the masked view of
+    the root (`masked_operand`; the reference's _child_solve_masked);
   - the two children are solved one after another, each at its own bucket
     width, as the sequential engine solves them;
-  - the host reads once a split besides the children's solve loops: their
-    priorities and gate flags together with the next pop's leaf and subset
-    sizes (the commit is written before the read; a split that bails is
+  - the host reads once a split besides the children's solve loops and
+    operand builds: their priorities and gate flags together with the next
+    pop's leaf, subset sizes and (sparse) chunk counts (the commit is written before the read; a split that bails is
     rolled back by rebuilding the device state);
   - at the end of a segment the host replays the committed splits through
     the ordinary Tree methods, asserting the pop order, and reads the
     committed children's labels in one copy.
 
 Bit-parity with the sequential engine is by construction: both solve a
-child on the same operand (its bucket width's buffer, padded with zero
-columns) with the same kept graphs; initializer seeds come from the same
-host stream (left child, then right child), each child's W0 and H0 drawn
+child on the same operand (its width's buffer, padded with zero columns or
+pad chunks; or the same masked view) with the same kept graphs;
+initializer seeds come from the same host stream (left child, then right child), each child's W0 and H0 drawn
 from its own generator at full width and gathered, and a bail restores the
 stream to the split's start.
 
@@ -36,13 +43,14 @@ Anything off the common path bails to the sequential engine for one split,
 then the chain resumes: TrialSplit's unbalanced gate (checked on the
 device with the reference's conservative margin, so a borderline split
 bails and the host's gate decides), children with <= 3 documents, a
-solver failure (the retry ladder), subsets wider than the ladder, and a
-pop-order mismatch.  With `restarts` > 1 each child runs its R draws, as
+solver failure (the retry ladder), dense subsets wider than the ladder, and
+a pop-order mismatch.  With `restarts` > 1 each child runs its R draws, as
 the sequential engine does, and keeps its best.
 
-The chain runs only on the common fast path: a dense operand, random or
-spectral init, RANK2, no initdir, and no test interrupt.  Checkpoints are
-written at segment granularity (clust_hier saves after every segment).
+The chain runs only on the common fast path: a dense operand or a sparse
+one with its chunk table, random or spectral init, RANK2, no initdir, and
+no test interrupt.  Checkpoints are written at segment granularity
+(clust_hier saves after every segment).
 
 On an H100 at the Reuters shape the chain is no faster than the
 sequential engine once that one keeps a graph a bucket width too
@@ -66,7 +74,7 @@ CHAIN = True          # run the multi-split chain where it is available
 CHAIN_SEG = 32        # splits a segment between host replays
 # Telemetry of the most recent clust_hier run, and its bails by reason:
 # "gate" (the unbalanced gate), "small" (a child of <= 3 documents),
-# "failed" (a solver failure), "wide" (a subset past the ladder), "pop"
+# "failed" (a solver failure), "wide" (a dense subset past the ladder), "pop"
 # (a pop order the host tree does not share)
 LAST_STATS = {"segments": 0, "committed": 0, "bails": 0, "resyncs": 0}
 LAST_BAILS: dict = {}
@@ -93,8 +101,9 @@ class ChainDriver:
     @staticmethod
     def available(runner, opts, interrupt_after) -> bool:
         return (CHAIN
-                and isinstance(runner.a_op, DenseAOp)
-                and len(bucket_widths(runner.n)) > 0
+                and ((isinstance(runner.a_op, DenseAOp)
+                      and len(bucket_widths(runner.n)) > 0)
+                     or runner.chunks is not None)
                 and runner.inits.initdir is None
                 and opts.init_method in ("random", "spectral")
                 and opts.priority_method in ("ndcg", "size_ndcg")
@@ -152,15 +161,30 @@ class ChainDriver:
 
     def _pop(self):
         """The next pop on the device: (p, mask0, mask1) and the values
-        the host reads, [max pop priority, p, |left|, |right|]."""
+        the host reads, [max pop priority, p, |left|, |right|], then on a
+        chunk table the children's chunk counts."""
         ppl = torch.where(self.leaf, self.pop, -torch.inf)
         p = torch.argmax(ppl)
         go_left = self.labels[p]
         in_p = self.assign == p
         mask0, mask1 = in_p & go_left, in_p & ~go_left
-        row = torch.stack([ppl[p], p.double(), mask0.sum().double(),
-                           mask1.sum().double()])
-        return (p, mask0, mask1), row
+        vals = [ppl[p], p.double(), mask0.sum().double(),
+                mask1.sum().double()]
+        chunks = self.runner.chunks
+        if chunks is not None:
+            vals += [torch.where(mk, chunks.cnt_dev, 0).sum().double()
+                     for mk in (mask0, mask1)]
+        return (p, mask0, mask1), torch.stack(vals)
+
+    def _widths(self, sizes, chunk_counts):
+        """Each child's width, the runner's rule: a dense child's bucket
+        (None past the ladder: the split bails), a sparse child's chunk
+        width (None: the masked view)."""
+        runner = self.runner
+        if runner.chunks is None:
+            return tuple(runner.width(s) for s in sizes)
+        return tuple(runner.chunk_width(s, int(c))
+                     for s, c in zip(sizes, chunk_counts))
 
     # --- segments ------------------------------------------------------------
 
@@ -183,17 +207,17 @@ class ChainDriver:
         n_steps = min(CHAIN_SEG, (num_clusters - 1) - i)
         committed, outcome, reason = [], "ok", None
         for s in range(n_steps):
-            (p_t, mask0, mask1), (maxpp, p, s0, s1) = self._head
+            (p_t, mask0, mask1), (maxpp, p, s0, s1, *counts) = self._head
             p, s0, s1 = int(p), int(s0), int(s1)
             if i + s > 0 and maxpp < 0:
                 outcome = "done"
                 break
-            widths = (runner.width(s0), runner.width(s1))
+            widths = self._widths((s0, s1), counts)
             if (i + s == 0) != (p == self.nc):
                 reason = "pop"
             elif min(s0, s1) <= 3:
                 reason = "small"
-            elif None in widths:
+            elif None in widths and runner.chunks is None:
                 reason = "wide"
             else:
                 state = rng.get_state()
@@ -219,6 +243,19 @@ class ChainDriver:
         LAST_STATS["committed"] += i_next - i
         return i_next, outcome
 
+    def _operand(self, mask, ix, width):
+        """(operand, kept graphs, masked) of a child: the runner's dense
+        operand at its bucket width, its chunk operand at its chunk width
+        (the device plan of `mask`), or the masked view (width None on a
+        chunk table)."""
+        runner = self.runner
+        if runner.chunks is None:
+            return (*runner.dense_operand(ix, width), False)
+        if width is None:
+            return runner.masked_operand(ix), None, True
+        return (*runner.sparse_operand(
+            runner.chunks.gather_device(mask, width), width), False)
+
     def _split(self, i, p_t, p, masks, sizes, widths, seeds, opts):
         """Split `i` of leaf p: gather and solve each child, gates, commit
         on the device, and the next pop.  Returns (the split's record for
@@ -228,21 +265,25 @@ class ChainDriver:
         idx, solved = [], []
         for mask, seed, width in zip(masks, seeds, widths):
             ix = torch.nonzero(mask).squeeze(1)
-            op, graphs = runner.dense_operand(ix, width)
+            op, graphs, masked = self._operand(mask, ix, width)
             idx.append(ix)
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
 
-            def draw(gen=gen, ix=ix, width=width):
+            def draw(gen=gen, ix=ix, w=op.shape[1], masked=masked):
+                # H at full width, then gathered (the masked view keeps it
+                # whole), as the sequential engine draws it
                 W0 = torch.rand((self.m, 2), generator=gen,
                                 dtype=runner.dtype, device=dev)
                 H0 = torch.rand((2, n), generator=gen, dtype=runner.dtype,
                                 device=dev)
-                return W0, gather_columns(H0, ix, width)
+                return W0, H0 if masked else gather_columns(H0, ix, w)
 
-            solved.append(_solve_from_draw(op, draw, runner.quiet_opts,
-                                           runner.init, runner.restarts,
-                                           graphs))
+            W, H, ok, iters = _solve_from_draw(
+                op, draw, runner.quiet_opts, runner.init, runner.restarts,
+                graphs)
+            solved.append((W, H.index_select(1, ix) if masked else H, ok,
+                           iters))
         if not all(r[2] for r in solved):
             return None, "failed"
 

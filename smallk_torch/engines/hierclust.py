@@ -5,23 +5,26 @@ Reference: hierclust/include/clust_hier_generic.hpp (ClustHier :77-238,
 TrialSplit :245-376, ActualSplit :383-517), hierclust/include/
 clust_flat_generic.hpp (ClustFlat).
 
-Each node is factored on A's columns at its document subset; the full
-operand serves the root.  On a dense A the subset is one `index_select` on
-the device into the buffer of the bucket ladder's next width, padded with
-zero columns (`bucket_width`), so that a run's solves share a few shapes
-and, with KEEP_GRAPHS, one captured step graph a width (solvers/graph.py);
-the rank-2 solve's two A-products of an f32 factor go to K3 (ops.aop), so
-a bf16 A is never upcast.  A sparse A too large to densify is the root's
-bucketed-ELL operand (ops/ell.py) plus its CSC arrays on the device
-(ops/ell_cols.CscColumns), from which each node's operand is gathered on
-the device at any width (on an H100 the gathered operand's two products
-took 0.32-1.08 ms at every share of the documents from 1/8 to 7/8, the
-masked view of the root 2.71 ms: chip_smoke.py --cols, PERF.md); an
-initdir run and a prebuilt sparse operand without its host matrix solve
-every node on the full-width masked view (ops/aop.MaskedAOp) instead, as
-the reference's initdir runs do.  Tree bookkeeping and document
-partitioning are host-side numpy; a node's W and H stay on the device,
-and the host reads back its split labels and priority.
+Each node is factored on A's columns at its document subset.  On a dense A
+the subset is one `index_select` on the device into the buffer of the
+bucket ladder's next width, padded with zero columns (`bucket_width`), so
+that a run's solves share a few shapes and, with KEEP_GRAPHS, one captured
+step graph a width (solvers/graph.py); the rank-2 solve's two A-products
+of an f32 factor go to K3 (ops.aop), so a bf16 A is never upcast.  A sparse
+A too large to densify is the bucketed-ELL operand (ops/ell.py) plus its
+chunk table on the device (ops/ell_cols.CscChunks, the reference's
+chunk-expanded table): each node, the root too, is
+gathered from it into the static-shape operand of its chunk width
+(ChunkColsAOp: the ladder's rung at or above the subset's chunks and
+documents, the reference's _chunk_bucket), whose products run through
+seg_spmm with a launch shape fixed by the width, so one kept graph a width
+serves every node of it as on the dense path; from MASKED_SHARE of the
+table's chunks up a node solves on the masked view of the root
+(ops/aop.MaskedAOp).  An initdir run and a prebuilt sparse operand without
+its host matrix solve every node on the masked view, as the reference's
+initdir runs do.  Tree bookkeeping and document partitioning are
+host-side numpy; a node's W and H stay on the device, and the host reads
+back its split labels and priority.
 
 Random mode draws each node's initializers with a `torch.Generator`
 seeded from the host stream (`Random.device_key_seed`): W0 (m, 2) and H at
@@ -29,14 +32,14 @@ full width, then H's subset columns, as the reference does.  Torch cannot
 reproduce the reference's threefry draws, so random-mode trees match the
 reference statistically, not bit for bit; initdir mode matches it exactly.
 
-On the dense random and spectral path the multi-split chain
-(engines/hier_chain.py) runs the splits and hands any split off its common
-path back to the loop here, one split at a time.
+On the random and spectral path (a dense operand, or a sparse one with its
+chunk table) the multi-split chain (engines/hier_chain.py) runs the splits
+and hands any split off its common path back to the loop here, one split
+at a time.
 
-Not ported: the chunk ladder of the sparse subsets and the chain's sparse
-branches (ROADMAP slice 14b-ii), speculation, the prefetch pool, bit-packed
-results and the dispatch-budget segmentation (workarounds for a
-high-latency TPU link), and `mesh`.
+Not ported: speculation, the prefetch pool, bit-packed results and the
+dispatch-budget segmentation (workarounds for a high-latency TPU link),
+and `mesh`.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from ..common.rng import Random, random_matrix
 from ..io.delimited import load_delimited
 from ..ops.aop import DenseAOp, MaskedAOp, as_aop
 from ..ops.dense import gemm_nt, gram
-from ..ops.ell_cols import CscColumns
+from ..ops.ell_cols import ChunkColsAOp, CscChunks
 from ..solvers.nnls import nnls_hals
 from ..solvers.rank2 import spectral_init_rank2
 from ..solvers.solve import nmf_solve, reference_pg1
@@ -65,40 +68,73 @@ from .priority import compute_priority, compute_priority_device
 from .tree import DeviceColumn, Tree, _host
 
 
-# node operands built since the last reset, by tier; the only places they
-# grow are in `_Rank2Runner._subset`
+# sparse node operands built since the last reset, by tier (the static
+# operand, the masked view); the only places they grow are
+# `_Rank2Runner.sparse_operand` and `masked_operand`
 gathered_operands = 0
 masked_operands = 0
 
-# The bucket ladder of dense node subsets: powers of two from BUCKET_MIN to
-# BUCKET_POW2_MAX, then steps of BUCKET_STEP (the reference's ladder shape,
-# smallk_tpu/engines/hierclust.py:100-127; its rungs from the H100 sweep of
-# chip_smoke.py --ladder, PERF.md §7).  Only rungs below n are used: a
-# wider subset solves at its exact width.
+# The bucket ladder of node subsets: powers of two from BUCKET_MIN to
+# BUCKET_POW2_MAX, then steps of BUCKET_STEP, which grow with the width past
+# 8 * BUCKET_STEP (BUCKET_STEP * (w // (8 * BUCKET_STEP)), about 12.5%): the
+# reference's ladder, smallk_tpu/engines/hierclust.py:113-127; its rungs
+# from the H100 sweep of chip_smoke.py --ladder, PERF.md §7.  A dense subset
+# takes only rungs below n (a wider one solves at its exact width); a sparse
+# one takes the rung at or above its chunk count and its document count.
 BUCKET_MIN = 512
 BUCKET_POW2_MAX = 4096
 BUCKET_STEP = 2048
 
 # Module switch, as solvers/graph.CAPTURE (chip_smoke.py times the engine
-# with it off and on; not an option of the user's): dense subsets gather
-# into one buffer a bucket width and keep the solve's captured step graph
-# on it for the run, so that a later solve at that width replays it; off,
-# each solve captures a graph of its own and releases it
+# with it off and on; not an option of the user's): node subsets gather
+# into one operand buffer a bucket width and keep the solve's captured step
+# graph on it for the run, so that a later solve at that width replays it;
+# off, each solve captures a graph of its own and releases it
 KEEP_GRAPHS = True
+
+# Sparse node operands: a sparse A's nodes are gathered from its chunk table
+# (ops/ell_cols.CscChunks) into the static-shape operand of their chunk
+# width (ChunkColsAOp).  A node whose width reaches MASKED_SHARE of the
+# table's chunks solves on the masked view of the root instead (the
+# reference's cut-over is 0.5, smallk_tpu/engines/hierclust.py:709, a v5e
+# constant).  On an H100 80GB HBM3 (700 W) at 50,000 x 1,000,000 (bf16 A,
+# k = 2; chip_smoke.py --cols, PERF.md) the static operand's two products
+# took 0.29, 0.54, 0.98, 1.44 and 1.70 ms at 1/8, 1/4, 1/2, 3/4 and 7/8 of
+# the documents, the masked view 2.69-2.73 ms at every share, and the
+# full-width static operand 1.67-1.95 ms: no share sends a node to the
+# masked view.  For the same reason the root of a sparse A with a chunk
+# table solves on the full-width static operand and not on the
+# bucketed-ELL operand, whose two products took 2.65 ms (0.65 + 2.00).
+MASKED_SHARE = float("inf")
+
+
+def _ladder():
+    """The ladder's rungs, ascending, without end."""
+    w = BUCKET_MIN
+    while True:
+        yield w
+        w = (w * 2 if w < BUCKET_POW2_MAX
+             else w + BUCKET_STEP * max(1, w // (8 * BUCKET_STEP)))
 
 
 def bucket_widths(n: int) -> tuple:
     """The ladder's rungs below n, ascending."""
-    out, w = [], BUCKET_MIN
-    while w < n:
+    out = []
+    for w in _ladder():
+        if w >= n:
+            return tuple(out)
         out.append(w)
-        w = w * 2 if w < BUCKET_POW2_MAX else w + BUCKET_STEP
-    return tuple(out)
+
+
+def bucket_for(size: int) -> int:
+    """The smallest rung >= size."""
+    return next(w for w in _ladder() if w >= size)
 
 
 def bucket_width(size: int, n: int):
     """The smallest rung >= size below n, or None (exact width)."""
-    return next((w for w in bucket_widths(n) if w >= size), None)
+    w = bucket_for(size)
+    return w if w < n else None
 
 
 def gather_columns(A, idx, width: int, out=None):
@@ -225,16 +261,16 @@ class _Rank2Runner:
     ladder (clust_hier_generic.hpp:123-151, 435-472)."""
 
     def __init__(self, a_op, opts: ClustOptions, inits: _InitializerSource,
-                 stats: ClustStats, dtype, host_A=None, cols=None):
+                 stats: ClustStats, dtype, host_A=None, chunks=None):
         self.a_op = a_op
         self.opts = opts
         self.inits = inits
         self.stats = stats
         self.dtype = dtype
         self.device = a_op.device
-        # a sparse operand's CSC arrays on the device (every node but the
-        # root gathers its operand from them), or None
-        self.cols = cols
+        # a sparse operand's chunk table on the device (the nodes' static
+        # operands are gathered from it), or None
+        self.chunks = chunks
         # host-side A (scipy/ndarray), initdir runs only: provides each
         # subset's row support for the reference's compacted-W0 semantics
         self.host_A = host_A
@@ -246,8 +282,8 @@ class _Rank2Runner:
         # reference's fused node programs do not
         self.quiet_opts = dataclasses.replace(opts.nmf_opts, verbose=False)
         self.m, self.n = a_op.shape
-        # with KEEP_GRAPHS, width -> (the width's operand buffer, the step
-        # graphs kept on it): every dense subset of that bucket solves there
+        # with KEEP_GRAPHS, width -> (the width's operand buffers, the step
+        # graphs kept on them): every subset of that bucket solves there
         self.slots = {}
 
     def _wp(self, w_parent):
@@ -286,6 +322,42 @@ class _Rank2Runner:
         gather_columns(self.a_op.A, idx, width, out=slot[0].A)
         return slot
 
+    def chunk_width(self, docs: int, chunks: int, root: bool = False):
+        """The width a sparse subset of `docs` documents and `chunks` chunks
+        solves at on the chunk table: the ladder's rung at or above both
+        (the reference's _chunk_bucket), or None (the masked view) from
+        MASKED_SHARE of the table's chunks up; the root has no cut-over."""
+        wc = bucket_for(max(docs, chunks))
+        if not root and wc >= MASKED_SHARE * (self.chunks.C + 1):
+            return None
+        return wc
+
+    def sparse_operand(self, plan, width):
+        """(operand, kept graphs) of a sparse subset: its chunk plan `plan`
+        ((idx_docs, idx_chunks, slot) of `CscChunks.gather_host` or
+        `gather_device`) loaded into an operand of `width`: with
+        KEEP_GRAPHS the width's buffers, with the graphs kept on them (the
+        operand stays valid until the next subset of that width); else
+        buffers of its own, whose solve keeps no graph."""
+        global gathered_operands
+        gathered_operands += 1
+        if not KEEP_GRAPHS:
+            return ChunkColsAOp(self.chunks, width).load(*plan[1:]), None
+        slot = self.slots.get(width)
+        if slot is None:
+            slot = self.slots[width] = (ChunkColsAOp(self.chunks, width), {})
+        slot[0].load(*plan[1:])
+        return slot
+
+    def masked_operand(self, idx):
+        """The full-width operand with every column but `idx`'s masked
+        out."""
+        global masked_operands
+        masked_operands += 1
+        mask = torch.zeros(self.n, dtype=self.dtype, device=self.device)
+        mask[idx] = 1.0
+        return MaskedAOp(self.a_op, mask)
+
     def close(self) -> None:
         """Release every kept graph and operand buffer."""
         for _, graphs in self.slots.values():
@@ -296,24 +368,30 @@ class _Rank2Runner:
     def _subset(self, subset):
         """(operand, index tensor, masked, kept graphs) for a node: A's
         columns at `subset` (a dense A: at the subset's bucket width,
-        `dense_operand`), or (masked: a sparse operand with no columns to
-        gather from) the full-width view with every other column masked
-        out; the full operand for the root (subset None)."""
-        global gathered_operands, masked_operands
-        if subset is None:
-            return self.a_op, None, False, None
+        `dense_operand`; a sparse A: gathered from its chunk table at the
+        subset's chunk width, `sparse_operand`), or (masked: past the chunk
+        ladder's cut-over, or a sparse operand with no columns to gather
+        from) the full-width view with every other column masked out.  The
+        root (subset None) takes the full-width static operand of a chunk
+        table where there is one, else the full operand."""
+        root = subset is None
+        if root:
+            if self.chunks is None:
+                return self.a_op, None, False, None
+            subset = np.arange(self.n)
         idx = torch.as_tensor(np.asarray(subset), dtype=torch.long,
                               device=self.device)
         if isinstance(self.a_op, DenseAOp):
             op, graphs = self.dense_operand(idx, self.width(len(subset)))
             return op, idx, False, graphs
-        if self.cols is not None:
-            gathered_operands += 1
-            return self.cols.gathered(idx), idx, False, None
-        masked_operands += 1
-        mask = torch.zeros(self.n, dtype=self.dtype, device=self.device)
-        mask[idx] = 1.0
-        return MaskedAOp(self.a_op, mask), idx, True, None
+        if self.chunks is not None:
+            wc = self.chunk_width(len(subset),
+                                  self.chunks.subset_chunk_count(subset), root)
+            if wc is not None:
+                op, graphs = self.sparse_operand(
+                    self.chunks.gather_host(subset, wc), wc)
+                return op, idx, False, graphs
+        return self.masked_operand(idx), idx, True, None
 
     def _record(self, success, iterations):
         if success:
@@ -360,7 +438,7 @@ class _Rank2Runner:
                 if masked:
                     H = H.index_select(1, idx)
                 elif idx is not None:
-                    H = H[:, :len(subset)]  # the padding's columns go
+                    H = H[:, :idx.shape[0]]  # the padding's columns go
                 left = H[0, :] > H[1, :]
                 pr = compute_priority_device(wp, W)
                 split = torch.any(left) & torch.any(~left)
@@ -551,22 +629,22 @@ def _load_hier_checkpoint(path, node_count, config):
 
 
 def _operand(A, opts: ClustOptions, device, host_A=None):
-    """(a_op, cols): the operand the root is factored on, and for a sparse
-    one the CSC arrays on the card that the other nodes gather from (None for
-    a dense operand and in initdir mode, whose nodes solve on the masked
-    view as the reference's do).  A host matrix is densified on `device`
-    when its dense image fits the densify threshold, else it becomes a
-    bucketed-ELL operand; a prebuilt operand comes back as it is, and a
-    sparse one takes its columns from the scipy `host_A`, if given."""
+    """(a_op, chunks): the operand the root is factored on, and for a
+    sparse one the chunk table on the card that the nodes gather from (None
+    for a dense operand and in initdir mode, whose nodes solve on the masked
+    view as the reference's do).  A host matrix is densified on `device` when its
+    dense image fits the densify threshold, else it becomes a bucketed-ELL
+    operand; a prebuilt operand comes back as it is, and a sparse one takes
+    its columns from the scipy `host_A`, if given."""
     dtype = opts.nmf_opts.a_dtype or opts.nmf_opts.dtype
     a_op = as_aop(A, dtype=dtype, device=device)
     host = A if sp.issparse(A) else host_A
-    cols = None
+    chunks = None
     if (not isinstance(a_op, DenseAOp) and sp.issparse(host)
             and not opts.initdir):
-        cols = CscColumns.from_scipy(host, dtype=a_op.dtype,
-                                     device=a_op.device)
-    return a_op, cols
+        chunks = CscChunks.from_scipy(host, dtype=a_op.dtype,
+                                      device=a_op.device)
+    return a_op, chunks
 
 
 def clust_hier(A, opts: ClustOptions, rng: Random,
@@ -577,7 +655,8 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     """Build the hierarchical clustering tree on `device` (the card unless
     the caller asks for the CPU; a prebuilt operand keeps its own).
     `host_A`, the host matrix of a prebuilt operand, gives a sparse one its
-    gathered node operands and initdir runs their row support.
+    chunk table (its nodes' static operands) and initdir runs their row
+    support.
 
     Reference: ClustHier (clust_hier_generic.hpp:77-238).
     Returns (tree, stats).
@@ -591,7 +670,7 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     stats = stats if stats is not None else ClustStats()
     opts.validate()
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op, cols = _operand(A, opts, device, host_A)
+    a_op, chunks = _operand(A, opts, device, host_A)
     setup(a_op.device)
     m, n = a_op.shape
 
@@ -606,7 +685,7 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
         elif isinstance(A, np.ndarray):
             host_A = A
     runner = _Rank2Runner(a_op, opts, inits, stats, dtype, host_A=host_A,
-                          cols=cols)
+                          chunks=chunks)
 
     W = left = None
     start_i = 0

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "masked_gj": {
@@ -67,6 +68,15 @@ SIGNATURES = {
            for pair in ("f32_f32", "bf16_f32", "f8_f32", "f32_bf16",
                         "f64_f64")},
         "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
+    },
+    "seg_spmm": {
+        # key, key_shift, gather, val, table, ld_row, ld_col, B, k, out,
+        # out_row, out_col, n_out, head, tail, n_live, cap, stream, device
+        **{f"smallk_seg_spmm_{pair}": ((_P, _I, _P, _P, _P, _L, _L, _I, _I,
+                                        _P, _L, _L, _I, _P, _P, _P, _L, _P,
+                                        _I), _I)
+           for pair in ("f32_f32", "bf16_f32", "f8_f32", "f64_f64")},
+        "smallk_seg_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
 }
 

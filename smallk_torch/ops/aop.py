@@ -226,9 +226,10 @@ class MaskedAOp:
       (A diag(m)) H^T = A (H * m[None, :])^T
     A masked column behaves as a removed one for every solver: its W'A
     column is 0, so the rank-2 H update zeroes it and it adds nothing to
-    A H^T.  Hierclust solves a node on it when it has no column table to
+    A H^T.  Hierclust solves a node on it when it has no chunk table to
     gather the node's operand from (ops/ell_cols.py): in initdir mode, and
-    for a prebuilt sparse operand that comes with no host matrix.
+    for a prebuilt sparse operand that comes with no host matrix; and past
+    the chunk tier's cut-over (engines/hierclust.MASKED_SHARE).
     """
 
     def __init__(self, base, mask):

@@ -4,35 +4,36 @@ smallk_tpu/ops/ell_cols.py (CscChunks, GatheredColsAOp).
 Hierclust factors each tree node on A's columns at the node's documents
 (the reference's `SubMatrixColsCompact`, sparse_matrix_impl.hpp:479), so a
 node's product cost should scale with the subset's nonzeros, not with A.
-The JAX package cuts every column into fixed-length chunks and buckets the
-chunk counts, so that XLA compiles few programs.  The port has no such
-constraint and gathers each node at its exact width:
+As the JAX package does, the port cuts every column into chunks of L0
+nonzeros once (`CscChunks`, on the device) and gathers a node's chunks
+into an operand of a fixed shape a width (`ChunkColsAOp`, the reference's
+GatheredColsAOp): the width is a rung of hierclust's bucket ladder, the
+buffers are allocated once a width and each node's build writes into
+them, and both products run through kernels/seg_spmm with a launch shape
+fixed by (width, L0).  So one captured step graph a width serves every
+node of that width (engines/hierclust.KEEP_GRAPHS), as on the dense path.
 
-  - `CscColumns` holds the corpus's CSC arrays on the device, copied there
-    once; no node builds anything on the host.
-  - `CscColumns.gathered(idx)` builds, on the device, the node's operand
-    `GatheredColsAOp`: the subset's columns as ELL buckets (W'A) and, after
-    one stable sort of the subset's nonzeros by term, its rows as ELL
-    buckets (A H').  A bucket holds the slices whose length rounds up to
-    one power of two (8 to _MAX_LEN), padded with the one-past-the-end
-    sentinel; a longer slice is cut into pieces of _MAX_LEN, summed in two
-    launches; a slice with no nonzeros is in no bucket.
-  - Both products run through the ELL gather-SpMM (kernels/ell_spmm.py),
-    the hand-written CUDA kernel on the card and its plain version on the
-    CPU, into a zeroed output.
+The subset keeps its given order: local column i is document subset[i],
+as on the dense path.
 
-The subset keeps its given order: local column i is document idx[i], as
-on the dense path.
+Why this operand: on an H100 80GB HBM3 (700 W) at 50,000 x 1,000,000 (73 M
+nonzeros, bf16 values, f32 factors, k = 2; chip_smoke.py --cols and phase
+`sparse chain`, PERF.md) the earlier operand, gathered at each node's exact
+width (ELL buckets through ell_spmm, whose bucket count and sizes depend on
+the data) took 0.62 + 0.61 ms (W'A + A H') at the root against this one's
+0.66-0.93 + 0.99-1.04, but it could keep no graph: sparse hierclust ran
+3.36-3.59 s with 27 graph captures, and 3.10-3.23 s on this operand with
+10.  Its products' XLA formulation in torch ops (torch.segment_reduce)
+took 1.6 + 63.6 ms at the root.
 
-Why ELL buckets through ell_spmm and not the reference's formulation in
-torch ops (a gather of factor rows, then a sorted segment sum,
-`torch.segment_reduce`): the rule is the formulation whose two k = 2
-products together take less time at the root and at a node of 1/8 of the
-documents.  On an H100 80GB HBM3 (700 W) at 50,000 x 1,000,000 (73 M
-nonzeros, bf16 values, f32 factors; chip_smoke.py --cols, PERF.md): ELL
-0.65 + 0.57 ms at the root and 0.12 + 0.24 at 1/8 (W'A + AH'), torch ops
-1.65 + 63.4 and 0.32 + 8.07 (its AH' walks each term's segment in one
-thread).
+The chunk length L0 is the reference's rule, the median column length
+rounded up to a power of two (128 on that corpus, 1.91x padding).  On the
+same card the root's two products took 1.67, 1.68, 1.75 and 1.95 ms at
+L0 = 16, 32, 64 and 128 and a 1/8 node's 0.249, 0.244, 0.264 and 0.283 ms
+(padding 1.10, 1.21, 1.41, 1.91), but a shorter chunk widens the operand
+(more chunks a node; the root's width 3.04 M at 32, 1.19 M at 128) and
+every H-side step of the solve with it: sparse hierclust took 3.50-3.51 s
+at L0 = 32, 3.53-3.60 at 64 and 3.37-3.40 at 128 (chip_smoke.py --cols).
 """
 
 from __future__ import annotations
@@ -41,215 +42,264 @@ import numpy as np
 import torch
 
 from ..common.device import setup, storage_dtype
-from ..kernels.ell_spmm import Buckets, ell_spmm, ell_spmm_buckets
+from ..kernels.seg_spmm import seg_spmm, sum_dtype
 from .ell import _to_storage
 
-_MIN_LEN = 8  # shortest bucket length, as the bucketed-ELL operand's
-# Longest bucket length.  A slice longer than this (a term in most of a
-# node's documents) is cut into pieces of this length, summed into a
-# table of partial rows by one launch and the pieces then into the
-# slice's row by a second.  ell_spmm shares a long row among at most 32
-# warps, so uncut, the corpus's most frequent term (in ~92% of the
-# documents, ~900 k entries) still walks chains of ~900 entries a lane:
-# AH' at 50,000 x 1,000,000 on an H100 took 1.20 ms uncut against 0.57
-# cut, and at a 1/8 node 0.230 against 0.235 (chip_smoke.py --cols;
-# PERF.md).
-_MAX_LEN = 1024
+
+# The chunk length's clamp (chunk_length)
+L0_MIN, L0_MAX = 8, 256
 
 
-def _acc_dtype(dtype):
-    """The sums' dtype: f64 for f64 storage, else f32."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _fill(starts, lens, L, minor, vals, sentinel):
-    """(idx int32 (g, L), vals (g, L)): row r holds entries starts[r] ..
-    starts[r] + lens[r] - 1 of `minor` and `vals`, then the sentinel and
-    zeros."""
-    lane = torch.arange(L, device=lens.device)
-    valid = lane[None, :] < lens[:, None]
-    pos = torch.where(valid, starts[:, None] + lane[None, :], 0)
-    return (torch.where(valid, minor[pos], sentinel).to(torch.int32),
-            torch.where(valid, vals[pos], 0).contiguous())
+def chunk_length(lens) -> int:
+    """The chunk length L0 for columns of `lens` nonzeros: the median
+    nonzero length rounded up to a power of two, clamped to [L0_MIN,
+    L0_MAX] (the reference's rule, smallk_tpu/ops/ell_cols.py:60-62; the
+    H100's sweep kept it, see the module's docstring)."""
+    lens = np.asarray(lens)
+    med = int(np.median(lens[lens > 0])) if (lens > 0).any() else L0_MIN
+    return min(L0_MAX, max(L0_MIN, _next_pow2(med)))
 
 
-def _ell_family(lens, starts, minor, vals, sentinel):
-    """One family of ELL buckets over the slices with nonzeros: slice s
-    holds entries starts[s] .. starts[s] + lens[s] - 1 of `minor` (their
-    minor ids) and `vals`.  Returns (buckets, split):
+class CscChunks:
+    """A sparse matrix's columns cut into chunks of L0 nonzeros (the last of
+    a column padded), on the device: `rows` (C+1, L0) int32 with the
+    sentinel row m on pads, `vals` (C+1, L0) in the storage dtype, 0 on
+    pads, `chunk_doc` (C+1,) int32, chunk C the all-pad chunk with the
+    sentinel document n; on the host `cnt` (n,) chunks a column, `lens` (n,)
+    nonzeros a column and `starts` (n+1,) the first chunk of each column.
+    `cnt_dev` is `cnt` on the device (the chain sizes its children by it)."""
 
-      - buckets: (ids int32 (g,), idx int32 (g, L), vals (g, L)), one per
-        power-of-two length L in [_MIN_LEN, _MAX_LEN]: the slices up to
-        _MAX_LEN long, padded with `sentinel`;
-      - split, for the longer slices, or None: (idx, vals) of their pieces
-        (_MAX_LEN entries each, the last padded), and (ids, refs, ones):
-        slice ids[i]'s pieces are rows refs[i, :] of the pieces' partial
-        sums (sentinel: the piece count), each with weight 1.
-
-    A few host syncs (the set of lengths, the piece count)."""
-    segs = torch.nonzero(lens)[:, 0]
-    seg_lens = lens[segs]
-    short = seg_lens <= _MAX_LEN
-    buckets = []
-    if bool(short.any()):
-        ids, n = segs[short], seg_lens[short]
-        padded = torch.exp2(torch.ceil(torch.log2(
-            torch.clamp(n, min=_MIN_LEN).double()))).long()
-        for L in torch.unique(padded).tolist():
-            pick = padded == L
-            buckets.append((ids[pick].to(torch.int32),
-                            *_fill(starts[ids[pick]], n[pick], L, minor,
-                                   vals, sentinel)))
-    if bool(short.all()):
-        return buckets, None
-    ids, n = segs[~short], seg_lens[~short]
-    pieces = (n + _MAX_LEN - 1) // _MAX_LEN
-    total = int(pieces.sum())
-    first = torch.cumsum(pieces, 0) - pieces
-    owner = torch.repeat_interleave(
-        torch.arange(len(ids), device=lens.device), pieces,
-        output_size=total)
-    offset = (torch.arange(total, device=lens.device) - first[owner]) \
-        * _MAX_LEN
-    p_idx, p_vals = _fill(starts[ids][owner] + offset,
-                          torch.clamp(n[owner] - offset, max=_MAX_LEN),
-                          _MAX_LEN, minor, vals, sentinel)
-    lane = torch.arange(int(pieces.max()), device=lens.device)
-    valid = lane[None, :] < pieces[:, None]
-    refs = torch.where(valid, first[:, None] + lane[None, :],
-                       total).to(torch.int32)
-    ones = valid.to(_acc_dtype(vals.dtype))
-    return buckets, (p_idx, p_vals, ids.to(torch.int32), refs, ones)
-
-
-class CscColumns:
-    """A sparse matrix's CSC arrays on the device: indptr (n+1,) int64,
-    indices (nnz,) int32 row ids, data (nnz,) in the storage dtype."""
-
-    def __init__(self, shape, indptr, indices, data):
+    def __init__(self, shape, L0, rows, vals, chunk_doc, cnt, lens, starts):
         self.shape = tuple(int(s) for s in shape)
-        self.indptr = indptr
-        self.indices = indices
-        self.data = data
+        self.L0 = int(L0)
+        self.rows = rows
+        self.vals = vals
+        self.chunk_doc = chunk_doc
+        self.cnt = cnt
+        self.lens = lens
+        self.starts = starts
+        self.C = int(chunk_doc.shape[0]) - 1
+        self.cnt_dev = torch.from_numpy(cnt.astype(np.int64)).to(rows.device)
 
     @classmethod
-    def from_scipy(cls, A, dtype=torch.float32, *, device="cuda"):
-        """Copy scipy sparse `A` to `device` (the card unless the caller
-        asks for the CPU), its values rounded f64 -> f32 -> storage as the
-        bucketed-ELL operand rounds them."""
+    def from_scipy(cls, A, dtype=torch.float32, L0=None, *, device="cuda"):
+        """The chunk table of scipy sparse `A` on `device` (the card unless
+        the caller asks for the CPU), its values rounded f64 -> f32 ->
+        storage as the bucketed-ELL operand rounds them; L0 by
+        `chunk_length` unless given (a power of two)."""
         dev = setup(device)
         csc = A.tocsc()
         csc.sort_indices()
-        return cls(
-            csc.shape,
-            torch.from_numpy(csc.indptr.astype(np.int64)).to(dev),
-            torch.from_numpy(csc.indices.astype(np.int32)).to(dev),
-            _to_storage(csc.data.astype(np.float64),
-                        storage_dtype(dtype)).to(dev))
-
-    @property
-    def nnz(self) -> int:
-        return int(self.data.shape[0])
+        m, n = csc.shape
+        lens = np.diff(csc.indptr).astype(np.int64)
+        L0 = chunk_length(lens) if L0 is None else int(L0)
+        if L0 & (L0 - 1):
+            raise ValueError(f"CscChunks: L0 = {L0} is not a power of two")
+        cnt = -(-lens // L0)  # 0 chunks for an empty column
+        starts = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(cnt, out=starts[1:])
+        C = int(starts[-1])
+        # on the device: entry e of column j lands in chunk
+        # starts[j] + e // L0, lane e % L0
+        lens_d = torch.from_numpy(lens).to(dev)
+        col = torch.repeat_interleave(torch.arange(n, device=dev), lens_d,
+                                      output_size=csc.nnz)
+        within = (torch.arange(csc.nnz, device=dev)
+                  - torch.from_numpy(csc.indptr[:-1].astype(np.int64)).to(
+                      dev)[col])
+        pos = (torch.from_numpy(starts[:-1]).to(dev)[col] + within // L0) \
+            * L0 + within % L0
+        del col, within
+        rows = torch.full(((C + 1) * L0,), m, dtype=torch.int32, device=dev)
+        rows[pos] = torch.from_numpy(csc.indices.astype(np.int32)).to(dev)
+        data = _to_storage(csc.data.astype(np.float64), storage_dtype(dtype))
+        vals = torch.zeros(((C + 1) * L0,), dtype=data.dtype, device=dev)
+        vals[pos] = data.to(dev)
+        cnt_d = torch.from_numpy(cnt).to(dev)
+        chunk_doc = torch.full((C + 1,), n, dtype=torch.int32, device=dev)
+        chunk_doc[:C] = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=dev), cnt_d,
+            output_size=C)
+        return cls((m, n), L0, rows.view(C + 1, L0), vals.view(C + 1, L0),
+                   chunk_doc, cnt.astype(np.int32), lens, starts)
 
     @property
     def device(self):
-        return self.data.device
-
-    def entries(self, idx):
-        """The columns `idx`'s nonzeros on the device: (lens, starts) of
-        each column in the CSC arrays, `pos` the entries' positions there
-        in column order, `local` their local column, `terms` their row,
-        `order` the stable sort of them by term (within a term they stay in
-        local-column order) and `row_lens` the entries per term."""
-        starts = self.indptr[idx]
-        lens = self.indptr[idx + 1] - starts
-        nnz = int(torch.sum(lens))
-        local = torch.repeat_interleave(
-            torch.arange(len(idx), device=idx.device), lens, output_size=nnz)
-        first = torch.cumsum(lens, 0) - lens
-        pos = (torch.repeat_interleave(starts - first, lens, output_size=nnz)
-               + torch.arange(nnz, device=idx.device))
-        terms = self.indices[pos].long()
-        return {"lens": lens, "starts": starts, "pos": pos, "local": local,
-                "terms": terms, "order": torch.argsort(terms, stable=True),
-                "row_lens": torch.bincount(terms, minlength=self.shape[0])}
-
-    def gathered(self, idx) -> GatheredColsAOp:
-        """A[:, idx] at its exact width, built on the device."""
-        m = self.shape[0]
-        e = self.entries(idx)
-        cols = _ell_family(e["lens"], e["starts"], self.indices, self.data, m)
-        row_starts = torch.cumsum(e["row_lens"], 0) - e["row_lens"]
-        rows = _ell_family(e["row_lens"], row_starts, e["local"][e["order"]],
-                           self.data[e["pos"]][e["order"]], len(idx))
-        return GatheredColsAOp((m, len(idx)), cols, rows,
-                               int(e["pos"].numel()), self.data.dtype,
-                               self.device)
-
-
-class GatheredColsAOp:
-    """A column subset as two families of ELL buckets on the device
-    (`_ell_family`): by local column (`cols`, W'A written (k, w) by the
-    kernel's transposed mode) and by term (`rows`, A H')."""
-
-    def __init__(self, shape, cols, rows, nnz, dtype, device):
-        self._shape = tuple(int(s) for s in shape)
-        self.cols = cols
-        self.rows = rows
-        # each family's buckets recorded for the kernel once: one host
-        # call launches them all
-        self._packs = {"cols": Buckets(cols[0]), "rows": Buckets(rows[0])}
-        self.nnz = int(nnz)
-        self._dtype = dtype
-        self.device = device
-
-    @property
-    def shape(self):
-        return self._shape
+        return self.rows.device
 
     @property
     def dtype(self):
-        return self._dtype
+        return self.vals.dtype
 
     @property
-    def padded_nnz(self):
-        """Padded entries a product gathers (the larger family's)."""
-        def entries(family):
-            buckets, split = family
-            n = sum(int(idx.numel()) for _, idx, _ in buckets)
-            return n + (int(split[0].numel()) if split is not None else 0)
+    def nnz(self) -> int:
+        return int(self.lens.sum())
 
-        return max(entries(self.cols), entries(self.rows))
+    @property
+    def table_bytes(self) -> int:
+        """Device bytes of the table (rows, vals, chunk_doc)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.rows, self.vals, self.chunk_doc))
 
-    def _product(self, family, table, out_shape, transposed):
-        split = getattr(self, family)[1]
-        acc = _acc_dtype(self._dtype)
-        out = torch.zeros(out_shape, dtype=acc, device=table.device)
-        ell_spmm_buckets(self._packs[family], table, out,
-                         transposed=transposed)
-        if split is not None:
-            p_idx, p_vals, ids, refs, ones = split
-            part = torch.empty((p_idx.shape[0], table.shape[1]), dtype=acc,
-                               device=table.device)
-            ell_spmm(p_idx, p_vals, table, part)
-            ell_spmm(refs, ones, part, out, rows=ids, transposed=transposed)
-        return out
+    @property
+    def padding(self) -> float:
+        """Table entries over nonzeros (1 when no chunk is padded)."""
+        return self.C * self.L0 / max(1, self.nnz)
+
+    # --- the sequential engine's plan, on the host --------------------------
+
+    def subset_chunk_count(self, subset) -> int:
+        return int(self.cnt[np.asarray(subset)].sum())
+
+    def gather_host(self, subset, wc: int):
+        """The gather plan of a document subset padded to wc chunks and wc
+        document slots, as numpy int32 arrays (idx_docs, idx_chunks, slot):
+        slot i is document subset[i] (the subset's order, as on the dense
+        path), chunk c of the plan belongs to slot slot[c]; pads are the
+        sentinel document n, the all-pad chunk C and slot wc."""
+        subset = np.asarray(subset, dtype=np.int64)
+        if len(subset) > wc:
+            raise ValueError("gather_host: wc too small for subset docs")
+        idx_docs = np.full(wc, self.shape[1], dtype=np.int32)
+        idx_docs[: len(subset)] = subset
+        reps = self.cnt[subset]
+        total = int(reps.sum())
+        if total > wc:
+            raise ValueError("gather_host: wc too small for subset")
+        idx_chunks = np.full(wc, self.C, dtype=np.int32)
+        slot = np.full(wc, wc, dtype=np.int32)
+        base = np.repeat(self.starts[subset], reps)
+        offs = np.arange(total, dtype=np.int64) - np.repeat(
+            np.concatenate([[0], np.cumsum(reps)[:-1]]), reps)
+        idx_chunks[:total] = (base + offs).astype(np.int32)
+        slot[:total] = np.repeat(np.arange(len(subset), dtype=np.int32),
+                                 reps)
+        return idx_docs, idx_chunks, slot
+
+    # --- the chain's plan, on the device -------------------------------------
+
+    def gather_device(self, mask, wc: int):
+        """The gather plan of the documents in `mask` ((n,) bool on the
+        device), ascending, padded to wc, as int32 tensors on the device:
+        the arrays `gather_host` gives for the same ascending subset.  Two
+        host syncs (the counts of documents and chunks)."""
+        n = self.shape[1]
+        maskc = torch.cat([mask, mask.new_zeros(1)])[self.chunk_doc.long()]
+        idx_docs = _padded_nonzero(mask, wc, n)
+        idx_chunks = _padded_nonzero(maskc, wc, self.C)
+        cdocs = self.chunk_doc[idx_chunks.long()]
+        slot = torch.searchsorted(idx_docs, cdocs).to(torch.int32)
+        slot = torch.where(cdocs >= n, wc, slot)
+        return idx_docs, idx_chunks, slot
+
+
+def _padded_nonzero(mask, size: int, fill: int):
+    """The ascending positions of `mask`'s True entries, int32, padded to
+    `size` with `fill` (a host sync: the count)."""
+    pos = torch.nonzero(mask).squeeze(1).to(torch.int32)
+    if pos.numel() > size:
+        raise ValueError(f"gather_device: {pos.numel()} entries for a plan "
+                         f"of {size}")
+    out = torch.full((size,), fill, dtype=torch.int32, device=mask.device)
+    out[: pos.numel()] = pos
+    return out
+
+
+class ChunkColsAOp:
+    """A column subset of a `CscChunks` table at a fixed width wc: its
+    (m, wc) operand, column i the sum of the chunks of slot i, pad columns
+    exactly zero (the dense path's zero-pad contract).  The buffers are
+    allocated once a width and each node's `load` writes into them in
+    place (the dense path's `gather_columns(..., out=)`), so a step graph
+    captured on one node's operand replays for every node of the width:
+
+      - W'A: the plan's chunk entries in chunk order, `rows` and `vals`
+        (wc * L0), keyed by their chunk's slot `slot` (wc), each gathering
+        a row of W, written (k, wc);
+      - A H': the same entries sorted by term once a node (outside the
+        graph, as the reference hoists its row sort, smallk_tpu/ops/
+        ell_cols.py:187-197), `t_key` the terms, `t_gather` the entry's
+        slot and `t_vals`, each gathering a row of H^T;
+      - `n_tn` and `n_nt` (0-d int64 on the device): the live entries of
+        each (the plan's chunks x L0, and the subset's nonzeros: the pads'
+        sentinel term m sorts last).
+
+    Both run through kernels/seg_spmm (the CUDA kernel on the card, its
+    plain version on the CPU) with launch shapes fixed by (wc, L0)."""
+
+    def __init__(self, chunks: CscChunks, wc: int):
+        self.chunks = chunks
+        self.m = chunks.shape[0]
+        self.wc = int(wc)
+        L0, dev, dt = chunks.L0, chunks.device, chunks.dtype
+        cap = self.wc * L0
+        self.shift = L0.bit_length() - 1
+        self.rows = torch.empty(cap, dtype=torch.int32, device=dev)
+        self.vals = torch.empty(cap, dtype=dt, device=dev)
+        self.slot = torch.empty(self.wc, dtype=torch.int32, device=dev)
+        self.t_key = torch.empty(cap, dtype=torch.int32, device=dev)
+        self.t_gather = torch.empty(cap, dtype=torch.int32, device=dev)
+        self.t_vals = torch.empty(cap, dtype=dt, device=dev)
+        self.n_tn = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n_nt = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @property
+    def shape(self):
+        return (self.m, self.wc)
+
+    @property
+    def dtype(self):
+        return self.chunks.dtype
+
+    @property
+    def device(self):
+        return self.chunks.device
+
+    def load(self, idx_chunks, slot):
+        """Write the node of plan (idx_chunks, slot) (`CscChunks.gather_host`
+        or `gather_device`, wc long) into the buffers; returns self.  One
+        host sync (the plan's chunk count)."""
+        ch, dev = self.chunks, self.device
+        idx_chunks = torch.as_tensor(idx_chunks, device=dev)
+        slot = torch.as_tensor(slot, device=dev)
+        total = int((idx_chunks < ch.C).sum())
+        n = total * ch.L0
+        live = idx_chunks[:total].long()
+        rows = self.rows[:n].view(total, ch.L0)
+        torch.index_select(ch.rows, 0, live, out=rows)
+        torch.index_select(ch.vals, 0, live, out=self.vals[:n].view(
+            total, ch.L0))
+        self.slot[:total] = slot[:total]
+        order = torch.argsort(self.rows[:n], stable=True)
+        torch.index_select(self.rows[:n], 0, order, out=self.t_key[:n])
+        torch.index_select(self.vals[:n], 0, order, out=self.t_vals[:n])
+        torch.index_select(self.slot[:total], 0, order >> self.shift,
+                           out=self.t_gather[:n])
+        self.n_tn.fill_(n)
+        self.n_nt.copy_(torch.count_nonzero(self.t_key[:n] < self.m))
+        return self
 
     def mm_tn(self, W):
-        """W^T A_sub -> (k, w) in W's dtype."""
-        out = self._product("cols", W.contiguous(),
-                            (W.shape[1], self._shape[1]), True)
+        """W^T A_sub -> (k, wc) in W's dtype."""
+        out = torch.empty((W.shape[1], self.wc), dtype=sum_dtype(W.dtype),
+                          device=W.device)
+        seg_spmm(self.slot, self.rows, self.vals, W, out, self.n_tn,
+                 key_shift=self.shift, transposed=True)
         return out.to(W.dtype)
 
     def mm_nt(self, H):
-        """A_sub H^T -> (m, k) in H's dtype (H transposed once a product:
-        the kernel gathers whole rows of its table)."""
-        out = self._product("rows", H.T.contiguous(),
-                            (self._shape[0], H.shape[0]), False)
+        """A_sub H^T -> (m, k) in H's dtype (H^T read through its strides)."""
+        out = torch.empty((self.m, H.shape[0]), dtype=sum_dtype(H.dtype),
+                          device=H.device)
+        seg_spmm(self.t_key, self.t_gather, self.t_vals, H.T, out, self.n_nt)
         return out.to(H.dtype)
 
     def col_sums(self):
         """Column sums in the storage dtype, summed in the accumulator."""
-        ones = torch.ones((self._shape[0], 1), dtype=_acc_dtype(self._dtype),
+        ones = torch.ones((self.m, 1), dtype=sum_dtype(self.dtype),
                           device=self.device)
-        return self.mm_tn(ones)[0].to(self._dtype)
+        return self.mm_tn(ones)[0].to(self.dtype)

@@ -67,12 +67,13 @@ def applies(algorithm: NmfAlgorithm, W, unroll: int) -> bool:
 
 def counters():
     """(module, name) of every launch counter a captured step can move."""
-    from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop
+    from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop, seg_spmm
     from ..ops import aop
 
     return ((rank2_loop, "launches"), (hals_step, "launches"),
             (ell_spmm, "launches"), (ell_spmm, "transposed_launches"),
-            (ell_spmm, "plain_cuda_calls"), (masked_gj, "launches"),
+            (ell_spmm, "plain_cuda_calls"), (seg_spmm, "launches"),
+            (seg_spmm, "plain_cuda_calls"), (masked_gj, "launches"),
             (masked_gj, "columns"), (aop, "kernel_products"),
             (aop, "matmul_products"))
 

@@ -1,9 +1,10 @@
-"""The port's column-subset operand (ops/ell_cols.py: CscColumns,
-GatheredColsAOp) and the masked view (ops/aop.MaskedAOp) against the JAX
-package's (smallk_tpu/ops/ell_cols.py, smallk_tpu/ops/aop.py:186-226) and
-against dense products, in f64 on the CPU (the products run ell_spmm's
-plain version there).  Both sum the same terms in other orders: TOL,
-relative to the largest entry."""
+"""The port's chunk table and static-shape column-subset operand
+(ops/ell_cols.py: CscChunks, ChunkColsAOp) and the masked view
+(ops/aop.MaskedAOp) against the JAX package's (smallk_tpu/ops/ell_cols.py,
+smallk_tpu/ops/aop.py:186-226) and against dense products, in f64 on the
+CPU (the products run seg_spmm's and ell_spmm's plain versions there).
+Both sum the same terms in other orders: TOL, relative to the largest
+entry."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +16,8 @@ from smallk_tpu.ops.aop import DenseAOp as JDenseAOp
 from smallk_tpu.ops.aop import MaskedAOp as JMaskedAOp
 from smallk_tpu.ops.ell import EllAOp as JEllAOp
 from smallk_tpu.ops.ell_cols import CscChunks
-from smallk_torch.kernels import ell_spmm as kmod
 from smallk_torch.ops import ell_cols
 from smallk_torch.ops.aop import DenseAOp, MaskedAOp, as_aop
-from smallk_torch.ops.ell_cols import CscColumns
 
 torch.set_num_threads(1)
 
@@ -69,106 +68,9 @@ SUBSETS = {
 }
 
 
-def _reference_products(A, subset, W, H):
-    """The JAX package's GatheredColsAOp on the same subset (host plan,
-    pow-2 slot width), cut to the subset's columns."""
-    chunks = CscChunks.from_scipy(A, dtype=jnp.float64)
-    w = len(subset)
-    wc = 8
-    while wc < max(chunks.subset_chunk_count(subset), w):
-        wc <<= 1
-    _, idx_chunks, slot = chunks.gather_host(subset, wc)
-    op = chunks.gathered(jnp.asarray(idx_chunks), jnp.asarray(slot), wc)
-    Hp = np.zeros((H.shape[0], wc))
-    Hp[:, :w] = H
-    return (np.asarray(op.mm_tn(jnp.asarray(W)))[:, :w],
-            np.asarray(op.mm_nt(jnp.asarray(Hp))),
-            np.asarray(op.col_sums())[:w])
-
-
 def _close(got, want):
     scale = max(float(np.abs(want).max()), 1e-300)
     assert float(np.abs(got - want).max()) <= TOL * scale
-
-
-@pytest.mark.parametrize("max_len", [None, 16])
-@pytest.mark.parametrize("subset", sorted(SUBSETS))
-@pytest.mark.parametrize("kind", ["random", "empty", "duplicates", "long"])
-def test_subset_products_match_jax_and_dense(kind, subset, max_len,
-                                             monkeypatch):
-    """Every slice whole (max_len None: the module's _MAX_LEN, longer than
-    any slice here), or slices past 16 entries cut into pieces."""
-    if max_len is not None:
-        monkeypatch.setattr(ell_cols, "_MAX_LEN", max_len)
-    A = _matrix(kind)
-    rng = np.random.RandomState(1)
-    sub = SUBSETS[subset](rng, A.shape[1])
-    W, H = rng.rand(A.shape[0], 2), rng.rand(2, len(sub))
-    op = CscColumns.from_scipy(A, torch.float64, device="cpu").gathered(
-        torch.from_numpy(sub))
-    assert op.shape == (A.shape[0], len(sub))
-    got = (op.mm_tn(torch.from_numpy(W)).numpy(),
-           op.mm_nt(torch.from_numpy(H)).numpy(), op.col_sums().numpy())
-    D = A.toarray()[:, sub]  # duplicates summed
-    dense = (W.T @ D, D @ H.T, D.sum(axis=0))
-    for g, r, d in zip(got, _reference_products(A, sub, W, H), dense):
-        _close(g, d)
-        _close(g, r)
-
-
-@pytest.mark.parametrize("max_len", [None, 16])
-def test_buckets_are_pow2_padded_with_the_sentinel(max_len, monkeypatch):
-    """Each family holds the slices with nonzeros up to _MAX_LEN long in
-    buckets of one power-of-two length (>= 8), padded with the sentinel
-    and zero values, and cuts each longer slice into pieces of _MAX_LEN
-    whose partial sums its row adds up; an empty slice is in neither;
-    padded_nnz counts the padding."""
-    if max_len is not None:
-        monkeypatch.setattr(ell_cols, "_MAX_LEN", max_len)
-    A = _matrix("long")
-    sub = np.array([11, 3, 60, 2, 8])
-    op = CscColumns.from_scipy(A, torch.float64, device="cpu").gathered(
-        torch.from_numpy(sub))
-    m, w = op.shape
-    lens = {"col": np.diff(A.indptr)[sub],
-            "row": np.bincount(A[:, sub].tocoo().row, minlength=m)}
-    cap = ell_cols._MAX_LEN
-    for fam, (buckets, split), sentinel in (("col", op.cols, m),
-                                            ("row", op.rows, w)):
-        seen = []
-        for ids, idx, vals in buckets:
-            L = idx.shape[1]
-            assert 8 <= L <= cap and L & (L - 1) == 0
-            assert ids.dtype == idx.dtype == torch.int32
-            n_ent = lens[fam][ids.long().numpy()]
-            assert (n_ent <= L).all() and ((n_ent > L // 2) | (L == 8)).all()
-            pad = np.arange(L)[None, :] >= n_ent[:, None]
-            assert (idx.numpy()[pad] == sentinel).all()
-            assert (vals.numpy()[pad] == 0).all()
-            seen += ids.tolist()
-        long = np.flatnonzero(lens[fam] > cap)
-        if split is None:
-            assert not len(long)
-        else:
-            p_idx, p_vals, ids, refs, ones = split
-            assert p_idx.shape[1] == cap
-            np.testing.assert_array_equal(ids.numpy(), long)
-            pieces = -(-lens[fam][long] // cap)
-            assert p_idx.shape[0] == pieces.sum()
-            np.testing.assert_array_equal(
-                (refs.numpy() < p_idx.shape[0]).sum(axis=1), pieces)
-            np.testing.assert_array_equal(ones.numpy(),
-                                          refs.numpy() < p_idx.shape[0])
-            assert int((p_idx.numpy() < sentinel).sum()) == \
-                lens[fam][long].sum()
-            seen += ids.tolist()
-        assert sorted(seen) == np.flatnonzero(lens[fam]).tolist()
-    assert (op.cols[1] is not None) == (max_len is not None)  # column 11
-    entries = [sum(int(idx.numel()) for _, idx, _ in b)
-               + (int(sp_[0].numel()) if sp_ is not None else 0)
-               for b, sp_ in (op.cols, op.rows)]
-    assert op.padded_nnz == max(entries)
-    assert op.nnz == int(lens["col"].sum())
 
 
 @pytest.mark.parametrize("base", ["ell", "dense"])
@@ -199,46 +101,165 @@ def test_masked_aop_matches_jax(base):
         _close(got.numpy(), dense)
 
 
-def test_products_in_the_factor_dtype():
-    """bf16 storage with f32 factors: the products come back f32, summed
-    in f32 from the bf16-rounded values."""
+# --- the chunk table and the static-shape operand ---------------------------
+
+def _chunks(A, L0, dtype=torch.float64):
+    return (CscChunks.from_scipy(A, dtype=jnp.float64, L0=L0),
+            ell_cols.CscChunks.from_scipy(A, dtype, L0=L0, device="cpu"))
+
+
+@pytest.mark.parametrize("L0", [None, 8])
+@pytest.mark.parametrize("kind", ["random", "empty", "duplicates", "long"])
+def test_chunk_table_and_plans_match_jax(kind, L0):
+    """The chunk table (rows, values, chunk documents, counts and starts),
+    the host plan of random subsets and the device plan of their masks are
+    the JAX package's, element for element."""
+    A = _matrix(kind)
+    ref, mine = _chunks(A, L0)
+    assert (mine.L0, mine.C, mine.shape) == (ref.L0, ref.C, ref.shape)
+    np.testing.assert_array_equal(mine.rows.numpy(), np.asarray(ref.rows))
+    np.testing.assert_array_equal(mine.vals.numpy(), np.asarray(ref.vals))
+    np.testing.assert_array_equal(mine.chunk_doc.numpy(),
+                                  np.asarray(ref.chunk_doc))
+    np.testing.assert_array_equal(mine.cnt, ref.cnt)
+    np.testing.assert_array_equal(mine.starts, ref.starts)
+    rng = np.random.RandomState(2)
+    for size in (1, 17, 45, 90):
+        sub = rng.choice(90, size, replace=False)
+        wc = max(mine.subset_chunk_count(sub), size) + rng.randint(0, 9)
+        assert mine.subset_chunk_count(sub) == ref.subset_chunk_count(sub)
+        for got, want in zip(mine.gather_host(sub, wc),
+                             ref.gather_host(sub, wc)):
+            np.testing.assert_array_equal(got, want)
+        mask = np.zeros(90, dtype=bool)
+        mask[sub] = True
+        for got, want in zip(mine.gather_device(torch.from_numpy(mask), wc),
+                             ref.gather_device(jnp.asarray(mask), wc)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_chunk_length_rule():
+    """The median nonzero column length rounded up to a power of two,
+    clamped to [L0_MIN, L0_MAX]: the reference's L0 on the same matrix."""
+    assert ell_cols.chunk_length(np.array([0, 0])) == ell_cols.L0_MIN
+    assert ell_cols.chunk_length(np.array([0, 3, 70, 80, 90])) == 128
+    assert ell_cols.chunk_length(np.array([1, 2, 3])) == ell_cols.L0_MIN
+    assert ell_cols.chunk_length(np.array([900, 1000])) == ell_cols.L0_MAX
+    for density in (0.05, 0.4):
+        A = sp.csc_matrix(sp.random(300, 40, density=density,
+                                    random_state=1))
+        assert ell_cols.CscChunks.from_scipy(
+            A, torch.float64, device="cpu").L0 == CscChunks.from_scipy(
+            A, dtype=jnp.float64).L0
+
+
+@pytest.mark.parametrize("L0", [None, 8])
+@pytest.mark.parametrize("subset", sorted(SUBSETS))
+@pytest.mark.parametrize("kind", ["random", "empty", "duplicates", "long"])
+def test_static_operand_matches_jax_and_dense(kind, subset, L0):
+    """mm_tn, mm_nt and col_sums of the static operand against the JAX
+    package's GatheredColsAOp on the same plan and against dense products
+    (at L0 = 8 column 11 of "long" has more than 4 L0 entries; "empties"
+    holds empty columns); pad columns are zero."""
+    A = _matrix(kind)
+    ref, mine = _chunks(A, L0)
+    rng = np.random.RandomState(1)
+    sub = SUBSETS[subset](rng, A.shape[1])
+    w = len(sub)
+    wc = max(mine.subset_chunk_count(sub), w) + 5
+    _, idx_chunks, slot = mine.gather_host(sub, wc)
+    op = ell_cols.ChunkColsAOp(mine, wc).load(idx_chunks, slot)
+    jop = ref.gathered(jnp.asarray(idx_chunks), jnp.asarray(slot), wc)
+    assert op.shape == (A.shape[0], wc) and op.dtype == torch.float64
+    W = rng.rand(A.shape[0], 2)
+    H = np.zeros((2, wc))
+    H[:, :w] = rng.rand(2, w)
+    got = (op.mm_tn(torch.from_numpy(W)).numpy(),
+           op.mm_nt(torch.from_numpy(H)).numpy(), op.col_sums().numpy())
+    want = (np.asarray(jop.mm_tn(jnp.asarray(W))),
+            np.asarray(jop.mm_nt(jnp.asarray(H))),
+            np.asarray(jop.col_sums()))
+    D = A.toarray()[:, sub]
+    dense = (W.T @ D, D @ H[:, :w].T, D.sum(axis=0))
+    for g, r, d in zip(got, want, dense):
+        _close(g, r)
+        _close(g[..., :w] if g.ndim == 1 or g.shape[0] == 2 else g, d)
+    assert not got[0][:, w:].any() and not got[2][w:].any()
+
+
+def test_static_operand_reloads_in_place():
+    """A second node loaded into the same buffers: the buffers keep their
+    addresses and the products are those of an operand of its own."""
+    A = _matrix("long")
+    mine = ell_cols.CscChunks.from_scipy(A, torch.float64, L0=8,
+                                         device="cpu")
+    wc = 300
+    op = ell_cols.ChunkColsAOp(mine, wc)
+    ptrs = [t.data_ptr() for t in (op.rows, op.vals, op.slot, op.t_key,
+                                   op.t_gather, op.t_vals, op.n_tn, op.n_nt)]
+    rng = np.random.RandomState(4)
+    W, H = torch.rand(70, 2, dtype=torch.float64), torch.rand(
+        2, wc, dtype=torch.float64)
+    for sub in (np.arange(90), rng.choice(90, 20, replace=False),
+                np.array([11, 60])):
+        plan = mine.gather_host(sub, wc)
+        op.load(*plan[1:])
+        own = ell_cols.ChunkColsAOp(mine, wc).load(*plan[1:])
+        assert torch.equal(op.mm_tn(W), own.mm_tn(W))
+        assert torch.equal(op.mm_nt(H), own.mm_nt(H))
+        assert int(op.n_nt) == int(mine.lens[sub].sum())
+        assert int(op.n_tn) == mine.subset_chunk_count(sub) * mine.L0
+    assert ptrs == [t.data_ptr() for t in (
+        op.rows, op.vals, op.slot, op.t_key, op.t_gather, op.t_vals,
+        op.n_tn, op.n_nt)]
+
+
+def test_static_operand_in_the_factor_dtype():
+    """bf16 storage with f32 factors: products come back f32, summed in
+    f32 from the bf16-rounded values; e4m3 storage likewise."""
     A = _matrix("random", seed=5)
     sub = np.arange(0, 90, 2)
-    cols = CscColumns.from_scipy(A, "bfloat16", device="cpu")
-    assert cols.data.dtype == torch.bfloat16 and cols.nnz == A.nnz
-    op = cols.gathered(torch.from_numpy(sub))
     W = torch.rand(A.shape[0], 2)
-    got = op.mm_tn(W)
-    assert got.dtype == torch.float32 and op.col_sums().dtype == torch.bfloat16
-    D = torch.from_numpy(A.toarray()[:, sub]).float().to(torch.bfloat16)
-    torch.testing.assert_close(got, W.T @ D.float(), rtol=1e-5, atol=1e-6)
+    for dt in ("bfloat16", "float8_e4m3fn"):
+        mine = ell_cols.CscChunks.from_scipy(A, dt, device="cpu")
+        wc = max(mine.subset_chunk_count(sub), len(sub))
+        op = ell_cols.ChunkColsAOp(mine, wc).load(
+            *mine.gather_host(sub, wc)[1:])
+        got = op.mm_tn(W)
+        assert got.dtype == torch.float32
+        assert op.col_sums().dtype == getattr(torch, dt)
+        D = torch.from_numpy(A.toarray()[:, sub]).float().to(
+            getattr(torch, dt)).float()
+        torch.testing.assert_close(got[:, :len(sub)], W.T @ D, rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
-def test_cuda_gathered_products_match_plain(dtype, monkeypatch):
-    """On the card both products run ell_spmm's kernel (one launch a
-    bucket, two for the cut slices, none of the plain version) and equal
-    the plain version within ELL_TOL's 2e-5 (f32 sums) or 1e-12 (f64);
-    slices past 32 entries are cut."""
+def test_cuda_static_operand_matches_plain(dtype):
+    """On the card both products run seg_spmm's kernel (one launch a
+    product, none of the plain version) and equal the CPU's plain version
+    within 2e-5 (f32 sums) or 1e-12 (f64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    monkeypatch.setattr(ell_cols, "_MAX_LEN", 32)
+    from smallk_torch.kernels import seg_spmm as smod
+
     A = _matrix("long", seed=4)
-    sub = torch.from_numpy(np.random.RandomState(0).permutation(90)[:61])
-    cpu = CscColumns.from_scipy(A, dtype, device="cpu").gathered(sub)
-    card = CscColumns.from_scipy(A, dtype, device="cuda").gathered(
-        sub.cuda())
+    sub = np.random.RandomState(0).permutation(90)[:61]
+    cpu = ell_cols.CscChunks.from_scipy(A, dtype, L0=8, device="cpu")
+    card = ell_cols.CscChunks.from_scipy(A, dtype, L0=8, device="cuda")
+    wc = 512
+    plan = cpu.gather_host(sub, wc)
+    ops = (ell_cols.ChunkColsAOp(cpu, wc).load(*plan[1:]),
+           ell_cols.ChunkColsAOp(card, wc).load(*plan[1:]))
     fdt = torch.float64 if dtype == "float64" else torch.float32
-    W, H = torch.rand(A.shape[0], 2, dtype=fdt), torch.rand(2, 61, dtype=fdt)
+    W, H = torch.rand(A.shape[0], 2, dtype=fdt), torch.rand(2, wc, dtype=fdt)
     tol = 1e-12 if dtype == "float64" else 2e-5
-    launches, plain = kmod.launches, kmod.plain_cuda_calls
+    launches, plain = smod.launches, smod.plain_cuda_calls
     for name, x in (("mm_tn", W), ("mm_nt", H)):
-        got = getattr(card, name)(x.cuda()).cpu()
-        want = getattr(cpu, name)(x)
+        got = getattr(ops[1], name)(x.cuda()).cpu()
+        want = getattr(ops[0], name)(x)
         assert float((got - want).abs().max()) <= tol * float(
             want.abs().max())
-    assert kmod.launches - launches == sum(
-        len(buckets) + 2 * (split is not None)
-        for buckets, split in (card.cols, card.rows))
-    assert kmod.plain_cuda_calls == plain
+    assert smod.launches - launches == 2
+    assert smod.plain_cuda_calls == plain

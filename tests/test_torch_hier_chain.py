@@ -238,9 +238,10 @@ def test_bail_on_a_pop_the_host_does_not_share(monkeypatch):
 
 
 def test_chain_ineligible_paths_fall_back(monkeypatch, tmp_path):
-    """initdir, the test interrupt hook and a sparse operand run the
-    sequential engine; checkpointing, the dense default and spectral init
-    run the chain."""
+    """initdir, the test interrupt hook and a sparse operand without its
+    host matrix (no chunk table) run the sequential engine; checkpointing,
+    the dense default, spectral init and a sparse operand with its host
+    matrix run the chain."""
     A = _planted(m=96, n=1400, k=6, seed=3)
     opts = _opts(6)
     calls = []
@@ -268,8 +269,11 @@ def test_chain_ineligible_paths_fall_back(monkeypatch, tmp_path):
     from smallk_torch.ops.aop import as_aop
 
     op = as_aop(sp.csc_matrix(A), device="cpu", densify_threshold_bytes=0)
-    clust_hier(op, opts, Random(21), device="cpu", host_A=sp.csc_matrix(A))
+    clust_hier(op, opts, Random(21), device="cpu")
     assert calls == []
+    clust_hier(op, opts, Random(21), device="cpu", host_A=sp.csc_matrix(A))
+    assert calls
+    calls.clear()
 
     d = tmp_path / "init"
     d.mkdir()

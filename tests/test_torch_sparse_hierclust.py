@@ -1,8 +1,9 @@
-"""Hierclust on a sparse operand (ROADMAP slice 11): the root's
-bucketed-ELL operand, each narrow node's operand gathered on the device
-(ops/ell_cols.py), and the masked full-width view (ops/aop.MaskedAOp) for
-wide nodes, initdir runs and a prebuilt operand without its host matrix.
-The sparse path is forced on small matrices by a densify threshold of 0.
+"""Hierclust on a sparse operand (ROADMAP slices 11 and 14b-ii): the
+bucketed-ELL operand and its chunk table, each node's static operand
+gathered from the table on the device (ops/ell_cols.py), and the masked
+full-width view (ops/aop.MaskedAOp) for initdir runs and a prebuilt operand
+without its host matrix.  The sparse path is forced on small matrices by a
+densify threshold of 0.
 
 Initdir mode against the JAX package (its sparse operand takes the masked
 view there too) and the numpy oracle tests/np_hierclust.py, in f64: the
@@ -28,9 +29,10 @@ from smallk_torch.engines import flatclust as tflat
 from smallk_torch.engines import hierclust as thc
 from smallk_torch.interop import options_from_reference
 from smallk_torch.kernels import ell_spmm as kmod
+from smallk_torch.kernels import seg_spmm as smod
 from smallk_torch.ops import aop as taop
 from smallk_torch.ops.ell import EllAOp
-from smallk_torch.ops.ell_cols import CscColumns
+from smallk_torch.ops.ell_cols import CscChunks
 from np_hierclust import np_clust_hier
 from test_hier_oracle import (
     _assert_trees_match,
@@ -91,8 +93,8 @@ def test_initdir_tree_matches_jax_and_numpy_oracle(name, tmp_path):
 
 def test_scipy_input_above_the_threshold_clusters(monkeypatch):
     """A scipy matrix above the densify threshold (forced by a threshold
-    of 0) becomes the root's EllAOp plus its CSC arrays, narrow nodes take
-    gathered operands, and the tree is the dense run's."""
+    of 0) becomes the EllAOp plus its chunk table, every node takes a
+    static operand, and the tree is the dense run's."""
     A, _ = _corpus()
     A = sp.csc_matrix(A, dtype=np.float64)
     opts = _random_opts(topt, 6)
@@ -117,9 +119,10 @@ def test_scipy_input_above_the_threshold_clusters(monkeypatch):
 
 @pytest.mark.parametrize("restarts", [1, 3])
 def test_gathered_and_masked_tiers_give_the_same_tree(restarts):
-    """Random mode: every node gathered (the host matrix given) against
-    every node on the masked view (a prebuilt operand with no host matrix
-    has no columns to gather from), the reference's
+    """Random mode: every node gathered (the host matrix given; the root's
+    static operand too) against every node but the root on the masked view
+    (a prebuilt operand with no host matrix has no chunks to gather from;
+    its root solves on the EllAOp), the reference's
     test_chunk_matches_masked_path idea (tests/test_hierclust.py:883-903),
     here with equal trees: H is drawn at full width in both, and the masked
     columns never reach the solution."""
@@ -135,7 +138,7 @@ def test_gathered_and_masked_tiers_give_the_same_tree(restarts):
         runs[tier] = (tree, stats, thc.gathered_operands,
                       thc.masked_operands)
     (t1, s1, g1, m1), (t0, s0, g0, m0) = runs["gathered"], runs["masked"]
-    assert g1 > 0 and m1 == 0 and g0 == 0 and m0 == g1
+    assert g1 > 0 and m1 == 0 and g0 == 0 and m0 == g1 - 1
     np.testing.assert_array_equal(t1.assignments, t0.assignments)
     assert (s1.nmf_count, s1.iter_count) == (s0.nmf_count, s0.iter_count)
     for a, b in zip(t1.nodes, t0.nodes):
@@ -180,12 +183,12 @@ def test_clust_flat_on_a_sparse_operand_matches_jax(tmp_path):
 
 def test_run_hier_nmf2_builds_one_operand(monkeypatch):
     """run_hier_nmf2 on a matrix above the threshold builds the bucketed
-    ELL and the CSC arrays once, for the tree and the flat refinement."""
+    ELL and the chunk table once, for the tree and the flat refinement."""
     A, _ = _corpus(seed=8)
     A = sp.csc_matrix(A)
     builds = []
     ell_build, csc_build = EllAOp.from_scipy.__func__, \
-        CscColumns.from_scipy.__func__
+        CscChunks.from_scipy.__func__
 
     def count(kind, build):
         def wrapped(cls, *args, **kw):
@@ -194,7 +197,7 @@ def test_run_hier_nmf2_builds_one_operand(monkeypatch):
         return classmethod(wrapped)
 
     monkeypatch.setattr(EllAOp, "from_scipy", count("ell", ell_build))
-    monkeypatch.setattr(CscColumns, "from_scipy", count("csc", csc_build))
+    monkeypatch.setattr(CscChunks, "from_scipy", count("csc", csc_build))
     monkeypatch.setattr(tflat, "as_aop", lambda *a, **kw: taop.as_aop(
         *a, densify_threshold_bytes=0, **kw))
     opts = dataclasses.replace(_random_opts(topt, 5, dtype="float32"),
@@ -209,8 +212,8 @@ def test_run_hier_nmf2_builds_one_operand(monkeypatch):
 @pytest.mark.cuda
 def test_cuda_sparse_hierclust_matches_cpu(tmp_path):
     """On the card: f64 initdir (masked view) gives the CPU's tree, and
-    f32 random mode gathers its narrow nodes, every product through
-    ell_spmm's kernel and none through a dense copy of A."""
+    f32 random mode gathers its nodes, every product through seg_spmm's
+    or ell_spmm's kernel and none through a dense copy of A."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     A, jopts, _ = _initdir_case("four_clusters", tmp_path)
@@ -224,12 +227,13 @@ def test_cuda_sparse_hierclust_matches_cpu(tmp_path):
     C, _ = _corpus()
     C = sp.csc_matrix(C)
     opts = _random_opts(topt, 6, dtype="float32")
-    launches, plain = kmod.launches, kmod.plain_cuda_calls
+    launches = kmod.launches + smod.launches
+    plain = kmod.plain_cuda_calls + smod.plain_cuda_calls
     dense = taop.matmul_products + taop.kernel_products
     thc.gathered_operands = 0
     tree, stats = thc.clust_hier(_sparse_op(C, torch.float32, "cuda"), opts,
                                  Random(2), host_A=C)
     assert thc.gathered_operands > 0 and (tree.assignments >= 0).all()
-    assert kmod.launches - launches >= 2 * stats.iter_count
-    assert kmod.plain_cuda_calls == plain
+    assert kmod.launches + smod.launches - launches >= 2 * stats.iter_count
+    assert kmod.plain_cuda_calls + smod.plain_cuda_calls == plain
     assert taop.matmul_products + taop.kernel_products == dense
