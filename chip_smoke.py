@@ -51,11 +51,12 @@ fails (nonzero exit, no result line) on any fault:
      launches bit-equal) and at the shapes of P1 (scripts/tpu_batch29.py)
      and P2 (scripts/tpu_batch33.py), the transposed output bit-equal to
      the row output transposed; kernel, plain and torch.sparse.mm times;
- 12b. seg_spmm, the sorted segmented gather-SpMM of the static sparse
-     node operand, against its plain version evaluated in f64 (SEG_CASES:
-     every dtype pair, row and transposed output, chunk-keyed and
-     entry-keyed, one key holding most entries), two launches and an eager
-     against a captured launch bit-equal;
+ 12b. seg_spmm, the gather-SpMMs of the static sparse node operand (the
+     term pass by offsets, the chunk pass by slot over each chunk's live
+     entries), against their plain versions evaluated in f64 (SEG_CASES:
+     every dtype pair, row and transposed output, one key holding up to
+     90% of the entries, chunks of 4 to 128 entries), two launches and an
+     eager against a captured launch bit-equal;
  13. sparse parity in f64: run_nmf BPP and MU on a blocked EllAOp and on
      a SparseAOp, the card against the CPU;
  14. the flagship at full width: rank-128 MU and BPP on the uncut 50,000 x
@@ -217,8 +218,9 @@ from).
     python3 chip_smoke.py --pair DIR
 
 times K2, P1, P2, the flatclust HALS path, the Reuters BPP path, the
-flagship (products, MU, BPP) and sparse hierclust at 50,000 x 1,000,000 (the k = 2 products at
-the root's EllAOp and at a 1/8 node, and the clustering's wall) with the
+flagship (products, MU, BPP) and sparse hierclust at 50,000 x 1,000,000
+(the k = 2 products at the root's static operand, at its EllAOp and at a
+1/8 node, and the clustering's wall) with the
 package of an archived tree at DIR and of this one, in the order DIR,
 this, this, DIR, each in a process of its own (`--times TREE`), and
 fails unless the flagship's products are bit-equal and every sparse
@@ -287,14 +289,20 @@ HIER_PRIORITY_TOL = 1e-10
 ELL_TOL = {"float32": 2e-5, "float64": 1e-12}
 # seg_spmm against its plain version (evaluated in f64), each output entry
 # relative to its own sum of |val * table| (within_rows grows the f32 value
-# with the entry's segment):
-# (capacity, live entries, keys, k, table rows, key shift, heavy share)
+# with the entry's segment).  Each case runs both passes: the term pass on
+# (capacity, live entries, keys, k, table rows, a share of the live entries
+# on one key) and the chunk pass on (keys slots, chunks of L0 entries
+# filling about the capacity):
+# (capacity, live entries, keys, k, table rows, heavy share, L0)
 SEG_TOL = {"float32": 2e-5, "float64": 1e-12}
-SEG_CASES = [(40, 33, 7, 2, 9, 0, 0.0), (5000, 4999, 40, 3, 400, 0, 0.8),
-             (1 << 16, 60_000, 3000, 2, 50_000, 5, 0.0),
-             (1 << 20, 1_000_000, 50_000, 2, 1_000_000, 0, 0.6),
-             (20_000, 19_000, 800, 8, 5000, 2, 0.3),
-             (3000, 2000, 100, 1, 700, 0, 0.0)]
+SEG_CASES = [(40, 33, 7, 2, 9, 0.0, 4), (5000, 4999, 40, 3, 400, 0.8, 8),
+             (1 << 16, 60_000, 3000, 2, 50_000, 0.0, 32),
+             (1 << 20, 1_000_000, 50_000, 2, 1_000_000, 0.6, 128),
+             (20_000, 19_000, 800, 8, 5000, 0.3, 4),
+             (3000, 2000, 100, 1, 700, 0.0, 16),
+             (1 << 22, 4_000_000, 50_000, 2, 200_000, 0.9, 128)]
+# what a device trace's seg_spmm kernels have in their names
+SEG_KERNEL = "::seg_"
 SEG_PAIRS = (("float32", "float32"), ("bfloat16", "float32"),
              ("float8_e4m3fn", "float32"), ("float64", "float64"))
 # (G, L, B, k, vals, table) of the probes the kernel replaces:
@@ -1779,29 +1787,43 @@ def phase_ell_spmm() -> dict:
             "probes": probes}
 
 
-def seg_inputs(cap, n_live, n_keys, k, B, shift, heavy, vt, tt, seed):
-    """seg_spmm's inputs on the card: sorted keys (one per 2^shift
-    entries) over n_keys, a share `heavy` of them on one key, gather
-    indices with ~10% sentinels, values in `vt` and a (B, k) table in
-    `tt`."""
+def seg_inputs(cap, n_live, n_keys, k, B, heavy, L0, vt, tt, seed):
+    """seg_spmm's inputs on the card, the term pass's (ptr, gather, val,
+    table) and the chunk pass's (starts, lens, rows, vals, table): for the
+    term pass n_live entries sorted by key over n_keys, a share `heavy` of
+    them on one key, as offsets; for the chunk pass n_keys slots of 0 to
+    about twice their share of cap / L0 chunks, each chunk's live length
+    L0 (70%) or less, the padding holding valid indices; gather indices
+    with ~10% sentinels, values in `vt` and a (B, k) table in `tt`."""
     import torch
 
     rng = np.random.RandomState(seed)
-    nk = -(-cap // (1 << shift))
-    key = np.sort(rng.randint(0, n_keys, nk))
+    key = np.sort(rng.randint(0, n_keys, n_live))
     if heavy:
-        lo = int(nk * 0.3)
-        key[lo:lo + int(heavy * nk)] = key[lo]
+        lo = int(n_live * 0.3)
+        key[lo:lo + int(heavy * n_live)] = key[lo]
         key = np.sort(key)
-    gather = rng.randint(0, B, cap)
-    gather[rng.rand(cap) < 0.1] = B
-    dev = "cuda"
-    return (torch.from_numpy(key.astype(np.int32)).to(dev),
-            torch.from_numpy(gather.astype(np.int32)).to(dev),
-            torch.from_numpy(rng.rand(cap) + 0.1).to(dev).float().to(
-                getattr(torch, vt)),
-            torch.from_numpy(rng.rand(B, k)).to(dev).to(getattr(torch, tt)),
-            torch.tensor(n_live, dtype=torch.int64, device=dev))
+    chunks = cap // L0
+    cnt = rng.randint(0, 2 * max(1, int(0.9 * chunks / n_keys)) + 1, n_keys)
+    cnt[np.cumsum(cnt) > chunks] = 0
+    lens = np.where(rng.rand(chunks) < 0.7, L0, rng.randint(0, L0 + 1,
+                                                             chunks))
+    dev, i32 = "cuda", torch.int32
+
+    def entries(n):
+        idx = rng.randint(0, B, n)
+        idx[rng.rand(n) < 0.1] = B
+        return (torch.from_numpy(idx).to(dev, i32),
+                torch.from_numpy(rng.rand(n) + 0.1).to(dev).float().to(
+                    getattr(torch, vt)))
+
+    table = torch.from_numpy(rng.rand(B, k)).to(dev).to(getattr(torch, tt))
+    starts = np.concatenate([[0], np.cumsum(cnt)])
+    return ((torch.from_numpy(np.searchsorted(key, np.arange(n_keys + 1)))
+             .to(dev, i32), *entries(cap), table),
+            (torch.from_numpy(starts).to(dev, i32),
+             torch.from_numpy(lens).to(dev, i32), *entries(chunks * L0),
+             table))
 
 
 def within_rows(got, want, rowsum, rowlen, tol: float, grow: bool):
@@ -1821,77 +1843,80 @@ def within_rows(got, want, rowsum, rowlen, tol: float, grow: bool):
 
 
 def phase_seg_spmm() -> dict:
-    """seg_spmm against its plain version (evaluated in f64) on SEG_CASES
-    at every dtype pair, row and transposed output: within within_rows, two
-    launches bit-equal, and an eager launch bit-equal to a captured one
-    (a CUDA graph replayed)."""
+    """seg_spmm's two passes (the term pass and the chunk pass) against
+    their plain versions (evaluated in f64) on SEG_CASES at every dtype
+    pair, row and transposed output: within within_rows, two launches
+    bit-equal, and an eager launch bit-equal to a captured one (a CUDA
+    graph replayed)."""
     import torch
 
     from smallk_torch.kernels import seg_spmm as kmod
 
+    passes = (("term", kmod.seg_spmm, kmod.seg_spmm_reference),
+              ("chunk", kmod.chunk_spmm, kmod.chunk_spmm_reference))
     worst_abs = worst_rel = 0.0
-    for i, (cap, n_live, n_keys, k, B, shift, heavy) in enumerate(SEG_CASES):
+    for i, (cap, n_live, n_keys, k, B, heavy, L0) in enumerate(SEG_CASES):
         for vt, tt in SEG_PAIRS:
-            key, gather, val, table, nl = seg_inputs(
-                cap, n_live, n_keys, k, B, shift, heavy, vt, tt, seed=i)
-            acc = kmod.sum_dtype(table.dtype)
-            for tr in (False, True):
-                shape = (k, n_keys) if tr else (n_keys, k)
-                args = (key, gather, val, table)
-                before = kmod.launches
-                got = kmod.seg_spmm(*args, torch.empty(shape, dtype=acc,
-                                                       device="cuda"),
-                                    nl, shift, tr)
-                again = kmod.seg_spmm(*args, torch.empty_like(got), nl, shift,
-                                      tr)
-                captured = torch.empty_like(got)
-                graph = torch.cuda.CUDAGraph()
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side), torch.cuda.graph(graph):
-                    kmod.seg_spmm(*args, captured, nl, shift, tr)
-                torch.cuda.current_stream().wait_stream(side)
-                graph.replay()
-                torch.cuda.synchronize()
-                if kmod.launches != before + 3:
-                    raise AssertionError("seg_spmm did not launch its kernel")
-                # the plain version in f64, each entry's sum of
-                # |val * table| and its segment's entries, in out's layout
-                want, rowsum, rowlen = (
-                    kmod.seg_spmm_reference(
-                        key, gather, v, t, torch.empty(
-                            shape, dtype=torch.float64, device="cuda"),
-                        nl, shift, tr)
-                    for v, t in ((val.double(), table.double()),
-                                 (val.double().abs(), table.double().abs()),
-                                 (torch.ones(val.shape, dtype=torch.float64,
-                                             device="cuda"),
-                                  torch.ones(table.shape,
-                                             dtype=torch.float64,
-                                             device="cuda"))))
-                diff = float((got.double() - want).abs().max())
-                tol = SEG_TOL[str(acc)[6:]]
-                within, rel = within_rows(got, want, rowsum, rowlen, tol,
-                                          acc == torch.float32)
-                label = (f"cap={cap} live={n_live} keys={n_keys} k={k} B={B} "
-                         f"shift={shift} heavy={heavy} vals {vt} table {tt} "
-                         f"{'transposed' if tr else 'row'}")
-                if not (within and torch.equal(got, again)
-                        and torch.equal(got, captured)
-                        and bool(torch.isfinite(got).all())):
-                    raise AssertionError(
-                        f"seg_spmm {label}: worst entry {rel:.3e} of its "
-                        f"sum of |val * table| (tolerance {tol:g}, f32 "
-                        f"grown by its segment), two launches "
-                        f"{'equal' if torch.equal(got, again) else 'DIFFER'},"
-                        f" captured "
-                        f"{'equal' if torch.equal(got, captured) else 'DIFFERS'}")
-                worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel,
-                                                                 rel)
+            inputs = seg_inputs(cap, n_live, n_keys, k, B, heavy, L0, vt, tt,
+                                seed=i)
+            acc = kmod.sum_dtype(inputs[0][-1].dtype)
+            for (name, fn, ref), args in zip(passes, inputs):
+                for tr in (False, True):
+                    shape = (k, n_keys) if tr else (n_keys, k)
+                    before = kmod.launches
+                    got = fn(*args, torch.empty(shape, dtype=acc,
+                                                device="cuda"), tr)
+                    again = fn(*args, torch.empty_like(got), tr)
+                    captured = torch.empty_like(got)
+                    graph = torch.cuda.CUDAGraph()
+                    side = torch.cuda.Stream()
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side), torch.cuda.graph(graph):
+                        fn(*args, captured, tr)
+                    torch.cuda.current_stream().wait_stream(side)
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    if kmod.launches != before + 3:
+                        raise AssertionError("seg_spmm did not launch its "
+                                             "kernel")
+                    # the plain version in f64, each entry's sum of
+                    # |val * table| and its segment's entries, in out's
+                    # layout
+                    val, table = args[-2], args[-1]
+                    one = torch.ones((), dtype=torch.float64, device="cuda")
+                    want, rowsum, rowlen = (
+                        ref(*args[:-2], v, t, torch.empty(
+                            shape, dtype=torch.float64, device="cuda"), tr)
+                        for v, t in ((val.double(), table.double()),
+                                     (val.double().abs(),
+                                      table.double().abs()),
+                                     (one.expand(val.shape),
+                                      one.expand(table.shape))))
+                    diff = float((got.double() - want).abs().max()) \
+                        if got.numel() else 0.0
+                    tol = SEG_TOL[str(acc)[6:]]
+                    within, rel = within_rows(got, want, rowsum, rowlen, tol,
+                                              acc == torch.float32)
+                    label = (f"{name} pass, cap={cap} live={n_live} "
+                             f"keys={n_keys} k={k} B={B} heavy={heavy} L0={L0}"
+                             f" vals {vt} table {tt} "
+                             f"{'transposed' if tr else 'row'}")
+                    if not (within and torch.equal(got, again)
+                            and torch.equal(got, captured)
+                            and bool(torch.isfinite(got).all())):
+                        raise AssertionError(
+                            f"seg_spmm {label}: worst entry {rel:.3e} of its "
+                            f"sum of |val * table| (tolerance {tol:g}, f32 "
+                            f"grown by its segment), two launches "
+                            f"{'equal' if torch.equal(got, again) else 'DIFFER'}"
+                            f", captured "
+                            f"{'equal' if torch.equal(got, captured) else 'DIFFERS'}")
+                    worst_abs = max(worst_abs, diff)
+                    worst_rel = max(worst_rel, rel)
         log(f"[seg_spmm] case {i}: cap={cap} live={n_live} keys={n_keys} k={k}"
-            f" B={B} shift={shift} heavy={heavy}, every pair {SEG_PAIRS} "
-            f"and layout: within tolerance, two launches and eager against "
-            f"captured bit-equal")
+            f" B={B} heavy={heavy} L0={L0}, both passes, every pair "
+            f"{SEG_PAIRS} and layout: within tolerance, two launches and "
+            f"eager against captured bit-equal")
     log(f"[seg_spmm] max|kernel - plain (f64)| {worst_abs:.3e}; the worst "
         f"entry {worst_rel:.3e} of its sum of |val * table|")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
@@ -2002,6 +2027,8 @@ def plain_ell():
         from smallk_torch.kernels import seg_spmm as smod
 
         plain["seg_spmm"] = smod.seg_spmm_reference
+        if hasattr(smod, "chunk_spmm"):
+            plain["chunk_spmm"] = smod.chunk_spmm_reference
     saved = [(mod, name, getattr(mod, name)) for mod in (ell, ell_cols)
              for name in plain if hasattr(mod, name)]
     for mod, name, _ in saved:
@@ -2967,11 +2994,16 @@ def subset_entries(op, w: int) -> dict:
     products, torch.sparse.mm and index_add_ read."""
     import torch
 
-    n = int(op.n_tn)
     L0 = op.chunks.L0
+    chunks = int(op.starts[-1])
+    n = chunks * L0
     rows = op.rows[:n].long()
-    live = rows < op.m
-    local = op.slot[:n // L0].long().repeat_interleave(L0)[live]
+    live = (torch.arange(L0, device=rows.device)[None, :]
+            < op.lens[:chunks, None]).reshape(-1)
+    slot = torch.repeat_interleave(torch.arange(op.wc, device=rows.device),
+                                   op.starts.diff().long(),
+                                   output_size=chunks)
+    local = slot.repeat_interleave(L0)[live]
     terms = rows[live]
     return {"terms": terms, "local": local, "vals": op.vals[:n][live].float(),
             "order": torch.argsort(terms, stable=True),
@@ -3124,6 +3156,13 @@ def node_products(op, e, label: str, root_op=None, idx=None,
             out[side]["library_ms"] = back_to_back_ms(
                 lambda: dst.index_add_(0, keys, src), 5)
             out[side]["device_ms"] = device_ms(lambda: fn(x), 20)
+            if side == "nt":
+                # the term pass reading H's transposed view in place of the
+                # contiguous copy mm_nt makes
+                dst = torch.empty((m, 2), device="cuda")
+                out[side]["strided_ms"] = device_ms(
+                    lambda: smod.seg_spmm(op.t_ptr, op.t_gather, op.t_vals,
+                                          x.T, dst, carries=op.carries), 20)
         else:
             out[side]["library_ms"] = out[side]["sparse_mm_ms"]
     if root_op is not None:
@@ -3142,9 +3181,11 @@ def node_products(op, e, label: str, root_op=None, idx=None,
         + f"; ms per product (W'A / AH'): {kern} {t['ms']:.4f} / "
         f"{n_['ms']:.4f} ({t['launches'][kern]} / {n_['launches'][kern]} "
         f"launches, max|kernel - plain| {t['err']:.2e} / {n_['err']:.2e})"
-        + (f", device {t['device_ms']:.4f} / {n_['device_ms']:.4f}, "
-           f"index_add_ {t['library_ms']:.4f} / {n_['library_ms']:.4f}"
-           if static else "")
+        + (f", device {t['device_ms']:.4f} / {n_['device_ms']:.4f} (AH' "
+           f"with H^T copied; read strided "
+           f"{n_.get('strided_ms', float('nan')):.4f}), index_add_ "
+           f"{t['library_ms']:.4f} / {n_['library_ms']:.4f}" if static
+           else "")
         + f", plain {t['plain_ms']:.2f} / {n_['plain_ms']:.2f}, torch ops "
         f"{t['ops_ms']:.4f} / {n_['ops_ms']:.4f}, torch.sparse.mm "
         f"{t['sparse_mm_ms']:.4f} / {n_['sparse_mm_ms']:.4f}, bound "
@@ -4218,8 +4259,9 @@ def times_child(tree: str) -> int:
 def sparse_hier_times() -> dict:
     """The sparse hierclust numbers `--pair` compares: the k = 2 products
     (f32 factors on the bf16 50,000 x 1,000,000 corpus) at the root's
-    EllAOp and at a 1/SPH_NODE node's gathered operand, back to back, and
-    the clustering's wall (after a warm-up run with another seed) with its
+    static operand (what the run's root solves on), at the root's EllAOp
+    and at a 1/SPH_NODE node's gathered operand, back to back, and the
+    clustering's wall (after a warm-up run with another seed) with its
     iterations, leaves and NMI."""
     import torch
 
@@ -4233,20 +4275,20 @@ def sparse_hier_times() -> dict:
     a_op = as_aop(A, dtype="bfloat16", device="cuda")
     idx = torch.from_numpy(np.sort(np.random.RandomState(3).permutation(
         SPH_N)[:SPH_N // SPH_NODE])).cuda()
-    if hasattr(ell_cols, "CscChunks"):  # the static operand
-        cols = ell_cols.CscChunks.from_scipy(A, "bfloat16", device="cuda")
-        node_op = chunk_operand(cols, idx)[0]
-    else:
-        cols = ell_cols.CscColumns.from_scipy(A, "bfloat16", device="cuda")
-        node_op = cols.gathered(idx)
+    cols = ell_cols.CscChunks.from_scipy(A, "bfloat16", device="cuda")
+    ops = {"root static": chunk_operand(
+        cols, torch.arange(SPH_N, device="cuda"))[0],
+        "root EllAOp": a_op,
+        f"1/{SPH_NODE} node": chunk_operand(cols, idx)[0]}
     res = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for label, op in (("root", a_op), (f"1/{SPH_NODE} node", node_op)):
+    for label, op in ops.items():
         W = torch.rand((SPH_M, 2), generator=gen, device="cuda")
         H = torch.rand((2, op.shape[1]), generator=gen, device="cuda")
         res[f"k=2 {label} W'A ms"] = back_to_back_ms(lambda: op.mm_tn(W), 5)
         res[f"k=2 {label} AH' ms"] = back_to_back_ms(lambda: op.mm_nt(H), 5)
-    del cols, node_op
+    del cols, ops
+    torch.cuda.empty_cache()
     opts = hier_opts(HIER_K, "float32", a_dtype="bfloat16")
     hc.clust_hier(a_op, opts, Random(1), host_A=A)
     torch.cuda.synchronize()
@@ -4721,7 +4763,8 @@ def loop_busy_child(only=None) -> int:
             # the windows' own ranges are mirrored on the device's
             # timeline, each spanning its window: not device work
             if e.duration_ns() > 0 and name not in walls:
-                gpu.append((e.start_ns(), e.end_ns()))
+                gpu.append((e.start_ns(), e.end_ns(),
+                            SEG_KERNEL in name))
         elif name in walls:
             windows[name] = (e.start_ns(), e.end_ns())
         elif name in launch_calls:
@@ -4730,12 +4773,15 @@ def loop_busy_child(only=None) -> int:
     slack = 100_000_000  # ns: less than the gap between two windows
     result = {}
     for label, (lo, hi) in windows.items():
-        spans = [(a, b) for a, b in gpu if lo - slack <= a <= hi + slack]
+        spans = [(a, b, s) for a, b, s in gpu
+                 if lo - slack <= a <= hi + slack]
         busy, end = 0, -1
-        for a, b in spans:
+        for a, b, _ in spans:
             if b > end:
                 busy += b - max(a, end)
                 end = b
+        # seg_spmm's kernels' device time (they never overlap each other)
+        seg = sum(b - a for a, b, s in spans if s)
         wall, its = walls[label]
         n = {c: sum(1 for t, nm in calls if nm == c and lo <= t <= hi)
              for c in launch_calls}
@@ -4743,11 +4789,14 @@ def loop_busy_child(only=None) -> int:
         result.setdefault(cell, {})[mode] = {
             "wall": wall, "busy": busy / 1e9 / wall, "iterations": its,
             "device_events": len(spans), "launch_calls": n,
-            "launches_per_iteration": sum(n.values()) / max(its, 1)}
+            "launches_per_iteration": sum(n.values()) / max(its, 1),
+            "seg_ms": seg / 1e6, "seg_share": seg / max(busy, 1)}
         log(f"[loop busy] {cell}, {mode}: wall {wall:.4f} s (profiled), "
             f"device busy {100 * busy / 1e9 / wall:.2f}%, {len(spans)} "
             f"device events, host launch calls {n} "
-            f"({sum(n.values()) / max(its, 1):.2f} an iteration)")
+            f"({sum(n.values()) / max(its, 1):.2f} an iteration); seg_spmm "
+            f"{seg / 1e6:.3f} device ms, {100 * seg / max(busy, 1):.2f}% of "
+            f"the device time")
     stamps.append(("reading its events", time.perf_counter() - t0))
     log("[loop busy] host seconds: " + ", ".join(f"{k} {v:.1f}"
                                                  for k, v in stamps))
@@ -4779,6 +4828,11 @@ def loop_busy(card: str, only=None) -> dict:
             f"{mode}: device busy {100 * r['busy']:.2f}%, host launch calls "
             f"an iteration {r['launches_per_iteration']:.2f}"
             for mode, r in modes.items()) + f" on {card}")
+        for mode, r in modes.items():
+            if r["seg_ms"]:
+                log(f"[loop] {cell}, {mode}: seg_spmm {r['seg_ms']:.3f} "
+                    f"device ms in the run, {100 * r['seg_share']:.2f}% of "
+                    f"its device time ({card})")
     return busy
 
 

@@ -70,12 +70,19 @@ SIGNATURES = {
         "smallk_ell_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "seg_spmm": {
-        # key, key_shift, gather, val, table, ld_row, ld_col, B, k, out,
-        # out_row, out_col, n_out, head, tail, n_live, cap, stream, device
-        **{f"smallk_seg_spmm_{pair}": ((_P, _I, _P, _P, _P, _L, _L, _I, _I,
-                                        _P, _L, _L, _I, _P, _P, _P, _L, _P,
-                                        _I), _I)
+        # starts, lens, rows, vals, shift, table, ld_row, ld_col, B, k,
+        # pairs, out, out_row, out_col, n_slots, stream, device
+        **{f"smallk_seg_chunks_{pair}": ((_P,) * 4 + (_I, _P, _L, _L)
+                                         + (_I,) * 3 + (_P, _L, _L, _I, _P,
+                                                        _I), _I)
            for pair in ("f32_f32", "bf16_f32", "f8_f32", "f64_f64")},
+        # ptr, gather, val, table, ld_row, ld_col, B, k, pairs, out,
+        # out_row, out_col, n_out, carries, carry_cap, cap, stream, device
+        **{f"smallk_seg_terms_{pair}": ((_P,) * 4 + (_L, _L) + (_I,) * 3
+                                        + (_P, _L, _L, _I, _P, _L, _L, _P,
+                                           _I), _I)
+           for pair in ("f32_f32", "bf16_f32", "f8_f32", "f64_f64")},
+        "smallk_seg_max_grid": ((_I,), _I),
         "smallk_seg_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
 }

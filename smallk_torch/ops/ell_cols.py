@@ -21,19 +21,20 @@ nonzeros, bf16 values, f32 factors, k = 2; chip_smoke.py --cols and phase
 `sparse chain`, PERF.md) the earlier operand, gathered at each node's exact
 width (ELL buckets through ell_spmm, whose bucket count and sizes depend on
 the data) took 0.62 + 0.61 ms (W'A + A H') at the root against this one's
-0.66-0.93 + 0.99-1.04, but it could keep no graph: sparse hierclust ran
-3.36-3.59 s with 27 graph captures, and 3.10-3.23 s on this operand with
-10.  Its products' XLA formulation in torch ops (torch.segment_reduce)
-took 1.6 + 63.6 ms at the root.
+0.66-0.93 + 0.99-1.04 with the kernel of that time, but it could keep no
+graph: sparse hierclust ran 3.36-3.59 s with 27 graph captures, and
+3.10-3.23 s on this operand with 10.  Its products' XLA formulation in
+torch ops (torch.segment_reduce) took 1.6 + 63.6 ms at the root.
 
 The chunk length L0 is the reference's rule, the median column length
-rounded up to a power of two (128 on that corpus, 1.91x padding).  On the
-same card the root's two products took 1.67, 1.68, 1.75 and 1.95 ms at
-L0 = 16, 32, 64 and 128 and a 1/8 node's 0.249, 0.244, 0.264 and 0.283 ms
-(padding 1.10, 1.21, 1.41, 1.91), but a shorter chunk widens the operand
-(more chunks a node; the root's width 3.04 M at 32, 1.19 M at 128) and
-every H-side step of the solve with it: sparse hierclust took 3.50-3.51 s
-at L0 = 32, 3.53-3.60 at 64 and 3.37-3.40 at 128 (chip_smoke.py --cols).
+rounded up to a power of two (128 on that corpus, 1.91x padding).  W'A
+reads no padding since the kernel's redesign, so padding no longer sets
+the choice: on the same card the root's two products took 0.856 + 0.576,
+0.629 + 0.557, 0.503 + 0.546 and 0.435 + 0.542 device ms at L0 = 16, 32,
+64 and 128 (a shorter chunk makes more chunks and a wider operand: the
+root's width 5.48 M at 16, 1.19 M at 128), and sparse hierclust took
+3.20-3.25 s at L0 = 32, 3.07-3.28 at 64 and 2.93-3.05 at 128
+(chip_smoke.py --cols).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from ..common.device import setup, storage_dtype
-from ..kernels.seg_spmm import seg_spmm, sum_dtype
+from ..kernels.seg_spmm import carries_for, chunk_spmm, seg_spmm, sum_dtype
 from .ell import _to_storage
 
 
@@ -69,9 +70,11 @@ class CscChunks:
     a column padded), on the device: `rows` (C+1, L0) int32 with the
     sentinel row m on pads, `vals` (C+1, L0) in the storage dtype, 0 on
     pads, `chunk_doc` (C+1,) int32, chunk C the all-pad chunk with the
-    sentinel document n; on the host `cnt` (n,) chunks a column, `lens` (n,)
-    nonzeros a column and `starts` (n+1,) the first chunk of each column.
-    `cnt_dev` is `cnt` on the device (the chain sizes its children by it)."""
+    sentinel document n, and `clen` (C+1,) int32, each chunk's live entries
+    (at its head; 0 for chunk C); on the host `cnt` (n,) chunks a column,
+    `lens` (n,) nonzeros a column and `starts` (n+1,) the first chunk of
+    each column.  `cnt_dev` is `cnt` on the device (the chain sizes its
+    children by it)."""
 
     def __init__(self, shape, L0, rows, vals, chunk_doc, cnt, lens, starts):
         self.shape = tuple(int(s) for s in shape)
@@ -83,7 +86,15 @@ class CscChunks:
         self.lens = lens
         self.starts = starts
         self.C = int(chunk_doc.shape[0]) - 1
-        self.cnt_dev = torch.from_numpy(cnt.astype(np.int64)).to(rows.device)
+        dev = rows.device
+        self.cnt_dev = torch.from_numpy(cnt.astype(np.int64)).to(dev)
+        # chunk j of column c holds min(L0, lens[c] - (j - starts[c]) L0)
+        doc = chunk_doc[:self.C].long()
+        first = torch.from_numpy(np.asarray(starts[:-1], np.int64)).to(dev)
+        left = torch.from_numpy(np.asarray(lens, np.int64)).to(dev)[doc] - (
+            torch.arange(self.C, device=dev) - first[doc]) * self.L0
+        self.clen = torch.zeros(self.C + 1, dtype=torch.int32, device=dev)
+        self.clen[:self.C] = left.clamp(max=self.L0)
 
     @classmethod
     def from_scipy(cls, A, dtype=torch.float32, L0=None, *, device="cuda"):
@@ -141,9 +152,9 @@ class CscChunks:
 
     @property
     def table_bytes(self) -> int:
-        """Device bytes of the table (rows, vals, chunk_doc)."""
+        """Device bytes of the table (rows, vals, chunk_doc, clen)."""
         return sum(t.numel() * t.element_size()
-                   for t in (self.rows, self.vals, self.chunk_doc))
+                   for t in (self.rows, self.vals, self.chunk_doc, self.clen))
 
     @property
     def padding(self) -> float:
@@ -217,19 +228,23 @@ class ChunkColsAOp:
     place (the dense path's `gather_columns(..., out=)`), so a step graph
     captured on one node's operand replays for every node of the width:
 
-      - W'A: the plan's chunk entries in chunk order, `rows` and `vals`
-        (wc * L0), keyed by their chunk's slot `slot` (wc), each gathering
-        a row of W, written (k, wc);
-      - A H': the same entries sorted by term once a node (outside the
-        graph, as the reference hoists its row sort, smallk_tpu/ops/
-        ell_cols.py:187-197), `t_key` the terms, `t_gather` the entry's
-        slot and `t_vals`, each gathering a row of H^T;
-      - `n_tn` and `n_nt` (0-d int64 on the device): the live entries of
-        each (the plan's chunks x L0, and the subset's nonzeros: the pads'
-        sentinel term m sorts last).
+      - W'A, by slot: the plan's chunks in chunk order, `rows` and `vals`
+        (wc * L0), `lens` (wc) the live entries of each (0 on pads) and
+        `starts` (wc + 1) each slot's first chunk (the plan's slots
+        ascend), each entry gathering a row of W, written (k, wc);
+      - A H', by term: the same live entries sorted by term once a node
+        (outside the graph, as the reference hoists its row sort,
+        smallk_tpu/ops/ell_cols.py:187-197), `t_gather` the entry's slot
+        and `t_vals`, and `t_ptr` (m + 1) each term's first entry, each
+        entry gathering a row of H^T from a contiguous (wc, k) copy made
+        each product: one 8-byte row an entry at k = 2 in f32, where H's
+        transposed view costs k loads wc x 4 bytes apart (PERF.md).
 
-    Both run through kernels/seg_spmm (the CUDA kernel on the card, its
-    plain version on the CPU) with launch shapes fixed by (wc, L0)."""
+    The live counts stay on the device (starts[wc], the plan's chunks;
+    t_ptr[m], the subset's nonzeros).  Both products run through
+    kernels/seg_spmm (the CUDA kernel on the card, its plain version on the
+    CPU) with launch shapes fixed by (wc, L0); `carries` is A H''s scratch
+    on the card, allocated once."""
 
     def __init__(self, chunks: CscChunks, wc: int):
         self.chunks = chunks
@@ -238,14 +253,15 @@ class ChunkColsAOp:
         L0, dev, dt = chunks.L0, chunks.device, chunks.dtype
         cap = self.wc * L0
         self.shift = L0.bit_length() - 1
-        self.rows = torch.empty(cap, dtype=torch.int32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.rows = torch.empty(cap, **i32)
         self.vals = torch.empty(cap, dtype=dt, device=dev)
-        self.slot = torch.empty(self.wc, dtype=torch.int32, device=dev)
-        self.t_key = torch.empty(cap, dtype=torch.int32, device=dev)
-        self.t_gather = torch.empty(cap, dtype=torch.int32, device=dev)
+        self.lens = torch.zeros(self.wc, **i32)
+        self.starts = torch.zeros(self.wc + 1, **i32)
+        self.t_gather = torch.empty(cap, **i32)
         self.t_vals = torch.empty(cap, dtype=dt, device=dev)
-        self.n_tn = torch.zeros((), dtype=torch.int64, device=dev)
-        self.n_nt = torch.zeros((), dtype=torch.int64, device=dev)
+        self.t_ptr = torch.zeros(self.m + 1, **i32)
+        self.carries = carries_for(sum_dtype(dt), dev)
 
     @property
     def shape(self):
@@ -273,29 +289,34 @@ class ChunkColsAOp:
         torch.index_select(ch.rows, 0, live, out=rows)
         torch.index_select(ch.vals, 0, live, out=self.vals[:n].view(
             total, ch.L0))
-        self.slot[:total] = slot[:total]
+        torch.index_select(ch.clen, 0, idx_chunks.long(), out=self.lens)
+        slots = torch.arange(self.wc + 1, dtype=torch.int32, device=dev)
+        torch.searchsorted(slot[:total].to(torch.int32).contiguous(), slots,
+                           out_int32=True, out=self.starts)
+        # the pads' sentinel term m sorts last, past t_ptr[m]
         order = torch.argsort(self.rows[:n], stable=True)
-        torch.index_select(self.rows[:n], 0, order, out=self.t_key[:n])
+        t_key = self.rows[:n][order]
         torch.index_select(self.vals[:n], 0, order, out=self.t_vals[:n])
-        torch.index_select(self.slot[:total], 0, order >> self.shift,
-                           out=self.t_gather[:n])
-        self.n_tn.fill_(n)
-        self.n_nt.copy_(torch.count_nonzero(self.t_key[:n] < self.m))
+        torch.index_select(slot[:total].to(torch.int32), 0,
+                           order >> self.shift, out=self.t_gather[:n])
+        terms = torch.arange(self.m + 1, dtype=torch.int32, device=dev)
+        torch.searchsorted(t_key, terms, out_int32=True, out=self.t_ptr)
         return self
 
     def mm_tn(self, W):
         """W^T A_sub -> (k, wc) in W's dtype."""
         out = torch.empty((W.shape[1], self.wc), dtype=sum_dtype(W.dtype),
                           device=W.device)
-        seg_spmm(self.slot, self.rows, self.vals, W, out, self.n_tn,
-                 key_shift=self.shift, transposed=True)
+        chunk_spmm(self.starts, self.lens, self.rows, self.vals, W, out,
+                   transposed=True)
         return out.to(W.dtype)
 
     def mm_nt(self, H):
-        """A_sub H^T -> (m, k) in H's dtype (H^T read through its strides)."""
+        """A_sub H^T -> (m, k) in H's dtype."""
         out = torch.empty((self.m, H.shape[0]), dtype=sum_dtype(H.dtype),
                           device=H.device)
-        seg_spmm(self.t_key, self.t_gather, self.t_vals, H.T, out, self.n_nt)
+        seg_spmm(self.t_ptr, self.t_gather, self.t_vals, H.T.contiguous(),
+                 out, carries=self.carries)
         return out.to(H.dtype)
 
     def col_sums(self):

@@ -123,6 +123,9 @@ def test_chunk_table_and_plans_match_jax(kind, L0):
                                   np.asarray(ref.chunk_doc))
     np.testing.assert_array_equal(mine.cnt, ref.cnt)
     np.testing.assert_array_equal(mine.starts, ref.starts)
+    # each chunk's live length: its entries off the sentinel row m
+    np.testing.assert_array_equal(
+        mine.clen.numpy(), (np.asarray(ref.rows) < A.shape[0]).sum(axis=1))
     rng = np.random.RandomState(2)
     for size in (1, 17, 45, 90):
         sub = rng.choice(90, size, replace=False)
@@ -188,15 +191,18 @@ def test_static_operand_matches_jax_and_dense(kind, subset, L0):
 
 
 def test_static_operand_reloads_in_place():
-    """A second node loaded into the same buffers: the buffers keep their
-    addresses and the products are those of an operand of its own."""
+    """A second node loaded into the same buffers: the buffers (the
+    entries, each chunk's live length, each slot's first chunk, each
+    term's first entry) keep their addresses, are rewritten to those of
+    an operand of its own, and so are the products."""
     A = _matrix("long")
     mine = ell_cols.CscChunks.from_scipy(A, torch.float64, L0=8,
                                          device="cpu")
     wc = 300
     op = ell_cols.ChunkColsAOp(mine, wc)
-    ptrs = [t.data_ptr() for t in (op.rows, op.vals, op.slot, op.t_key,
-                                   op.t_gather, op.t_vals, op.n_tn, op.n_nt)]
+    names = ("rows", "vals", "lens", "starts", "t_gather", "t_vals",
+             "t_ptr")
+    ptrs = [getattr(op, name).data_ptr() for name in names]
     rng = np.random.RandomState(4)
     W, H = torch.rand(70, 2, dtype=torch.float64), torch.rand(
         2, wc, dtype=torch.float64)
@@ -207,11 +213,52 @@ def test_static_operand_reloads_in_place():
         own = ell_cols.ChunkColsAOp(mine, wc).load(*plan[1:])
         assert torch.equal(op.mm_tn(W), own.mm_tn(W))
         assert torch.equal(op.mm_nt(H), own.mm_nt(H))
-        assert int(op.n_nt) == int(mine.lens[sub].sum())
-        assert int(op.n_tn) == mine.subset_chunk_count(sub) * mine.L0
-    assert ptrs == [t.data_ptr() for t in (
-        op.rows, op.vals, op.slot, op.t_key, op.t_gather, op.t_vals,
-        op.n_tn, op.n_nt)]
+        for name in ("lens", "starts", "t_ptr"):
+            assert torch.equal(getattr(op, name), getattr(own, name))
+        assert int(op.t_ptr[-1]) == int(mine.lens[sub].sum())
+        assert int(op.starts[-1]) == mine.subset_chunk_count(sub)
+        assert int(op.lens.sum()) == int(mine.lens[sub].sum())
+    assert ptrs == [getattr(op, name).data_ptr() for name in names]
+
+
+@pytest.mark.parametrize("node", ["all pad", "long document"])
+def test_static_operand_edge_nodes(node):
+    """A node with no document (every chunk and slot a pad: all products
+    zero) and one whose document spans 16+ chunks (column 11 of "long" at
+    L0 = 4, 70 nonzeros in 18 chunks), against the JAX package's
+    GatheredColsAOp and dense products in f64."""
+    A = _matrix("long")
+    ref, mine = _chunks(A, 4)
+    sub = np.array([], dtype=np.int64) if node == "all pad" else np.array(
+        [3, 11, 50])
+    assert node == "all pad" or mine.cnt[11] >= 16
+    wc = max(mine.subset_chunk_count(sub), len(sub)) + 3
+    if len(sub):
+        _, idx_chunks, slot = mine.gather_host(sub, wc)
+    else:  # the plan of no document: every chunk the all-pad one
+        idx_chunks = np.full(wc, mine.C, dtype=np.int32)
+        slot = np.full(wc, wc, dtype=np.int32)
+    op = ell_cols.ChunkColsAOp(mine, wc).load(idx_chunks, slot)
+    jop = ref.gathered(jnp.asarray(idx_chunks), jnp.asarray(slot), wc)
+    rng = np.random.RandomState(6)
+    W, H = rng.rand(A.shape[0], 2), rng.rand(2, wc)
+    H[:, len(sub):] = 0.0
+    got = (op.mm_tn(torch.from_numpy(W)).numpy(),
+           op.mm_nt(torch.from_numpy(H)).numpy(), op.col_sums().numpy())
+    want = (np.asarray(jop.mm_tn(jnp.asarray(W))),
+            np.asarray(jop.mm_nt(jnp.asarray(H))),
+            np.asarray(jop.col_sums()))
+    D = A.toarray()[:, sub]
+    dense = (W.T @ D, D @ H[:, :len(sub)].T, D.sum(axis=0))
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g, r, rtol=TOL, atol=0)
+    for g, d in zip(got, dense):
+        np.testing.assert_allclose(
+            g[..., :len(sub)] if g.ndim == 1 or g.shape[0] == 2 else g, d,
+            rtol=1e-12, atol=1e-14)
+    if node == "all pad":
+        assert not any(g.any() for g in got)
+        assert int(op.t_ptr[-1]) == 0 and int(op.starts[-1]) == 0
 
 
 def test_static_operand_in_the_factor_dtype():
@@ -263,3 +310,46 @@ def test_cuda_static_operand_matches_plain(dtype):
             want.abs().max())
     assert smod.launches - launches == 2
     assert smod.plain_cuda_calls == plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_cuda_frequent_term(dtype):
+    """A term in 95% of 60,000 documents (its entries span many blocks of
+    the term pass): both products on the card equal the CPU's plain version
+    within 2e-5 (f32 sums) or 1e-12 (f64), and two calls, eager and
+    captured, give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.RandomState(8)
+    A = sp.random(3000, 60_000, density=0.003, random_state=8, format="lil")
+    docs = np.flatnonzero(rng.rand(60_000) < 0.95)
+    A[17, docs] = rng.rand(1, len(docs)) + 0.1
+    A = A.tocsc()
+    cpu = ell_cols.CscChunks.from_scipy(A, dtype, device="cpu")
+    card = ell_cols.CscChunks.from_scipy(A, dtype, device="cuda")
+    sub = np.sort(rng.choice(60_000, 50_000, replace=False))
+    wc = max(cpu.subset_chunk_count(sub), len(sub)) + 1000
+    plan = cpu.gather_host(sub, wc)
+    ops = (ell_cols.ChunkColsAOp(cpu, wc).load(*plan[1:]),
+           ell_cols.ChunkColsAOp(card, wc).load(*plan[1:]))
+    fdt = torch.float64 if dtype == "float64" else torch.float32
+    W, H = torch.rand(3000, 2, dtype=fdt), torch.rand(2, wc, dtype=fdt)
+    tol = 1e-12 if dtype == "float64" else 2e-5
+    for name, x in (("mm_tn", W), ("mm_nt", H)):
+        fn = getattr(ops[1], name)
+        got = fn(x.cuda())
+        assert torch.equal(got, fn(x.cuda()))
+        g = torch.cuda.CUDAGraph()
+        xc = x.cuda()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s), torch.cuda.graph(g):
+            captured = fn(xc)
+        torch.cuda.current_stream().wait_stream(s)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, captured)
+        want = getattr(ops[0], name)(x)
+        assert float((got.cpu() - want).abs().max()) <= tol * float(
+            want.abs().max())
