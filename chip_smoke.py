@@ -109,15 +109,17 @@ fails (nonzero exit, no result line) on any fault:
      bits and counts, launch gates exact against the steps run, the walls,
      host reads, graphs, capture and replay times and steps wasted to the
      freeze; f64 captured-against-eager runs of HALS, RANK2 and MU; then
-     (--loop-busy, a process of its own) each run once more inside one
-     profiler session for the device's busy share and the host's launch
-     calls;
+     (--loop-busy lean, a process of its own) each run once more inside
+     one profiler session for the device's busy share and the host's
+     launch calls, the hierclust cells captured only (`--loop-busy` alone
+     profiles them eager too, and on every engine);
  21. the multi-split chain (engines/hier_chain.py) against the sequential
      engine, with and without a kept graph a bucket width
      (hierclust.KEEP_GRAPHS): the Reuters-shape hierclust on each engine
      of CHAIN_MODES in turns (CHAIN_ORDER), walls, graphs, replays, host
-     reads a split, the busy shares (the loop's busy child runs the
-     Reuters cell on each engine), NMI, and the trees, which must be one;
+     reads a split, the chain's busy share (from the loop's busy child;
+     the other engines' are `--loop-busy`'s), NMI, and the trees, which
+     must be one;
      then a dense f64 2000 x 3000 problem on which they must be one too;
  21b. the same on the sparse hierclust cell (phase `sparse chain`: the
      50,000 x 1,000,000 corpus on the static operand, S, G and C in turns,
@@ -133,6 +135,25 @@ fails (nonzero exit, no result line) on any fault:
      two profiling.device_trace blocks in this process after its earlier
      profiles, and (with the CLIs) examples/torch_drivers/
      smallk_example.py --synthetic;
+ 23b. the sharded solve (phase `mesh`, smallk_torch/parallel; in a process
+     of its own, `--mesh-child`, so that no process group outlives it,
+     run beside the CLI processes of phase 19):
+     (a) a mesh of one rank over NCCL at full width: Reuters-shape BPP
+     (phase 6's problem) and BPP k = 16 on the sparse 50,000 x 40,000
+     EllAOp (phase 15's corpus), each bit-equal to nmf_solve on the same
+     operand with the same K1 and ell_spmm launches, their it/s and walls
+     (U, S, S, U) and the all-reduces an iteration and their bytes; the
+     facade's HierNmf2WithFlat(12, mesh=) on phase 11's corpus, every
+     node on the masked view of the sharded operand, K3 exact against the
+     steps run, its NMI and result files beside the unsharded run's; the
+     f64 CHAIN_F64 corpus to MESH_HIER_K clusters, the tree equal to the
+     unsharded one; (b) two and four ranks sharing the card over gloo,
+     meshes 1x2, 2x1 and 2x2: BPP, MU, HALS and RANK2 in f64 within
+     MESH_TOL of (a)'s one-rank runs, the MESH_HIER_K-cluster tree equal
+     to (a)'s, and on every rank K1 (f64 BPP), K3 (an f32 RANK2 solve,
+     exact) and ell_spmm (f32 BPP on an EllAOp block) launched; (c) with
+     two cards or more, NCCL a card a rank at 1x2 (and 2x2 with four) at
+     the Reuters shape against (a), else one line saying it was not run;
  24. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -214,6 +235,10 @@ runs only phases 21-23 (the chain phases' busy shares not measured).
 sweeps the bucket ladders of LADDERS under the chain at the Reuters shape,
 each run twice in turns (what the hierclust.BUCKET_* constants are set
 from).
+
+    python3 chip_smoke.py --mesh
+
+runs only phase 23b (the sharded solve), after the build.
 
     python3 chip_smoke.py --pair DIR
 
@@ -417,6 +442,20 @@ SPARSE_F64 = (2000, 6000, 12, 7)
 # --ladder: these bucket ladders (BUCKET_MIN, BUCKET_POW2_MAX, BUCKET_STEP)
 LADDERS = ((512, 4096, 2048), (512, 1 << 20, 1), (1024, 4096, 1024),
            (256, 4096, 2048), (512, 2048, 1024))
+
+# phase mesh (the sharded solve, smallk_torch/parallel): leg (b)'s f64
+# problem is the chain's CHAIN_F64 corpus, its factor starts from numpy's
+# generator at MESH_SEED, MESH_ITERS fixed iterations at k = MESH_K (RANK2
+# 2) within MESH_TOL of the one-rank run (tests/test_parallel.py's
+# tolerances), and a MESH_HIER_K-cluster tree (node solves capped at
+# MESH_HIER_MAX_ITER steps); MESH_ELL: leg (a)'s sparse EllAOp (m, n, k,
+# BPP iterations); MESH_TIMEOUT: seconds for a world of ranks
+MESH_SEED, MESH_K, MESH_ITERS, MESH_HIER_K = 5, 8, 30, 8
+MESH_HIER_MAX_ITER = 200
+MESH_TOL = dict(rtol=1e-10, atol=1e-12)
+MESH_ELL = (SPH_M, SVD_N, 16, 10)
+MESH_TIMEOUT = 300
+MESH_CALLS = 500   # collectives timed back to back
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -4700,7 +4739,11 @@ def loop_busy_child(only=None) -> int:
     also on the other engines (captured only).  For each run: the device's
     busy share of its wall (the union of kernel intervals) and the host's
     launch calls (kernels and graphs).  `only="sparse"`: the sparse cell
-    and its engines alone.  Prints LOOP_BUSY {json}."""
+    and its engines alone.  `only="lean"` (the full run's, whose time
+    limit it keeps): every cell, the hierclust cells captured only and on
+    the chain alone (the profiler's stop and its reading, most of this
+    child's time, grow with the runs' kernel records).  Prints LOOP_BUSY
+    {json}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -4711,12 +4754,13 @@ def loop_busy_child(only=None) -> int:
     setup("cuda")
     t0 = time.perf_counter()
     sparse = "sparse hierclust 50k x 1M"
-    cells = loop_problems(only)
+    lean = only == "lean"
+    cells = loop_problems(None if lean else only)
     # the hierclust cells on the sequential engine, capturing a graph a
     # solve and keeping one a width, beside the chain's (captured runs only)
     engines = []
     for cell in ("hierclust Reuters", sparse):
-        if cell not in cells:
+        if cell not in cells or lean:
             continue
         run_chain, gate = cells[cell]
         for mode in CHAIN_MODES:
@@ -4724,7 +4768,7 @@ def loop_busy_child(only=None) -> int:
                 engines.append(f"{cell}, {mode}")
                 cells[engines[-1]] = (lambda *a, mode=mode, r=run_chain:
                                       chain_mode(mode, r, *a), gate)
-    if only is None:
+    if only != "sparse":
         FA, W0, H0 = flagship_problem()
         op = EllAOp.from_scipy(FA, "bfloat16", device="cuda")
         del FA
@@ -4739,7 +4783,8 @@ def loop_busy_child(only=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for name, (run, _) in cells.items():
-            for capture in ((True,) if name in engines else (False, True)):
+            once = name in engines or (lean and "hierclust" in name)
+            for capture in ((True,) if once else (False, True)):
                 label = f"loop|{name}|{'captured' if capture else 'eager'}"
                 time.sleep(0.25)  # windows apart on either clock
                 with patched(graph, "CAPTURE", capture), \
@@ -5544,6 +5589,523 @@ def phase_smallk_example() -> None:
         f"card: rc 0 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase mesh
+def tree_arrays(tree) -> dict:
+    """A tree as arrays: structure, documents, priorities, assignments and
+    the leaves' top terms."""
+    nodes = tree.nodes
+    terms = [np.asarray(nd.term_indices) for q, nd in enumerate(nodes)
+             if tree.is_leaf[q] and nd.is_valid]
+    return {
+        "structure": np.array([[nd.is_valid, nd.parent_index,
+                                nd.left_child_index, nd.right_child_index,
+                                nd.is_left_child] for nd in nodes]),
+        "is_leaf": np.asarray(tree.is_leaf, dtype=bool),
+        "docs": np.concatenate([np.sort(np.asarray(
+            nd.docs if nd.docs is not None else [], np.int64))
+            for nd in nodes]),
+        "priority": np.array([nd.priority for nd in nodes], np.float64),
+        "assignments": np.asarray(tree.assignments),
+        "leaf_terms": np.stack(terms)}
+
+
+def tree_difference(a: dict, b: dict) -> str | None:
+    """None when two tree_arrays are one tree (equal structure, documents,
+    assignments and top terms, priorities within HIER_PRIORITY_TOL), else
+    what differs."""
+    for key in ("structure", "is_leaf", "docs", "assignments", "leaf_terms"):
+        if a[key].shape != b[key].shape or not np.array_equal(a[key],
+                                                              b[key]):
+            return key
+    if not np.allclose(a["priority"], b["priority"], rtol=HIER_PRIORITY_TOL,
+                       atol=HIER_PRIORITY_TOL):
+        return "priority"
+    return None
+
+
+def reset_mesh_counts() -> None:
+    from smallk_torch.parallel import mesh as pm
+
+    pm.all_reduces = pm.all_reduce_bytes = pm.gathers = 0
+
+
+def mesh_counts() -> dict:
+    from smallk_torch.parallel import mesh as pm
+
+    return {"all_reduces": pm.all_reduces,
+            "all_reduce_bytes": pm.all_reduce_bytes, "gathers": pm.gathers}
+
+
+def mesh_turns(runs: dict, order) -> dict:
+    """Each run of `runs` ({name: fn}) once as a warm-up, then in `order`,
+    timed between two synchronizes with every count reset before it:
+    {name: [(result, wall, counts), ...]}."""
+    import torch
+
+    for fn in runs.values():
+        fn()
+    out = {name: [] for name in runs}
+    for name in order:
+        reset_counts()
+        reset_mesh_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runs[name]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name].append((res, wall, {**read_counts(), **mesh_counts()}))
+    return out
+
+
+def mesh_f64_problem():
+    """The f64 problems of legs (a) and (b), at CHAIN_F64's shape: the
+    chain's corpus (the trees; dense on the card), and for the solvers a
+    uniform dense matrix (HALS on the corpus can empty a column, whose
+    rescue turns on differences in the last bit) with factor starts, all
+    from seeded generators."""
+    from smallk_torch.engines.corpus import synthetic_term_doc_corpus
+
+    m, n, k, seed = CHAIN_F64
+    A, labels = synthetic_term_doc_corpus(m, n, k, seed=seed)
+    rng = np.random.RandomState(MESH_SEED)
+    return (A, labels, rng.rand(m, n), rng.rand(m, MESH_K),
+            rng.rand(MESH_K, n))
+
+
+def mesh_nmf_opts(alg: str, m: int, n: int, dtype="float64", iters=None,
+                  **kw):
+    from smallk_torch import NmfAlgorithm, NmfOptions
+
+    k = 2 if alg == "RANK2" else MESH_K
+    return NmfOptions(tol=1e-30, algorithm=NmfAlgorithm(alg), height=m,
+                      width=n, k=k, min_iter=1,
+                      max_iter=iters or MESH_ITERS, verbose=False,
+                      dtype=dtype, **kw)
+
+
+def mesh_hier_opts():
+    opts = hier_opts(MESH_HIER_K, "float64")
+    return dataclasses.replace(opts, nmf_opts=dataclasses.replace(
+        opts.nmf_opts, max_iter=MESH_HIER_MAX_ITER))
+
+
+def mesh_one_rank(card: str, refs: str) -> dict:
+    """Leg (a): a mesh of one rank over NCCL at full width.  Reuters BPP
+    and the sparse EllAOp bit-equal to nmf_solve on the same operand with
+    the same K1 (and ell_spmm) launches; HierNmf2WithFlat(12, mesh=) on
+    the Reuters corpus with K3 exact; the f64 CHAIN_F64 tree equal to the
+    unsharded one.  Writes the one-rank f64 results (leg (b)'s reference)
+    to `refs`."""
+    import torch
+
+    import smallk_torch as smallk
+    from smallk_torch import (Random, random_matrix, random_sparse_matrix)
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import nmi
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.parallel import mesh as pm
+    from smallk_torch.solvers.solve import nmf_solve
+
+    mesh = pm.make_mesh((1, 1), device="cuda")
+    if mesh.backend != "nccl":
+        raise AssertionError(f"a CUDA mesh runs {mesh.backend}, not nccl")
+    out = {}
+
+    def bit_equal_pair(label, op, sop, W, H, opts, kernels):
+        runs = mesh_turns(
+            {"unsharded": lambda: nmf_solve(op, W, H, opts),
+             "sharded": lambda: pm.sharded_nmf_solve(sop, W, H, opts,
+                                                     mesh)},
+            ("unsharded", "sharded", "sharded", "unsharded"))
+        (u, _, cu), (s, _, cs) = runs["unsharded"][0], runs["sharded"][0]
+        same = (torch.equal(u.W, s.W) and torch.equal(u.H, s.H)
+                and (u.iterations, u.pivot_rounds) == (s.iterations,
+                                                       s.pivot_rounds))
+        walls = {name: [r[1] for r in rs] for name, rs in runs.items()}
+        its = {name: [u.iterations / w for w in ws]
+               for name, ws in walls.items()}
+        launches = {kern: (cu[kern], cs[kern]) for kern in kernels}
+        log(f"[mesh] (a) {label}: unsharded "
+            + ", ".join(f"{v:.2f}" for v in its["unsharded"]) + " it/s (walls "
+            + ", ".join(f"{v:.4f}" for v in walls["unsharded"])
+            + " s), sharded 1x1 " + ", ".join(f"{v:.2f}" for v in
+                                             its["sharded"])
+            + " it/s (walls " + ", ".join(f"{v:.4f}" for v in
+                                          walls["sharded"])
+            + f" s); W, H, iterations ({s.iterations}) and pivot rounds "
+            f"({s.pivot_rounds}) bit-equal: {same}; launches unsharded / "
+            f"sharded {launches}; all-reduces an iteration "
+            f"{cs['all_reduces'] / s.iterations:.1f}, "
+            f"{cs['all_reduce_bytes'] / s.iterations:.0f} bytes on {card}")
+        if not same or any(a != b or b == 0 for a, b in launches.values()):
+            raise AssertionError(f"(a) {label}: sharded 1x1 differs from "
+                                 f"nmf_solve (bits {same}, {launches})")
+        return {"its": its, "walls": walls, "launches": launches,
+                "all_reduces": cs["all_reduces"] / s.iterations,
+                "bytes": cs["all_reduce_bytes"] / s.iterations,
+                "W": s.W.cpu().numpy()}
+
+    # (a1) the main path: Reuters-shape BPP, bf16 A, 100 iterations
+    rng = Random(2024)
+    A = random_sparse_matrix(rng, M, N, nz_per_col=NZ_PER_COL,
+                             dtype=np.float32)
+    W = torch.from_numpy(random_matrix(M, K, rng, dtype=np.float32)).cuda()
+    H = torch.from_numpy(random_matrix(K, N, rng, dtype=np.float32)).cuda()
+    opts = mesh_nmf_opts("BPP", M, N, "float32", ITERS, a_dtype="bfloat16")
+    opts = dataclasses.replace(opts, k=K)
+    out["bpp"] = bit_equal_pair(
+        f"Reuters BPP {M}x{N} k={K} bf16 A, {ITERS} iterations",
+        as_aop(A, "bfloat16", device="cuda"),
+        pm.shard_operand(A, mesh, "bfloat16"), W, H, opts, ("K1",))
+    del A, W, H
+    torch.cuda.empty_cache()
+    out["collective_us"] = mesh_collective_us(mesh, card)
+
+    # (a2) the facade's HierNmf2WithFlat(12) on the Reuters corpus, with
+    # and without the mesh: every node on the masked view, K3 exact
+    A, labels = hier_corpus()
+    words = [f"term{i}" for i in range(HIER_M)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as td:
+        for name, arg in (("unsharded", None), ("sharded", mesh)):
+            d = os.path.join(td, name)
+            os.makedirs(d)
+            smallk.Initialize()
+            smallk.SetOutputDir(d)
+            smallk.SeedRNG(FACADE_SEED)
+            smallk.LoadMatrix(matrix=A)
+            smallk.LoadDictionary(words)
+            reset_counts()
+            reset_mesh_counts()
+            *_, wall = timed_call(smallk.HierNmf2WithFlat, HIER_K, mesh=arg)
+            counts = {**read_counts(), **mesh_counts()}
+            smallk.Finalize()
+            files = files_of(d)
+            assign = np.array(files[f"assignments_{HIER_K}.csv"].decode()
+                              .split(","), dtype=np.int64)
+            runs[name] = (wall, counts, files, nmi(assign, labels))
+    (wu, cu, fu, nu), (ws, cs, fs, ns) = runs["unsharded"], runs["sharded"]
+    same = [f for f in (f"assignments_{HIER_K}.csv", f"tree_{HIER_K}.json",
+                        f"assignments_flat_{HIER_K}.csv")
+            if fu.get(f) == fs.get(f)]
+    log(f"[mesh] (a) HierNmf2WithFlat({HIER_K}, mesh=1x1) {HIER_M}x{HIER_N} "
+        f"(f32 A): wall {ws:.4f} s (unsharded {wu:.4f} s, kept graphs), "
+        f"{cs['solves']} solves, {cs['steps']} steps run (eager: no graph "
+        f"under a mesh, {cs['captures']} captured), K3 launches {cs['K3']} "
+        f"(2 x steps + solves = {k3_want(cs)[0]}), all-reduces "
+        f"{cs['all_reduces']} ({cs['all_reduces'] / max(1, cs['steps']):.1f}"
+        f" a step), gathers {cs['gathers']}; NMI {ns:.4f} (unsharded "
+        f"{nu:.4f}; the Reuters cell's {HIER_NMI}); result files equal to "
+        f"the unsharded run's: {same} on {card}")
+    if (cs["K3"], cs["kernel_products"]) != k3_want(cs) or cs["captures"]:
+        raise AssertionError(f"(a) sharded hierclust: K3 {cs}")
+    if ns < nu - HIER_NMI_MARGIN:
+        raise AssertionError(f"(a) sharded hierclust NMI {ns} against {nu}")
+    out["hier"] = {"wall": ws, "unsharded_wall": wu, "nmi": ns,
+                   "unsharded_nmi": nu, "same": same, "counts": cs}
+    del A
+    torch.cuda.empty_cache()
+
+    # (a3) f64: the CHAIN_F64 corpus to MESH_HIER_K clusters, one rank
+    # against unsharded; the four solvers' one-rank results for leg (b)
+    A, labels, D, W0, H0 = mesh_f64_problem()
+    m, n = A.shape
+    opts = mesh_hier_opts()
+    tu, _ = clust_hier(A, opts, Random(2), device="cuda")
+    t0 = time.perf_counter()
+    ts, _ = clust_hier(A, opts, Random(2), mesh=mesh)
+    wall = time.perf_counter() - t0
+    diff = tree_difference(tree_arrays(tu), tree_arrays(ts))
+    log(f"[mesh] (a) f64 dense {m}x{n} to {MESH_HIER_K} clusters, mesh 1x1:"
+        f" tree {'equal' if diff is None else 'DIFFERENT (' + diff + ')'} to"
+        f" the unsharded one, wall {wall:.4f} s, NMI "
+        f"{nmi(ts.assignments, labels):.4f}")
+    if diff is not None:
+        raise AssertionError(f"(a) f64 tree differs: {diff}")
+    ref = {f"tree.{k}": v for k, v in tree_arrays(ts).items()}
+    for alg in ("BPP", "MU", "HALS", "RANK2"):
+        o = mesh_nmf_opts(alg, m, n)
+        r = pm.sharded_nmf_solve(D, W0[:, :o.k], H0[:o.k], o, mesh)
+        ref[f"{alg}.W"], ref[f"{alg}.H"] = r.W.cpu().numpy(), \
+            r.H.cpu().numpy()
+    np.savez(refs, **ref)
+
+    # (a4) a sparse EllAOp at MESH_ELL: BPP bit-equal, ell_spmm launched
+    me, ne, ke, ie = MESH_ELL
+    A, _, _ = sparse_corpus(ne)
+    rng = np.random.RandomState(MESH_SEED)
+    op = as_aop(A, "bfloat16", device="cuda")
+    sop = pm.shard_operand(A, mesh, "bfloat16")
+    if type(op).__name__ != "EllAOp" or type(sop.local).__name__ != "EllAOp":
+        raise AssertionError("(a) the sparse leg is not on EllAOp")
+    o = dataclasses.replace(mesh_nmf_opts("BPP", me, ne, "float32", ie),
+                            k=ke, a_dtype="bfloat16")
+    out["ell"] = bit_equal_pair(
+        f"sparse EllAOp {me}x{ne} ({A.nnz} nonzeros) BPP k={ke}, {ie} "
+        "iterations", op, sop,
+        torch.from_numpy(rng.rand(me, ke).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.rand(ke, ne).astype(np.float32)).cuda(), o,
+        ("K1", "ell_spmm"))
+    mesh.close()
+    return out
+
+
+def mesh_collective_us(mesh, card: str) -> dict:
+    """What one collective costs: MESH_CALLS calls back to back on a 0-d
+    f32 tensor, host microseconds a call between two synchronizes, through
+    Mesh.all_reduce and through torch.distributed.all_reduce itself, on
+    the terms axis's group, beside a clone (the wrapper's copy)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((), device=mesh.device)
+    group = mesh.group("terms")
+
+    def per_call(fn):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / MESH_CALLS
+
+    out = {"mesh": per_call(lambda: mesh.all_reduce(x, "terms", "sum")),
+           "dist": per_call(lambda: dist.all_reduce(x, group=group)),
+           "clone": per_call(x.clone)}
+    log(f"[mesh] (a) one collective over {mesh.backend} on a group of one "
+        f"rank, a 0-d f32 tensor, {MESH_CALLS} calls back to back: "
+        f"Mesh.all_reduce {out['mesh']:.1f} us a call, "
+        f"torch.distributed.all_reduce {out['dist']:.1f} us, a clone "
+        f"{out['clone']:.1f} us (host, between two synchronizes) on {card}")
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, shapes, device: str,
+              backend: str, refs: str, outdir: str) -> None:
+    """A rank of leg (b) (one card shared, gloo) or (c) (a card a rank,
+    NCCL): for each mesh of `shapes` over the world, the cases of
+    mesh_cases; its results to outdir/rank<rank>.npz."""
+    import torch
+
+    from smallk_torch.parallel import distributed
+    from smallk_torch.parallel import mesh as pm
+
+    dev = f"cuda:{rank}" if device == "cuda" else device
+    distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                       backend=backend, device=dev)
+    results = {}
+    for shape in shapes:
+        mesh = pm.make_mesh(shape, device=dev, backend=backend)
+        tag = f"{shape[0]}x{shape[1]}"
+        cases = mesh_cases if refs else mesh_card_cases
+        for key, value in cases(mesh, refs).items():
+            results[f"{tag}/{key}"] = value
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **results)
+    torch.distributed.destroy_process_group()
+
+
+def _solve_counted(fn):
+    """fn()'s result, wall, counts and mesh counts, counted from 0."""
+    import torch
+
+    reset_counts()
+    reset_mesh_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, {**read_counts(), **mesh_counts()}
+
+
+def mesh_cases(mesh, refs: str) -> dict:
+    """Leg (b) on one mesh: the four solvers in f64 against the one-rank
+    results (relative max error), the MESH_HIER_K-cluster f64 tree against
+    the one-rank tree, and in f32 a RANK2 solve (K3) and BPP on an EllAOp
+    block (ell_spmm), every count on this rank."""
+    from smallk_torch import Random
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.parallel import mesh as pm
+
+    A, _, D, W0, H0 = mesh_f64_problem()
+    m, n = A.shape
+    out = {}
+    with np.load(refs) as z:
+        ref = {k: z[k] for k in z.files}
+    for alg in ("BPP", "MU", "HALS", "RANK2"):
+        o = mesh_nmf_opts(alg, m, n)
+        r, wall, c = _solve_counted(lambda: pm.sharded_nmf_solve(
+            D, W0[:, :o.k], H0[:o.k], o, mesh))
+        for f in ("W", "H"):
+            got, want = getattr(r, f).cpu().numpy(), ref[f"{alg}.{f}"]
+            out[f"{alg}.{f}_ok"] = np.allclose(got, want, **MESH_TOL)
+            out[f"{alg}.{f}_err"] = np.abs(got - want).max() / np.abs(
+                want).max()
+        out[f"{alg}.wall"] = wall
+        out[f"{alg}.K1"] = c["K1"]
+        out[f"{alg}.all_reduces"] = c["all_reduces"] / r.iterations
+    (tree, _), wall, c = _solve_counted(
+        lambda: clust_hier(A, mesh_hier_opts(), Random(2), mesh=mesh))
+    diff = tree_difference(tree_arrays(tree), {
+        k[5:]: v for k, v in ref.items() if k.startswith("tree.")})
+    out["tree"] = "equal" if diff is None else f"DIFFERENT ({diff})"
+    out["tree.wall"] = wall
+    r, _, c = _solve_counted(lambda: pm.sharded_nmf_solve(
+        D, W0[:, :2], H0[:2], mesh_nmf_opts("RANK2", m, n, "float32"), mesh))
+    out["K3"], out["K3_want"] = c["K3"], k3_want(c)[0]
+    out["rank2_f32_finite"] = bool(np.isfinite(r.W.cpu().numpy()).all())
+    ell = pm.shard_operand(A, mesh, "float32", densify_threshold_bytes=0)
+    r, _, c = _solve_counted(lambda: pm.sharded_nmf_solve(
+        ell, W0, H0, mesh_nmf_opts("BPP", m, n, "float32", 5), mesh))
+    out["ell_kind"] = type(ell.local).__name__
+    out["ell.K1"], out["ell.ell_spmm"] = c["K1"], c["ell_spmm"]
+    out["ell_finite"] = bool(np.isfinite(r.W.cpu().numpy()).all())
+    return out
+
+
+def mesh_card_cases(mesh, refs) -> dict:
+    """Leg (c) on one mesh, a card a rank: Reuters BPP (100 iterations)
+    timed after a warm-up, and its launches on this rank."""
+    import torch
+
+    from smallk_torch import Random, random_matrix, random_sparse_matrix
+    from smallk_torch.parallel import mesh as pm
+
+    rng = Random(2024)
+    A = random_sparse_matrix(rng, M, N, nz_per_col=NZ_PER_COL,
+                             dtype=np.float32)
+    W0 = random_matrix(M, K, rng, dtype=np.float32)
+    H0 = random_matrix(K, N, rng, dtype=np.float32)
+    opts = dataclasses.replace(
+        mesh_nmf_opts("BPP", M, N, "float32", ITERS, a_dtype="bfloat16"),
+        k=K)
+    op = pm.shard_operand(A, mesh, "bfloat16")
+    pm.sharded_nmf_solve(op, W0, H0, opts, mesh)
+    r, wall, c = _solve_counted(
+        lambda: pm.sharded_nmf_solve(op, W0, H0, opts, mesh))
+    mesh.barrier()
+    return {"wall": wall, "its": r.iterations / wall, "K1": c["K1"],
+            "all_reduces": c["all_reduces"] / r.iterations,
+            "W": r.W.cpu().numpy(), "device": str(torch.cuda.current_device())}
+
+
+def spawn_mesh(world: int, shapes, device: str, backend: str, refs: str,
+               outdir: str) -> list[dict]:
+    """mesh_rank on a world of `world` ranks; each rank's results."""
+    from smallk_torch.parallel.distributed import _free_port, spawn_ranks
+
+    spawn_ranks(mesh_rank, (world, _free_port(), shapes, device, backend,
+                            refs, outdir), world, MESH_TIMEOUT)
+    out = []
+    for rank in range(world):
+        with np.load(os.path.join(outdir, f"rank{rank}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def mesh_shared_card(card: str, refs: str, td: str) -> dict:
+    """Leg (b): MESH_SHAPES over gloo, every rank on cuda:0: (1, 2) and
+    (2, 1) as two meshes of one world of two, (2, 2) a world of four."""
+    out = {}
+    for world, shapes in ((2, ((1, 2), (2, 1))), (4, ((2, 2),))):
+        d = os.path.join(td, f"b{world}")
+        os.makedirs(d)
+        ranks = spawn_mesh(world, shapes, "cuda:0", "gloo", refs, d)
+        for shape in shapes:
+            tag = f"{shape[0]}x{shape[1]}"
+            for rank, r in enumerate(ranks):
+                g = {k[len(tag) + 1:]: r[k] for k in r if k.startswith(tag)}
+                errs = {alg: max(float(g[f"{alg}.W_err"]),
+                                 float(g[f"{alg}.H_err"]))
+                        for alg in ("BPP", "MU", "HALS", "RANK2")}
+                ok = all(bool(g[f"{alg}.{f}_ok"]) for alg in errs
+                         for f in "WH")
+                log(f"[mesh] (b) mesh {tag} rank {rank} (gloo, cuda:0 "
+                    f"shared): f64 {CHAIN_F64[0]}x{CHAIN_F64[1]} within "
+                    f"{MESH_TOL} of the one-rank run: {ok} (max rel err "
+                    + ", ".join(f"{a} {e:.3e}" for a, e in errs.items())
+                    + "); walls " + ", ".join(
+                        f"{a} {float(g[f'{a}.wall']):.3f}" for a in errs)
+                    + f" s ({MESH_ITERS} iterations); BPP all-reduces an "
+                    f"iteration {float(g['BPP.all_reduces']):.1f}; tree to "
+                    f"{MESH_HIER_K} clusters {g['tree']} "
+                    f"({float(g['tree.wall']):.2f} s); launches K1 "
+                    f"{int(g['BPP.K1'])} (f64 BPP), K3 {int(g['K3'])} (f32 "
+                    f"RANK2; 2 x steps + solves = {int(g['K3_want'])}), "
+                    f"ell_spmm {int(g['ell.ell_spmm'])} and K1 "
+                    f"{int(g['ell.K1'])} (f32 BPP on its {g['ell_kind']} "
+                    f"block) on {card}")
+                if not ok or str(g["tree"]) != "equal" \
+                        or int(g["K3"]) != int(g["K3_want"]) \
+                        or not int(g["K3"]) or not int(g["BPP.K1"]) \
+                        or not int(g["ell.ell_spmm"]) \
+                        or not bool(g["rank2_f32_finite"]) \
+                        or not bool(g["ell_finite"]):
+                    raise AssertionError(f"(b) mesh {tag} rank {rank}: "
+                                         f"{g}")
+                out[(tag, rank)] = g
+    return out
+
+
+def mesh_multi_card(card: str, one: dict, td: str) -> None:
+    """Leg (c): NCCL, a card a rank, where the machine has two cards or
+    more: (1, 2), and with four (2, 2), at the Reuters shape against leg
+    (a)'s one-rank run."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh] (c) not run: this machine has {cards} card(s), and "
+            "NCCL across cards needs two or more")
+        return
+    for world, shape in ((2, (1, 2)), (4, (2, 2))):
+        if world > cards:
+            break
+        d = os.path.join(td, f"c{world}")
+        os.makedirs(d)
+        ranks = spawn_mesh(world, (shape,), "cuda", "nccl", "", d)
+        tag = f"{shape[0]}x{shape[1]}"
+        W1 = one["bpp"]["W"]
+        for rank, r in enumerate(ranks):
+            err = float(np.abs(r[f"{tag}/W"] - W1).max() / np.abs(W1).max())
+            log(f"[mesh] (c) mesh {tag} rank {rank} (nccl, a card a rank): "
+                f"Reuters BPP {float(r[f'{tag}/its']):.2f} it/s (wall "
+                f"{float(r[f'{tag}/wall']):.4f} s; one rank "
+                f"{one['bpp']['its']['sharded'][0]:.2f} it/s), K1 "
+                f"{int(r[f'{tag}/K1'])}, all-reduces an iteration "
+                f"{float(r[f'{tag}/all_reduces']):.1f}, W against one "
+                f"rank's max rel diff {err:.3e} on {card}")
+
+
+def mesh_child() -> int:
+    """--mesh-child: phase `mesh` in a process of its own, so that no
+    process group outlives it in the main run."""
+    from smallk_torch.common.device import setup
+
+    setup("cuda")
+    card = card_line()
+    with tempfile.TemporaryDirectory() as td:
+        refs = os.path.join(td, "refs.npz")
+        one = mesh_one_rank(card, refs)
+        mesh_shared_card(card, refs, td)
+        mesh_multi_card(card, one, td)
+    return 0
+
+
+def phase_mesh(card: str) -> None:
+    """Phase `mesh` (the sharded solve): `--mesh-child` as a process of
+    its own, whose lines are printed here."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--mesh-child"], capture_output=True, text=True,
+                          timeout=2 * MESH_TIMEOUT + 300, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"--mesh-child exited {proc.returncode}")
+
+
 def main() -> int:
     import torch
 
@@ -5556,7 +6118,10 @@ def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
     sys.path.insert(0, str(ROOT))
-    if sys.argv[1:2] == ["--loop-busy"] and sys.argv[2:] in ([], ["sparse"]):
+    if sys.argv[1:] == ["--mesh-child"]:
+        return mesh_child()
+    if sys.argv[1:2] == ["--loop-busy"] and sys.argv[2:] in ([], ["sparse"],
+                                                             ["lean"]):
         return loop_busy_child(*sys.argv[2:])
     from smallk_torch.common.device import setup
     from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
@@ -5582,7 +6147,8 @@ def main() -> int:
                "--ell": ell_study, "--k2": k2_study, "--cols": cols_study,
                "--cg": cg_study, "--facade": facade_study,
                "--loop": loop_study, "--ladder": ladder_study,
-               "--slice": slice_study, "--sparse-chain": sparse_chain_study}
+               "--slice": slice_study, "--sparse-chain": sparse_chain_study,
+               "--mesh": phase_mesh}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -5614,7 +6180,7 @@ def main() -> int:
     timed("loop", phase_loop, card, flagship, sparse_hier)
     del flagship["op"], flagship["mu_factors"]
     torch.cuda.empty_cache()
-    busy = timed("loop busy", loop_busy, card)
+    busy = timed("loop busy", loop_busy, card, "lean")
     timed("chain", phase_chain, card, busy)
     timed("sparse chain", phase_sparse_chain, card, busy, sparse_hier)
     del sparse_hier["corpus"], sparse_hier["op"]
@@ -5623,14 +6189,17 @@ def main() -> int:
     timed("demo", phase_demo, card)
     timed("two traces", phase_two_traces, card)
     timed("bpp wide", phase_bpp_wide, card)
-    with ThreadPoolExecutor(6) as pool:  # the CLI processes side by side
+    # the CLI processes side by side, and beside them phase mesh's child
+    # (its walls are taken beside the CLIs here; `--mesh` runs it alone)
+    with ThreadPoolExecutor(7) as pool:
         t0 = time.perf_counter()
-        for job in [pool.submit(phase_cli), pool.submit(phase_flat_cli),
-                    pool.submit(phase_hier_cli), pool.submit(phase_sparse_cli),
+        for job in [pool.submit(phase_mesh, card), pool.submit(phase_cli),
+                    pool.submit(phase_flat_cli), pool.submit(phase_hier_cli),
+                    pool.submit(phase_sparse_cli),
                     pool.submit(phase_cli_chain),
                     pool.submit(phase_smallk_example)]:
             job.result()
-        secs["cli"] = time.perf_counter() - t0
+        secs["cli and mesh"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
 
     ms, plain_ms, library_ms, bound_ms, bound_by = k1["times"][

@@ -20,8 +20,12 @@ Library entry points, all on the card unless `device="cpu"` is passed:
 `engines.nmf.run_nmf`, `engines.flatclust.run_flatclust`,
 `engines.flatclust.run_hier_nmf2` and `engines.hierclust.clust_hier`.
 
-Not ported: `mesh=` (the sharded solve, ROADMAP slice 15) raises, and the
-reference's persistent XLA compile cache has no counterpart.
+`HierNmf2(..., mesh=)` and `HierNmf2WithFlat(..., mesh=)` run sharded over
+a `parallel.mesh.Mesh` of ranks, every rank in the same program; only the
+mesh's coordinator writes the output files.
+
+Not ported: the reference's persistent XLA compile cache has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ import os as _os
 
 import numpy as _np
 
-from .common.device import no_mesh as _no_mesh
 from .common.options import (  # noqa: F401
     ClustOptions,
     ClustStats,
@@ -376,7 +379,9 @@ def _hier_nmf2_internal(generate_flat: bool, num_clusters: int,
                         checkpoint_path=None, mesh=None, restarts=1,
                         priority_method="ndcg") -> None:
     _require_init()
-    _no_mesh(mesh, "HierNmf2")
+    from .parallel.mesh import check_mesh
+
+    check_mesh(mesh, "HierNmf2")
     if _state.matrix is None:
         raise RuntimeError("smallk error (HierNmf2): no matrix loaded")
     if _state.dictionary is None:
@@ -413,11 +418,13 @@ def _hier_nmf2_internal(generate_flat: bool, num_clusters: int,
         priority_method=priority_method,
     )
 
-    tree, stats, flat = run_hier_nmf2(A, opts, _state.rng,
+    tree, stats, flat = run_hier_nmf2(A, opts, _state.rng, mesh=mesh,
                                       checkpoint_path=checkpoint_path,
                                       device=_state.device)
     num_converged = stats.nmf_count - stats.max_count
     print(f"{num_converged}/{stats.nmf_count} factorizations converged.\n")
+    if mesh is not None and not mesh.is_coordinator:
+        return
 
     outdir = _state.output_dir.rstrip("/")
     fmt = _state.output_format
@@ -447,8 +454,8 @@ def HierNmf2(num_clusters: int, checkpoint_path=None, mesh=None,
              restarts=1, priority_method="ndcg") -> None:
     """Reference signature is HierNmf2(num_clusters) (smallk.hpp); the
     keyword extensions surface the engine's features — preemption-safe
-    checkpointing, best-of-R restarts, and the size_ndcg pop policy.
-    `mesh` keeps its place and raises (ROADMAP slice 15)."""
+    checkpointing, best-of-R restarts, the size_ndcg pop policy, and a
+    sharded run over `mesh` (a parallel.mesh.Mesh)."""
     _hier_nmf2_internal(False, num_clusters,
                         checkpoint_path=checkpoint_path, mesh=mesh,
                         restarts=restarts,

@@ -9,8 +9,9 @@ is already Python, so these classes call the engines directly.
 SmallkAPI, Flatclust and Hierclust take `device="cuda"` in their
 constructors and run there unless the caller asks for the CPU; their
 parsers gain `--device` (default cuda), as the port's CLIs have.
-Matrixgen and Preprocessor are host-only (numpy and scipy).  `mesh=`
-keeps its place and raises (the sharded solve, ROADMAP slice 15).
+Matrixgen and Preprocessor are host-only (numpy and scipy).  `mesh=` (a
+parallel.mesh.Mesh) runs Flatclust and Hierclust sharded over its ranks,
+every rank in the same program; only the coordinator writes output files.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import argparse
 import numpy as np
 import scipy.sparse as sp
 
-from .common.device import no_mesh
 from .common.options import (
     ClustOptions,
     ClustStats,
@@ -276,7 +276,6 @@ class Flatclust(Clustering):
         from .engines.flatclust import run_flatclust
         from .io.delimited import load_delimited
 
-        no_mesh(mesh, "Flatclust.cluster")
         m, n = self.A.shape
         W0 = (load_delimited(infile_W) if infile_W
               else random_matrix(m, k, self.rng))
@@ -291,7 +290,7 @@ class Flatclust(Clustering):
         )
         self._stats = NmfStats()
         self.W, self.H, self.assignments, self.fuzzy, ok = run_flatclust(
-            self.A, W0, H0, opts, self._stats, device=self.device
+            self.A, W0, H0, opts, self._stats, mesh=mesh, device=self.device
         )
         self.maxterms = maxterms
         self.term_indices = top_terms_matrix(self.W, maxterms)
@@ -302,6 +301,10 @@ class Flatclust(Clustering):
         import os
 
         from .engines.flatclust import write_flatclust_results
+        from .parallel.distributed import is_coordinator
+
+        if not is_coordinator():   # a sharded run: rank 0 writes
+            return
 
         k = self.H.shape[0]
         fmt = OutputFormat(format)
@@ -351,10 +354,10 @@ class Hierclust(Clustering):
         """`graph=True` applies the graph preset: symmetric D^-1/2 A
         D^-1/2 normalization plus size_ndcg pop + best-of-3 restarts
         unless overridden (engines/graph.py).  `checkpoint_path` makes
-        the run preemption-safe; `mesh` is not ported and raises."""
+        the run preemption-safe; `mesh` shards A over a (terms, docs)
+        mesh of ranks."""
         from .engines.flatclust import run_hier_nmf2
 
-        no_mesh(mesh, "Hierclust.cluster")
         A = self.A
         if graph:
             from .engines.graph import normalized_adjacency
@@ -382,7 +385,7 @@ class Hierclust(Clustering):
         )
         self._stats = ClustStats()
         self.tree, self._stats, self.flat_results = run_hier_nmf2(
-            A, opts, self.rng, self._stats,
+            A, opts, self.rng, self._stats, mesh=mesh,
             checkpoint_path=checkpoint_path, device=self.device,
         )
         self.num_clusters = k
@@ -401,6 +404,10 @@ class Hierclust(Clustering):
 
         from .engines.flatclust import write_flatclust_results
         from .io.writers import make_hierclust_writer
+        from .parallel.distributed import is_coordinator
+
+        if not is_coordinator():   # a sharded run: rank 0 writes
+            return
 
         fmt = OutputFormat(format)
         ext = "xml" if fmt == OutputFormat.XML else "json"

@@ -1,11 +1,14 @@
 """flatclust command-line tool — port of smallk_tpu/cli/flatclust_cli.py.
 
 Same flags, defaults, output files, renames and exit codes, plus
-`--device` (default cuda).  The reference's `--mesh` (a sharded solve) and
-`--compile-cache` (an XLA setting) have no counterpart here.
+`--device` (default cuda).  `--mesh TxD` shards the solve over a terms x
+docs mesh of T*D ranks, one process a rank (cli/mesh.py); the reference's
+`--compile-cache` (an XLA setting) has no counterpart here.
 
     python -m smallk_torch.cli.flatclust_cli --matrixfile A.mtx \
         --dictfile dict.txt --clusters 16 --algorithm HALS
+    torchrun --nproc-per-node=2 -m smallk_torch.cli.flatclust_cli \
+        --matrixfile A.mtx --dictfile dict.txt --clusters 16 --mesh 1x2
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+from .mesh import add_mesh_argument, mesh_from_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,6 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N, cpu)")
+    add_mesh_argument(p)
     return p
 
 
@@ -76,9 +82,13 @@ def main(argv=None) -> int:
         verbose=bool(args.verbose), normalize=True, dtype=args.dtype,
     )
 
-    stats = NmfStats()
-    W, H, assignments, fuzzy, ok = run_flatclust(A, W0, H0, opts, stats,
-                                                 device=args.device)
+    with mesh_from_args(args) as mesh:
+        stats = NmfStats()
+        W, H, assignments, fuzzy, ok = run_flatclust(
+            A, W0, H0, opts, stats, mesh=mesh, device=args.device)
+        coordinator = mesh is None or mesh.is_coordinator
+    if not coordinator:   # a sharded run: rank 0 reports and writes
+        return 0 if ok else 1
     if not ok:
         print("flatclust: solver failure", file=sys.stderr)
         return 1

@@ -1,11 +1,14 @@
 """hierclust command-line tool — port of smallk_tpu/cli/hierclust_cli.py.
 
 Same flags, defaults, output files and exit codes, plus `--device`
-(default cuda).  The reference's `--mesh` (a sharded run) and
-`--compile-cache` (an XLA setting) have no counterpart here.
+(default cuda).  `--mesh TxD` shards the run over a terms x docs mesh of
+T*D ranks, one process a rank (cli/mesh.py); the reference's
+`--compile-cache` (an XLA setting) has no counterpart here.
 
     python -m smallk_torch.cli.hierclust_cli --matrixfile A.mtx \\
         --dictfile dict.txt --clusters 12
+    torchrun --nproc-per-node=4 -m smallk_torch.cli.hierclust_cli \\
+        --matrixfile A.mtx --dictfile dict.txt --clusters 12 --mesh 2x2
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+from .mesh import add_mesh_argument, mesh_from_args
 import time
 
 
@@ -63,6 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "best-of-3 restarts) unless overridden")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N, cpu)")
+    add_mesh_argument(p)
     return p
 
 
@@ -127,13 +133,17 @@ def main(argv=None) -> int:
         priority_method=priority,
     )
 
-    stats = ClustStats()
-    t0 = time.perf_counter()
-    tree, stats, flat = run_hier_nmf2(
-        A, opts, Random(args.seed), stats,
-        checkpoint_path=args.checkpoint or None, device=args.device,
-    )
-    elapsed = time.perf_counter() - t0
+    with mesh_from_args(args) as mesh:
+        stats = ClustStats()
+        t0 = time.perf_counter()
+        tree, stats, flat = run_hier_nmf2(
+            A, opts, Random(args.seed), stats, mesh=mesh,
+            checkpoint_path=args.checkpoint or None, device=args.device,
+        )
+        elapsed = time.perf_counter() - t0
+        coordinator = mesh is None or mesh.is_coordinator
+    if not coordinator:   # a sharded run: rank 0 reports and writes
+        return 0
     converged = stats.nmf_count - stats.max_count
     print(f"{converged}/{stats.nmf_count} factorizations converged.")
     print(f"Elapsed wall clock time: {elapsed:.3f} sec.")

@@ -64,11 +64,3 @@ def _lookup(name, table) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}; expected one of "
                          f"{sorted(table)}") from None
 
-
-def no_mesh(mesh, where: str) -> None:
-    """`mesh=` keeps its place in the entry points that the reference
-    shards; the sharded solve is not ported, so any mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{where}: mesh= (the sharded solve) is not ported; see "
-            "ROADMAP slice 15")

@@ -10,12 +10,15 @@ on the port's copies of the numpy-only `engines.assignments` and
 `run_hier_nmf2` is the whole hierarchical workload: the tree, then the
 optional flat refinement.
 
-Not ported here: the sharded solve (`mesh`, ROADMAP slice 15).
+With `mesh` (parallel/mesh.Mesh) each runs sharded over the mesh's ranks:
+the operand is built once from the rank's block and every rank gets the
+same host results.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -36,6 +39,7 @@ from .assignments import (
     compute_fuzzy_assignments,
     top_terms_matrix,
 )
+from ..parallel.mesh import check_mesh, shard_operand, sharded_nmf_solve
 from .nmf import run_nmf
 
 _FLATCLUST_ALGORITHMS = (
@@ -44,9 +48,12 @@ _FLATCLUST_ALGORITHMS = (
 
 
 def run_flatclust(A, W0: np.ndarray, H0: np.ndarray, opts: NmfOptions,
-                  stats: Optional[NmfStats] = None, *, device="cuda"):
+                  stats: Optional[NmfStats] = None, mesh=None, *,
+                  device="cuda"):
     """Factor A on `device` ("cuda", "cuda:1", "cpu"; the card unless the
-    caller asks for the CPU) and derive the flat clustering.
+    caller asks for the CPU) and derive the flat clustering.  With `mesh`,
+    A, W and H are sharded over its ranks, on its device
+    (parallel/mesh.sharded_nmf_solve).
 
     Returns (W, H, assignments, fuzzy, success) as host arrays; top terms
     are derived by the caller via assignments.top_terms_matrix(W, maxterms).
@@ -56,10 +63,26 @@ def run_flatclust(A, W0: np.ndarray, H0: np.ndarray, opts: NmfOptions,
             "flatclust: algorithm must be HALS, RANK2, or BPP "
             "(reference flat_clust.cpp:38-70 excludes MU)"
         )
-    W, H, ok = run_nmf(A, W0, H0, opts, stats, device=device)
+    if check_mesh(mesh, "run_flatclust") is None:
+        W, H, ok = run_nmf(A, W0, H0, opts, stats, device=device)
+    else:
+        W, H, ok = _sharded_nmf(A, W0, H0, opts, stats, mesh)
     assignments = compute_assignments(H)
     fuzzy = compute_fuzzy_assignments(H).astype(np.float32)
     return W, H, assignments, fuzzy, ok
+
+
+def _sharded_nmf(A, W0, H0, opts: NmfOptions, stats, mesh):
+    """`run_nmf` over a mesh: (W, H, success) on every rank."""
+    opts.validate()
+    t0 = time.perf_counter()
+    res = sharded_nmf_solve(A, W0, H0, opts, mesh)
+    W, H = res.W.cpu().numpy(), res.H.cpu().numpy()
+    if stats is not None:
+        stats.elapsed_us = int((time.perf_counter() - t0) * 1e6)
+        stats.iteration_count = int(res.iterations)
+        stats.pivot_rounds = int(res.pivot_rounds)
+    return W, H, bool(res.success)
 
 
 def write_flatclust_results(
@@ -104,9 +127,10 @@ def write_flatclust_results(
 
 
 def run_hier_nmf2(A, opts: ClustOptions, rng, stats=None,
-                  checkpoint_path=None, *, device="cuda"):
+                  checkpoint_path=None, mesh=None, *, device="cuda"):
     """Full hierarchical workload on `device` (the card unless the caller
-    asks for the CPU): tree + optional flat refinement.
+    asks for the CPU): tree + optional flat refinement.  With `mesh`, both
+    phases run sharded over its ranks, on its device.
 
     Reference: RunHierNmf2 (hierclust/include/run_hier_nmf2.hpp:17-76).
     Returns (tree, stats, flat) where flat is None or a dict with
@@ -119,15 +143,19 @@ def run_hier_nmf2(A, opts: ClustOptions, rng, stats=None,
     # one operand for both phases; the host matrix rides along for the
     # tree's node operands and initdir row support
     host_A = A if sp.issparse(A) or isinstance(A, np.ndarray) else None
-    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
-                  device=device)
-    tree, stats = clust_hier(a_op, opts, rng, stats,
+    a_dtype = opts.nmf_opts.a_dtype or opts.nmf_opts.dtype
+    if check_mesh(mesh, "run_hier_nmf2") is None:
+        a_op = as_aop(A, dtype=a_dtype, device=device)
+    else:
+        a_op = shard_operand(A, mesh, a_dtype)
+    tree, stats = clust_hier(a_op, opts, rng, stats, mesh=mesh,
                              checkpoint_path=checkpoint_path, host_A=host_A,
                              device=device)
 
     flat = None
     if opts.flat:
-        W, H, ok = clust_flat(a_op, tree, opts, rng, device=device)
+        W, H, ok = clust_flat(a_op, tree, opts, rng, mesh=mesh,
+                              device=device)
         flat = {
             "W": W,
             "H": H,

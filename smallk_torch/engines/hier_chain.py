@@ -100,7 +100,11 @@ class ChainDriver:
 
     @staticmethod
     def available(runner, opts, interrupt_after) -> bool:
+        """Whether the chain runs this tree: not on a mesh (as in the
+        reference, its nodes are sharded masks there), nor in initdir
+        mode, nor for options off its common path."""
         return (CHAIN
+                and runner.mesh is None
                 and ((isinstance(runner.a_op, DenseAOp)
                       and len(bucket_widths(runner.n)) > 0)
                      or runner.chunks is not None)

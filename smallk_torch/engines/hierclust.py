@@ -37,9 +37,17 @@ chunk table) the multi-split chain (engines/hier_chain.py) runs the splits
 and hands any split off its common path back to the loop here, one split
 at a time.
 
+With `mesh` (parallel/mesh.Mesh), as in the reference: A is sharded once
+over the mesh's ranks (ops/aop.ShardedAOp) and every node solves on the
+masked view of it, the mask the rank's slice; each rank draws W0 and H0 in
+full from the same seed and takes its blocks, and after each solve the
+node's W is gathered over the terms axis and its H over the docs axis, so
+the tree, priority and assignment code runs unchanged and identically on
+every rank.  Only the coordinator writes the checkpoint; every rank reads
+it on resume.  The chain is off.
+
 Not ported: speculation, the prefetch pool, bit-packed results and the
-dispatch-budget segmentation (workarounds for a high-latency TPU link),
-and `mesh`.
+dispatch-budget segmentation (workarounds for a high-latency TPU link).
 """
 
 from __future__ import annotations
@@ -61,6 +69,12 @@ from ..io.delimited import load_delimited
 from ..ops.aop import DenseAOp, MaskedAOp, as_aop
 from ..ops.dense import gemm_nt, gram
 from ..ops.ell_cols import ChunkColsAOp, CscChunks
+from ..parallel.mesh import (
+    check_mesh,
+    gather_factors,
+    shard_factors,
+    shard_operand,
+)
 from ..solvers.nnls import nnls_hals
 from ..solvers.rank2 import spectral_init_rank2
 from ..solvers.solve import nmf_solve, reference_pg1
@@ -218,8 +232,8 @@ class _NodeSolve(NamedTuple):
 def _objective(op, W, H):
     """||A_sub - W H||_F^2 up to the constant ||A_sub||^2:
     tr((W'W)(HH')) - 2 <W'A, H>."""
-    return (torch.sum(gram(W) * gemm_nt(H, H))
-            - 2.0 * torch.sum(op.mm_tn(W) * H))
+    return (torch.sum(op.sum_terms(gram(W)) * op.sum_docs(gemm_nt(H, H)))
+            - 2.0 * op.sum_docs(torch.sum(op.mm_tn(W) * H)))
 
 
 def _solve_from_draw(op, draw, opts, init, restarts, graphs=None):
@@ -240,8 +254,13 @@ def _solve_from_draw(op, draw, opts, init, restarts, graphs=None):
             # degenerate spectral pair falls back to the random start
             pg0 = reference_pg1(op, W0, H0, opts)
             W0s, H0s = spectral_init_rank2(op, H0)
-            good = bool(torch.all(torch.isfinite(W0s))
-                        & torch.all(torch.linalg.norm(W0s, dim=0) > 0))
+            if op.sharded:
+                good = bool(op.all_ranks(torch.all(torch.isfinite(W0s)))
+                            & torch.all(op.sum_terms(torch.sum(
+                                torch.square(W0s), dim=0)) > 0))
+            else:
+                good = bool(torch.all(torch.isfinite(W0s))
+                            & torch.all(torch.linalg.norm(W0s, dim=0) > 0))
             if good:
                 W0, H0 = W0s, H0s
         res = nmf_solve(op, W0, H0, opts, pg0_hint=pg0, graphs=graphs)
@@ -261,8 +280,12 @@ class _Rank2Runner:
     ladder (clust_hier_generic.hpp:123-151, 435-472)."""
 
     def __init__(self, a_op, opts: ClustOptions, inits: _InitializerSource,
-                 stats: ClustStats, dtype, host_A=None, chunks=None):
+                 stats: ClustStats, dtype, host_A=None, chunks=None,
+                 mesh=None):
         self.a_op = a_op
+        # with a mesh, a_op is the rank's block (a ShardedAOp): every node
+        # solves on its masked view
+        self.mesh = mesh
         self.opts = opts
         self.inits = inits
         self.stats = stats
@@ -351,12 +374,29 @@ class _Rank2Runner:
 
     def masked_operand(self, idx):
         """The full-width operand with every column but `idx`'s masked
-        out."""
+        out (on a mesh, the rank's slice of the mask)."""
         global masked_operands
         masked_operands += 1
         mask = torch.zeros(self.n, dtype=self.dtype, device=self.device)
         mask[idx] = 1.0
+        if self.mesh is not None:
+            c0, c1 = self.a_op.cols
+            mask = mask[c0:c1].contiguous()
         return MaskedAOp(self.a_op, mask)
+
+    def local(self, W, H):
+        """This rank's rows of W (m, 2) and columns of H (2, n), or W and H
+        without a mesh."""
+        if self.mesh is None:
+            return W, H
+        return shard_factors(W, H, self.mesh)
+
+    def gathered(self, W, H):
+        """The full W and H from the ranks' blocks (without a mesh, W and
+        H)."""
+        if self.mesh is None:
+            return W, H
+        return gather_factors(W, H, self.mesh, self.m, self.n)
 
     def close(self) -> None:
         """Release every kept graph and operand buffer."""
@@ -381,6 +421,8 @@ class _Rank2Runner:
             subset = np.arange(self.n)
         idx = torch.as_tensor(np.asarray(subset), dtype=torch.long,
                               device=self.device)
+        if self.mesh is not None:
+            return self.masked_operand(idx), idx, True, None
         if isinstance(self.a_op, DenseAOp):
             op, graphs = self.dense_operand(idx, self.width(len(subset)))
             return op, idx, False, graphs
@@ -426,7 +468,7 @@ class _Rank2Runner:
                 H0 = torch.rand((2, self.n), generator=gen, dtype=self.dtype,
                                 device=self.device)
                 if idx is None or masked:
-                    return W0, H0
+                    return self.local(W0, H0)
                 return W0, gather_columns(H0, idx, op.shape[1])
 
             # spectral start on the first attempt only: a retry means that
@@ -435,6 +477,7 @@ class _Rank2Runner:
             W, H, success, iters = _solve_from_draw(
                 op, draw, self.quiet_opts, init, self.restarts, graphs)
             if self._record(success, iters):
+                W, H = self.gathered(W, H)
                 if masked:
                     H = H.index_select(1, idx)
                 elif idx is not None:
@@ -478,14 +521,14 @@ class _Rank2Runner:
                 W0 = np.where(row_support[:, None], W0, 0.0)
             if subset is not None and not masked:
                 H0 = H0[:, np.asarray(subset)]
-            res = nmf_solve(
-                op, torch.as_tensor(W0, dtype=self.dtype, device=self.device),
-                torch.as_tensor(H0, dtype=self.dtype, device=self.device),
-                nmf_opts,
-            )
+            res = nmf_solve(op, *self.local(
+                torch.as_tensor(W0, dtype=self.dtype, device=self.device),
+                torch.as_tensor(H0, dtype=self.dtype, device=self.device)),
+                nmf_opts)
             if self._record(bool(res.success), int(res.iterations)):
-                W = res.W.cpu().numpy()
-                H = res.H.cpu().numpy()
+                W, H = self.gathered(res.W, res.H)
+                W = W.cpu().numpy()
+                H = H.cpu().numpy()
                 if masked:
                     H = H[:, np.asarray(subset)]
                 left = H[0, :] > H[1, :]
@@ -608,6 +651,15 @@ def _save_hier_checkpoint(path, tree, W_buffer, L_buffer, rng_state, stats,
     atomic_savez(path, payload, suffix=".hckpt.tmp")
 
 
+def _save_on_coordinator(mesh, path, *args, **kwargs):
+    """`_save_hier_checkpoint` by the mesh's coordinator (by the process
+    without a mesh); the other ranks wait until it is written."""
+    if mesh is None or mesh.is_coordinator:
+        _save_hier_checkpoint(path, *args, **kwargs)
+    if mesh is not None:
+        mesh.barrier()
+
+
 def _load_hier_checkpoint(path, node_count, config):
     with np.load(path, allow_pickle=False) as z:
         arrs = {k: z[k] for k in z.files}
@@ -650,13 +702,15 @@ def _operand(A, opts: ClustOptions, device, host_A=None):
 def clust_hier(A, opts: ClustOptions, rng: Random,
                stats: ClustStats | None = None,
                checkpoint_path: str | None = None,
-               host_A=None, *, device="cuda",
+               host_A=None, mesh=None, *, device="cuda",
                _interrupt_after: int | None = None):
     """Build the hierarchical clustering tree on `device` (the card unless
     the caller asks for the CPU; a prebuilt operand keeps its own).
     `host_A`, the host matrix of a prebuilt operand, gives a sparse one its
     chunk table (its nodes' static operands) and initdir runs their row
-    support.
+    support.  With `mesh`, A is sharded over its ranks, on its device
+    (a prebuilt sparse operand by its `host_A`), and every node solves on
+    the masked view of the rank's block.
 
     Reference: ClustHier (clust_hier_generic.hpp:77-238).
     Returns (tree, stats).
@@ -670,7 +724,12 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     stats = stats if stats is not None else ClustStats()
     opts.validate()
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op, chunks = _operand(A, opts, device, host_A)
+    if check_mesh(mesh, "clust_hier") is None:
+        a_op, chunks = _operand(A, opts, device, host_A)
+    else:
+        a_op = shard_operand(A, mesh, opts.nmf_opts.a_dtype
+                             or opts.nmf_opts.dtype, host_A=host_A)
+        chunks = None
     setup(a_op.device)
     m, n = a_op.shape
 
@@ -685,7 +744,7 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
         elif isinstance(A, np.ndarray):
             host_A = A
     runner = _Rank2Runner(a_op, opts, inits, stats, dtype, host_A=host_A,
-                          chunks=chunks)
+                          chunks=chunks, mesh=mesh)
 
     W = left = None
     start_i = 0
@@ -714,17 +773,17 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
             )
         W, left = ns.W, ns.left
         if checkpoint_path:
-            _save_hier_checkpoint(
-                checkpoint_path, tree, W_buffer, L_buffer, rng.get_state(),
-                stats, 0, root_W=W, root_left=left, config=ckpt_config,
-                init_counter=inits.counter,
+            _save_on_coordinator(
+                mesh, checkpoint_path, tree, W_buffer, L_buffer,
+                rng.get_state(), stats, 0, root_W=W, root_left=left,
+                config=ckpt_config, init_counter=inits.counter,
             )
 
     def save(i_next):
         if checkpoint_path:
-            _save_hier_checkpoint(
-                checkpoint_path, tree, W_buffer, L_buffer, rng.get_state(),
-                stats, i_next, config=ckpt_config,
+            _save_on_coordinator(
+                mesh, checkpoint_path, tree, W_buffer, L_buffer,
+                rng.get_state(), stats, i_next, config=ckpt_config,
                 init_counter=inits.counter,
             )
 
@@ -809,30 +868,45 @@ def clust_hier(A, opts: ClustOptions, rng: Random,
     return tree, stats
 
 
-def clust_flat(A, tree: Tree, opts: ClustOptions, rng: Random, *,
-               device="cuda"):
+def clust_flat(A, tree: Tree, opts: ClustOptions, rng: Random, mesh=None,
+               *, device="cuda"):
     """Flat refinement: W from the k leaf topic vectors, H by NNLS-HALS on
-    the whole operand (a sparse one's bucketed ELL).
+    the whole operand (a sparse one's bucketed ELL); with `mesh`, sharded
+    over its ranks, on its device.
 
     Reference: ClustFlat (clust_flat_generic.hpp:15-76), <= 3 attempts with
     fresh random H.  Returns host (W (m,k), H (k,n), success).
     """
     dtype = torch_dtype(opts.nmf_opts.dtype)
-    a_op = as_aop(A, dtype=opts.nmf_opts.a_dtype or opts.nmf_opts.dtype,
-                  device=device)
+    a_dtype = opts.nmf_opts.a_dtype or opts.nmf_opts.dtype
+    if check_mesh(mesh, "clust_flat") is None:
+        a_op = as_aop(A, dtype=a_dtype, device=device)
+    else:
+        a_op = shard_operand(A, mesh, a_dtype)
     dev = setup(a_op.device)
     m, n = a_op.shape
     k = opts.num_clusters
 
-    W_dev = torch.as_tensor(tree.flatclust_init_w(m, k), dtype=dtype,
-                            device=dev)
+    def local(W, H):
+        if mesh is None:
+            return W, H
+        return shard_factors(W, H, mesh)
+
+    def host(W, H):
+        if mesh is not None:
+            W, H = gather_factors(W, H, mesh, m, n)
+        return W.cpu().numpy(), H.cpu().numpy()
+
+    W_full = torch.as_tensor(tree.flatclust_init_w(m, k), dtype=dtype,
+                             device=dev)
     for _ in range(3):
         H0 = random_matrix(k, n, rng, dtype=np.float64)
         W_out, H_out, ok = nnls_hals(
-            a_op, W_dev, torch.as_tensor(H0, dtype=dtype, device=dev),
+            a_op, *local(W_full, torch.as_tensor(H0, dtype=dtype,
+                                                 device=dev)),
             opts.nmf_opts.tol, opts.nmf_opts.max_iter,
         )
         if ok:
-            return W_out.cpu().numpy(), H_out.cpu().numpy(), True
+            return (*host(W_out, H_out), True)
     print("Flatclust NNLS solver failed after 3 attempts.")
-    return W_out.cpu().numpy(), H_out.cpu().numpy(), False
+    return (*host(W_out, H_out), False)

@@ -25,10 +25,18 @@ Three operands, and a view:
     `index_add_` (the reference's XLA gather + segment-sum; no kernel).
     No path of the port picks it unless asked (`sparse_format="coo"`):
     it and the pad-multiple options keep the reference's `as_aop` API,
-    which the tests hold the port to, and are what a sharded operand
-    will split (ROADMAP slice 15).
+    which the tests hold the port to; a sharded operand's block may be
+    one (parallel/mesh.shard_operand, sparse_format="coo"), and no
+    sharded operand needs the pad-multiple options.
   - MaskedAOp: a column-masked view of any of them (hierclust's
     full-width node solves).
+  - ShardedAOp: one rank's block of A on a terms x docs mesh of ranks
+    (parallel/mesh.py), any of the above, whose products are summed over
+    the mesh axis they contract.
+
+Every operand carries the reductions of `ops.dense.Unsharded` (sum_terms,
+sum_docs, ...): identities, except on a ShardedAOp, where they are the
+collectives of its mesh; a MaskedAOp takes its base's.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import torch
 
 from ..common.device import setup, storage_dtype
 from ..kernels import rank2_loop
-from .dense import _pet
+from .dense import Unsharded, _pet
 from .ell import EllAOp, _to_storage
 
 # products since the last reset, by branch; the only places they grow are
@@ -55,7 +63,7 @@ def _kernel_product_ok(A, F, k: int) -> bool:
             and F.dtype == torch.float32 and k == 2)
 
 
-class DenseAOp:
+class DenseAOp(Unsharded):
     """Dense operand: A stored as an (m, n) tensor."""
 
     def __init__(self, A: torch.Tensor):
@@ -101,7 +109,7 @@ class DenseAOp:
         return torch.sum(self.A, dim=0)
 
 
-class SparseAOp:
+class SparseAOp(Unsharded):
     """Sparse operand in dual-sorted COO form.
 
     Stores the nonzeros twice, sorted by column and by row, so both
@@ -258,6 +266,97 @@ class MaskedAOp:
         sums = self.base.col_sums()
         return sums * self.mask.to(sums.dtype)
 
+    # a mask keeps its base's layout: the base's reductions
+    @property
+    def sharded(self):
+        return self.base.sharded
+
+    def sum_terms(self, x):
+        return self.base.sum_terms(x)
+
+    def sum_docs(self, x):
+        return self.base.sum_docs(x)
+
+    def max_terms(self, x):
+        return self.base.max_terms(x)
+
+    def max_docs(self, x):
+        return self.base.max_docs(x)
+
+    def all_terms(self, flags):
+        return self.base.all_terms(flags)
+
+    def all_ranks(self, ok):
+        return self.base.all_ranks(ok)
+
+
+class ShardedAOp:
+    """One rank's block of A on a mesh of ranks over (terms, docs): rows
+    `rows` = (r0, r1) and columns `cols` = (c0, c1) of the global (m, n)
+    `shape`, held as `local`, an operand of any other kind
+    (parallel/mesh.shard_operand).  Beside it the rank holds W's rows
+    r0..r1 and H's columns c0..c1, so
+
+      mm_tn(W_t) = sum over the terms axis of W_t^T A_td   (k, c1 - c0)
+      mm_nt(H_d) = sum over the docs axis of A_td H_d^T    (r1 - r0, k)
+
+    both the local operand's products (its kernels run on the block) and
+    one all-reduce each.  The reductions are `mesh.all_reduce` over the
+    named axis, or over every rank for `all_ranks`.  `shape` is the global
+    shape, as a sharded array's is in the JAX package."""
+
+    sharded = True
+
+    def __init__(self, local, mesh, shape, rows, cols):
+        self.local = local
+        self.mesh = mesh
+        self._shape = tuple(int(s) for s in shape)
+        self.rows = tuple(rows)
+        self.cols = tuple(cols)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def device(self):
+        return self.local.device
+
+    def mm_tn(self, W):
+        return self.sum_terms(self.local.mm_tn(W))
+
+    def mm_nt(self, H):
+        return self.sum_docs(self.local.mm_nt(H))
+
+    def col_sums(self):
+        sums = self.local.col_sums()
+        if sums.dtype == torch.float8_e4m3fn:
+            # no collective sums e4m3: f32 sums, rounded once
+            return self.sum_terms(sums.float()).to(sums.dtype)
+        return self.sum_terms(sums)
+
+    def sum_terms(self, x):
+        return self.mesh.all_reduce(x, "terms", "sum")
+
+    def sum_docs(self, x):
+        return self.mesh.all_reduce(x, "docs", "sum")
+
+    def max_terms(self, x):
+        return self.mesh.all_reduce(x, "terms", "max")
+
+    def max_docs(self, x):
+        return self.mesh.all_reduce(x, "docs", "max")
+
+    def all_terms(self, flags):
+        return self.mesh.all_reduce(torch.all(flags), "terms", "min")
+
+    def all_ranks(self, ok):
+        return self.mesh.all_reduce(ok, None, "min")
+
 
 _SPARSE_FORMATS = ("ell", "coo")
 DENSIFY_THRESHOLD_BYTES = 2 << 30
@@ -285,7 +384,7 @@ def as_aop(A, dtype=torch.float32, *, device="cuda",
     Larger ones become an `EllAOp` (bucketed ELL, buckets padded to
     `ell_pad_multiple` rows), or a `SparseAOp` for sparse_format="coo".
     """
-    if isinstance(A, (DenseAOp, SparseAOp, MaskedAOp, EllAOp)):
+    if isinstance(A, (DenseAOp, SparseAOp, MaskedAOp, EllAOp, ShardedAOp)):
         return A
     if sparse_format not in _SPARSE_FORMATS:
         raise ValueError(f"sparse_format {sparse_format!r}; expected one of "

@@ -4,6 +4,16 @@ Plain products on torch.matmul.  Each product accumulates in f32 (f64 for
 f64 input, `_pet`) and casts back to the first operand's dtype, as the
 reference's `preferred_element_type` + `.astype` does.  Full f32 (no TF32)
 is set by `common.device.setup`.
+
+`Unsharded` gives every operand kind the reductions a sharded solve needs
+(parallel/mesh.py): a sum or max of a per-block partial over the terms
+axis (W's rows, A's rows) or the docs axis (H's columns, A's columns), and
+the agreement of a flag over all ranks.  On an operand that is not
+sharded each is the identity on its argument, so an unsharded solve runs
+exactly the ops it ran before the sharded solve existed.  A helper that
+sums over a factor's sharded axis takes the operand (`a_op`, W's rows over
+terms, H's columns over docs) or, where the axis depends on the caller,
+the reduction itself (`total`).
 """
 
 from __future__ import annotations
@@ -19,6 +29,47 @@ def _pet(x: torch.Tensor) -> torch.dtype:
 def _mm(X, Y, like):
     pet = _pet(like)
     return torch.matmul(X.to(pet), Y.to(pet)).to(like.dtype)
+
+
+class Unsharded:
+    """The reductions of an operand that is not sharded: identities.
+    `ops.aop.ShardedAOp` has the same methods as collectives."""
+
+    sharded = False
+
+    @staticmethod
+    def sum_terms(x):
+        return x
+
+    @staticmethod
+    def sum_docs(x):
+        return x
+
+    @staticmethod
+    def max_terms(x):
+        return x
+
+    @staticmethod
+    def max_docs(x):
+        return x
+
+    @staticmethod
+    def all_terms(flags):
+        """Whether every entry of the bool tensor holds, on all ranks of
+        the terms axis (a 0-d bool tensor)."""
+        return torch.all(flags)
+
+    @staticmethod
+    def all_ranks(ok):
+        """A 0-d bool tensor that holds only where it holds on every rank."""
+        return ok
+
+
+UNSHARDED = Unsharded()
+
+
+def _same(x):
+    return x
 
 
 def gemm_tn(X, Y):
@@ -45,35 +96,38 @@ def gram_t(X):
     return gemm_nt(X, X)
 
 
-def fro_norm(X):
-    return torch.sqrt(torch.sum(torch.square(X)))
+def fro_norm(X, total=_same):
+    """The Frobenius norm; `total` sums the block's square sum over the
+    ranks that hold X's other blocks."""
+    return torch.sqrt(total(torch.sum(torch.square(X))))
 
 
-def normalize_and_scale(W, H):
+def normalize_and_scale(W, H, a_op=UNSHARDED):
     """Unit-L2 columns of W, rows of H scaled to compensate.
 
     Returns (W, H, norms); a column norm below eps is guarded in the
     division (the caller inspects `norms`), as in the reference.
     """
-    norms = torch.sqrt(torch.sum(torch.square(W), dim=0))  # (k,)
+    norms = torch.sqrt(a_op.sum_terms(torch.sum(torch.square(W), dim=0)))
     eps = torch.finfo(W.dtype).eps
     safe = torch.clamp(norms, min=eps)
     return W / safe[None, :], H * norms[:, None], norms
 
 
-def projected_gradient_norm(gradW, gradH, W, H):
+def projected_gradient_norm(gradW, gradH, W, H, a_op=UNSHARDED):
     """Norm of the projected gradient over (W, H): an element counts when
     its gradient is negative or its factor entry is positive."""
     mw = (gradW < 0) | (W > 0)
     mh = (gradH < 0) | (H > 0)
-    sw = torch.sum(torch.where(mw, torch.square(gradW), 0))
-    sh = torch.sum(torch.where(mh, torch.square(gradH), 0))
+    sw = a_op.sum_terms(torch.sum(torch.where(mw, torch.square(gradW), 0)))
+    sh = a_op.sum_docs(torch.sum(torch.where(mh, torch.square(gradH), 0)))
     return torch.sqrt(sw + sh)
 
 
-def projected_gradient_norm_single(gradM, M):
+def projected_gradient_norm_single(gradM, M, total=_same):
     m = (gradM < 0) | (M > 0)
-    return torch.sqrt(torch.sum(torch.where(m, torch.square(gradM), 0)))
+    return torch.sqrt(total(torch.sum(torch.where(m, torch.square(gradM),
+                                                  0))))
 
 
 def zeroize_small(X, threshold=1.0e-12):

@@ -30,6 +30,7 @@ import torch
 
 from ..common.device import setup, storage_dtype
 from ..kernels.ell_spmm import Buckets, ell_spmm_buckets
+from .dense import Unsharded
 
 # Quarter-step refinement of the pow-2 bucket ladder: a pow-2 class with
 # at least this many slices is split into sub-lengths {5/8, 3/4, 7/8, 1}
@@ -139,7 +140,7 @@ def _packs(buckets, blocks, block_size):
             for b, (_inv, bkts) in enumerate(blocks)]
 
 
-class EllAOp:
+class EllAOp(Unsharded):
     """Sparse operand in dual bucketed-ELL form (by columns and by rows).
 
     A family is monolithic (`col_buckets`, `col_inv`) or, past 2x

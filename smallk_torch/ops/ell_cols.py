@@ -44,6 +44,7 @@ import torch
 
 from ..common.device import setup, storage_dtype
 from ..kernels.seg_spmm import carries_for, chunk_spmm, seg_spmm, sum_dtype
+from .dense import Unsharded
 from .ell import _to_storage
 
 
@@ -220,7 +221,7 @@ def _padded_nonzero(mask, size: int, fill: int):
     return out
 
 
-class ChunkColsAOp:
+class ChunkColsAOp(Unsharded):
     """A column subset of a `CscChunks` table at a fixed width wc: its
     (m, wc) operand, column i the sum of the chunks of slot i, pad columns
     exactly zero (the dense path's zero-pad contract).  The buffers are

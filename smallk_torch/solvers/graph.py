@@ -39,6 +39,7 @@ import time
 import torch
 
 from ..common.options import NmfAlgorithm
+from ..ops.dense import UNSHARDED
 
 # Capture MU, HALS and RANK2 steps on the card (module switch, as the JAX
 # package's hier_chain.CHAIN: chip_smoke.py times the loop with and
@@ -56,13 +57,17 @@ _CAPTURED = (NmfAlgorithm.MU, NmfAlgorithm.HALS, NmfAlgorithm.RANK2)
 _streams: dict = {}
 
 
-def applies(algorithm: NmfAlgorithm, W, unroll: int) -> bool:
-    """Whether a solve of `algorithm` on W's device, U = `unroll` steps
-    between host reads, is captured.  At U = 1 it is not: no step can be
-    frozen there, so the eager step selects nothing, where a graph's step
-    must copy the new state into its buffers (at the flagship on an H100,
-    2 GB a step, 2.6% of MU's it/s: PERF.md §6)."""
-    return CAPTURE and unroll > 1 and W.is_cuda and algorithm in _CAPTURED
+def applies(algorithm: NmfAlgorithm, W, unroll: int,
+            a_op=UNSHARDED) -> bool:
+    """Whether a solve of `algorithm` on `a_op`, on W's device, U =
+    `unroll` steps between host reads, is captured.  At U = 1 it is not:
+    no step can be frozen there, so the eager step selects nothing, where a
+    graph's step must copy the new state into its buffers (at the flagship
+    on an H100, 2 GB a step, 2.6% of MU's it/s: PERF.md §6).  Nor is a
+    solve on a sharded operand: its steps hold collectives (gloo's cannot
+    be captured; NCCL's in a graph are not ported), so it runs eagerly."""
+    return (CAPTURE and unroll > 1 and W.is_cuda and algorithm in _CAPTURED
+            and not a_op.sharded)
 
 
 def counters():

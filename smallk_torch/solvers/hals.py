@@ -12,7 +12,10 @@ port of smallk_tpu/solvers/hals.py.
 step, as the reference's `_pallas_step_ok` sends such a problem to its
 Pallas kernel.  Everything else (f64, the CPU, shapes that do not fit)
 runs the torch-ops step: a dispatch rule, not a fallback.  Inside the
-gate a kernel that fails to build or launch raises.
+gate a kernel that fails to build or launch raises.  A sharded operand
+(parallel/mesh.py) is outside it: K2 needs all of A and each W column's
+global norm inside one launch, so a sharded step is the torch-ops step,
+each W column's rescue test and unit norm taken over the terms axis.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from ..kernels import hals_step as k2
 from ..ops.aop import DenseAOp
-from ..ops.dense import gemm, gram, gram_t
+from ..ops.dense import UNSHARDED, gemm, gram, gram_t
 
 
 class HalsState(NamedTuple):
@@ -32,7 +35,7 @@ class HalsState(NamedTuple):
 
 
 def init(a_op, W, H) -> HalsState:
-    return HalsState(HHt=gram_t(H), AHt=a_op.mm_nt(H))
+    return HalsState(HHt=a_op.sum_docs(gram_t(H)), AHt=a_op.mm_nt(H))
 
 
 def _clamp0(x):
@@ -51,33 +54,36 @@ def update_h(H, WtW, WtA):
     return H
 
 
-def update_w(W, HHt, AHt):
+def update_w(W, HHt, AHt, a_op=UNSHARDED):
     """Sequential HALS column sweep over W with zero-column rescue and
-    per-column normalization (reference UpdateW_Hals), on a copy of W."""
+    per-column normalization (reference UpdateW_Hals), on a copy of W.
+    On a sharded operand each column's rescue test and norm are global:
+    two reductions over the terms axis a column."""
     W = W.clone()
     eps = torch.finfo(W.dtype).eps
     for c in range(W.shape[1]):
         whht_c = gemm(W, HHt[:, c:c + 1])  # (m, 1)
         w_new = _clamp0(W[:, c:c + 1] + (AHt[:, c:c + 1] - whht_c) / HHt[c, c])
         # all-zero column rescue
-        w_new = torch.where(torch.all(w_new == 0), eps, w_new)
+        w_new = torch.where(a_op.all_terms(w_new == 0), eps, w_new)
         # unit L2 normalization
-        W[:, c:c + 1] = w_new / torch.sqrt(torch.sum(torch.square(w_new)))
+        W[:, c:c + 1] = w_new / torch.sqrt(
+            a_op.sum_terms(torch.sum(torch.square(w_new))))
     return W
 
 
 def torch_step(a_op, W, H, HHt, AHt):
     """One HALS step in torch ops -> (W, H, gradW, gradH, HHt, AHt, ok)."""
-    W = update_w(W, HHt, AHt)
+    W = update_w(W, HHt, AHt, a_op)
 
-    WtW = gram(W)
+    WtW = a_op.sum_terms(gram(W))
     WtA = a_op.mm_tn(W)
 
     H = update_h(H, WtW, WtA)
 
     gradH = gemm(WtW, H) - WtA
 
-    HHt = gram_t(H)
+    HHt = a_op.sum_docs(gram_t(H))
     AHt = a_op.mm_nt(H)
     gradW = gemm(W, HHt) - AHt
 
@@ -88,7 +94,8 @@ def torch_step(a_op, W, H, HHt, AHt):
 
 def _kernel_step_ok(a_op, W, H) -> bool:
     """The reference's `_pallas_step_ok`, for the card: dense A in f32,
-    bf16 or e4m3, f32 W, CUDA tensors, and a shape that fits the kernel."""
+    bf16 or e4m3, f32 W, CUDA tensors, and a shape that fits the kernel;
+    so never a sharded operand (a `ShardedAOp` is no `DenseAOp`)."""
     if not (isinstance(a_op, DenseAOp) and W.dtype == torch.float32
             and a_op.A.dtype in k2.A_DTYPES
             and W.is_cuda):

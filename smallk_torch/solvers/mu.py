@@ -21,7 +21,7 @@ class MuState(NamedTuple):
 
 
 def init(a_op, W, H) -> MuState:
-    return MuState(WtW=gram(W), WtA=a_op.mm_tn(W))
+    return MuState(WtW=a_op.sum_terms(gram(W)), WtA=a_op.mm_tn(W))
 
 
 def step(a_op, W, H, state: MuState):
@@ -32,14 +32,14 @@ def step(a_op, W, H, state: MuState):
     H = H * (WtA / (WtWH + EPSILON))
 
     # W update
-    HHt = gram_t(H)
+    HHt = a_op.sum_docs(gram_t(H))
     AHt = a_op.mm_nt(H)
     WHHt = gemm(W, HHt)
     W = W * (AHt / (WHHt + EPSILON))
 
     # gradients with updated factors
     WtA = a_op.mm_tn(W)
-    WtW = gram(W)
+    WtW = a_op.sum_terms(gram(W))
     gradW = gemm(W, HHt) - AHt
     gradH = gemm(WtW, H) - WtA
 

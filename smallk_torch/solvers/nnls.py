@@ -194,12 +194,20 @@ def _count(nonopt, infeas):
             + torch.sum(infeas, dim=0, dtype=torch.int32))
 
 
-def nnls_blockpivot(LHS, RHS, Xinit):
+def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     """Solve LHS @ X = RHS s.t. X >= 0 columnwise, LHS (k, k) SPD.
 
     Returns (X, Y, ok, rounds): Y = LHS X - RHS is the gradient, `ok` a
     bool tensor (converged and finite), `rounds` the number of pivot
     rounds (masked solves after the first) as a Python int.
+
+    `across`: where RHS holds one rank's columns of a sharded problem
+    (parallel/mesh.py; BPP's H side over docs, its W side over terms), the
+    max over the ranks that hold the others.  The rounds' stop test and
+    the two quantities taken over all columns, the infeasibility floor and
+    the dust threshold, go through it, so every rank runs the same rounds
+    and each column's pivots are the unsharded problem's; each rank solves
+    only its columns.
 
     Where RHS is large (k * n >= _NARROW_MIN_ENTRIES) a round gathers the
     columns that are not optimal yet, applies the pivot rules, the masked
@@ -221,6 +229,7 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     narrow_rounds = k * n >= _NARROW_MIN_ENTRIES
     max_iter = 5 * k
     eps = torch.finfo(RHS.dtype).eps
+    glob = across or (lambda x: x)
 
     # Per-entry sign-test tolerances (the reference's `deltas`): values are
     # never altered, the tests treat anything above -delta as nonnegative.
@@ -229,7 +238,8 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     abs_rhs = torch.abs(RHS)
 
     def delta_x(X):  # over all columns, also in a narrowed round
-        return 512.0 * eps * torch.clamp(torch.max(torch.abs(X)), min=1.0)
+        return 512.0 * eps * torch.clamp(glob(torch.max(torch.abs(X))),
+                                         min=1.0)
 
     def delta_y(X, abs_rhs):
         return 16.0 * eps * (gemm(abs_lhs, torch.abs(X)) + abs_rhs)  # (k, n)
@@ -254,8 +264,16 @@ def nnls_blockpivot(LHS, RHS, Xinit):
             # solve the non-optimal columns only, at their exact width;
             # their ids are the round's one host sync
             ids = torch.nonzero(notopt_col)[:, 0]
-            if ids.numel() == 0:
+            live = ids.numel() > 0
+            if not (live if across is None else bool(across(torch.tensor(
+                    live, device=RHS.device)))):
                 break
+            if not live:
+                # this rank's columns are optimal: it takes the round's
+                # floor with the others and solves nothing
+                delta_x(X)
+                it += 1
+                continue
             RHS_s = RHS.index_select(1, ids)
             nonopt_s = nonopt.index_select(1, ids)
             infeas_s = infeas.index_select(1, ids)
@@ -280,7 +298,7 @@ def nnls_blockpivot(LHS, RHS, Xinit):
             infeas[:, ids] = infeas_s
             not_good[ids] = _count(nonopt_s, infeas_s)
         else:
-            if not bool(torch.any(notopt_col)):  # the round's host sync
+            if not bool(glob(torch.any(notopt_col))):  # the round's sync
                 break
             P, Ninf, cols1, cols2, cols3 = _pivot_cols(
                 P, Ninf, nonopt, infeas, not_good, notopt_col)
@@ -306,7 +324,8 @@ def nnls_blockpivot(LHS, RHS, Xinit):
     # project tolerated negatives onto the constraint set, then zeroize dust
     # relative to the solution's magnitude
     X = torch.clamp(X, min=0.0)
-    X = zeroize_small(X, 8.0 * eps * torch.clamp(torch.max(X), min=1.0))
+    X = zeroize_small(X, 8.0 * eps * torch.clamp(glob(torch.max(X)),
+                                                 min=1.0))
     return X, Y, converged & finite, it
 
 
@@ -317,9 +336,10 @@ def nnls_hals(a_op, W, H, tol, max_iter):
     Sweeps H until the projected-gradient norm drops below tol * pg0
     (pg0: the first sweep's), at most `max_iter` sweeps, one host sync per
     sweep.  Returns (W, H, success); on success W and H come back
-    normalized, as the reference's do.
+    normalized, as the reference's do.  On a sharded operand W and H are
+    the rank's blocks and the Gram, the norm and the scale are global.
     """
-    WtW = gemm(W.T, W)
+    WtW = a_op.sum_terms(gemm(W.T, W))
     WtA = a_op.mm_tn(W)
     pg0 = None
     done = False
@@ -327,12 +347,12 @@ def nnls_hals(a_op, W, H, tol, max_iter):
     while not done and it < max_iter:
         H = update_h(H, WtW, WtA)
         gradH = gemm(WtW, H) - WtA
-        pg = projected_gradient_norm_single(gradH, H)
+        pg = projected_gradient_norm_single(gradH, H, a_op.sum_docs)
         if it == 0:
             pg0 = pg
         else:
             done = bool(pg < tol * pg0)
         it += 1
     if done:
-        W, H, _ = normalize_and_scale(W, H)
+        W, H, _ = normalize_and_scale(W, H, a_op)
     return W, H, done

@@ -28,7 +28,7 @@ class Rank2State(NamedTuple):
 
 
 def init(a_op, W, H) -> Rank2State:
-    return Rank2State(WtW=gram(W), WtA=a_op.mm_tn(W))
+    return Rank2State(WtW=a_op.sum_terms(gram(W)), WtA=a_op.mm_tn(W))
 
 
 def _givens_solve(a00, a01, a10, a11, cos_form, sin_form, eps):
@@ -115,7 +115,7 @@ def step(a_op, W, H, state: Rank2State):
     H, ok_h = _system_solve_h(WtW, WtA)
     H = _optimal_active_set_h(H, WtW, WtA)
 
-    HHt = gram_t(H)
+    HHt = a_op.sum_docs(gram_t(H))
     AHt = a_op.mm_nt(H)
 
     # solve W (HH') = AH'
@@ -124,14 +124,14 @@ def step(a_op, W, H, state: Rank2State):
 
     # per-iteration normalization; rescale HH'/AH' by the factors instead of
     # recomputing them
-    W, H, norms = normalize_and_scale(W, H)
+    W, H, norms = normalize_and_scale(W, H, a_op)
     norms_ok = torch.all(norms > torch.finfo(W.dtype).eps)
     HHt = HHt * torch.outer(norms, norms)
     AHt = AHt * norms[None, :]
 
     gradW = gemm(W, HHt) - AHt
 
-    WtW = gram(W)
+    WtW = a_op.sum_terms(gram(W))
     WtA = a_op.mm_tn(W)
     gradH = gemm(WtW, H) - WtA
 
@@ -155,15 +155,21 @@ def spectral_init_rank2(a_op, v0, power_iters: int = SPECTRAL_POWER_ITERS):
 
     v0: (2, n) start block (zero columns of a masked operand must be zero
     here and stay zero throughout).
-    Returns (W0 (m, 2), H0 (2, n)), both nonnegative.
+    Returns (W0 (m, 2), H0 (2, n)), both nonnegative; on a sharded operand
+    the rank's rows of W0 and columns of H0, from v0's columns.
     """
     eps = torch.finfo(v0.dtype).eps
 
+    def norm(u):
+        if not a_op.sharded:
+            return torch.linalg.norm(u)
+        return torch.sqrt(a_op.sum_terms(torch.sum(torch.square(u))))
+
     def orth2(U):
         u0 = U[:, 0]
-        u0 = u0 / torch.clamp(torch.linalg.norm(u0), min=eps)
-        u1 = U[:, 1] - torch.dot(u0, U[:, 1]) * u0
-        u1 = u1 / torch.clamp(torch.linalg.norm(u1), min=eps)
+        u0 = u0 / torch.clamp(norm(u0), min=eps)
+        u1 = U[:, 1] - a_op.sum_terms(torch.dot(u0, U[:, 1])) * u0
+        u1 = u1 / torch.clamp(norm(u1), min=eps)
         return torch.stack([u0, u1], dim=1)
 
     V = v0
@@ -174,7 +180,7 @@ def spectral_init_rank2(a_op, v0, power_iters: int = SPECTRAL_POWER_ITERS):
     V = a_op.mm_tn(U)
 
     # rotate to singular pairs: eigh of the 2x2 Gram of V's rows
-    evals, E = torch.linalg.eigh(gram_t(V))  # ascending
+    evals, E = torch.linalg.eigh(a_op.sum_docs(gram_t(V)))  # ascending
     s = torch.sqrt(torch.clamp(evals.flip(0), min=0.0))  # descending
     E = E.flip(1)
     Vr = gemm(E.T, V)       # rows: s_i * v_i^T

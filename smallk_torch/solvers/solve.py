@@ -19,6 +19,11 @@ same semantics:
   - a step taken once the solve is done, failed or at max_iter is frozen:
     every piece of state keeps its value and `it` does not advance.
 
+On a sharded operand (parallel/mesh.py) W0 and H0 are the rank's blocks;
+every quantity the loop tests (the metric, `ok`) is global, so every rank
+reads the same values and takes the same decisions, and the step runs
+eagerly (graph.applies).
+
 The host reads (done, failed, it, metric) after iteration 0 and then once
 every U = max(1, opts.loop_unroll) steps (0 picks U by `auto_unroll`); the
 steps in between run without a host read.  A block is cut short only at
@@ -192,13 +197,14 @@ class _Loop:
                   if self.unroll > 1 else None)
         W, H, gW, gH, sstate, ok = self.solver.step(self.a_op, c.W, c.H,
                                                     c.sstate)
-        failed = c.failed | ~ok
+        # a sharded solve fails on every rank where it fails on one
+        failed = c.failed | ~self.a_op.all_ranks(ok)
 
         at_check = (c.it >= o.min_iter) & (
             (c.it - o.min_iter) % self.interval == 0)
         do_update = (c.it == 0) | at_check
         metric, pstate = prog_update(self.method, c.it, W, H, gW, gH,
-                                     c.pstate, self.have_pg0)
+                                     c.pstate, self.have_pg0, self.a_op)
         metric = torch.where(do_update, metric, c.metric)
         pstate = torch.where(do_update, pstate, c.pstate)
 
@@ -342,7 +348,7 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
                 # freeze's select), which becomes the graph's buffers
                 runner, cached = _step_runner(
                     loop.step, c, (unroll, have_pg0), graphs,
-                    graph.applies(opts.algorithm, W0, unroll))
+                    graph.applies(opts.algorithm, W0, unroll, a_op))
             done, failed, it, metric = loop.read(c, 0, npdt)
         while not (done or failed) and it < opts.max_iter:
             steps += runner.run(min(unroll, opts.max_iter - it))
@@ -357,7 +363,7 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
 
     W, H = c.W, c.H
     if opts.normalize and not failed:
-        W, H, _ = normalize_and_scale(W, H)
+        W, H, _ = normalize_and_scale(W, H, a_op)
     elif cached:
         # the graph's buffers: the next solve overwrites them
         W, H = W.clone(), H.clone()
@@ -376,4 +382,4 @@ def reference_pg1(a_op, W0, H0, opts: NmfOptions):
     solver = get_solver(opts.algorithm)
     st = solver.init(a_op, W0, H0)
     W, H, gW, gH, st, ok = solver.step(a_op, W0, H0, st)
-    return projected_gradient_norm(gW, gH, W, H)
+    return projected_gradient_norm(gW, gH, W, H, a_op)

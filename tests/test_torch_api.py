@@ -193,7 +193,8 @@ def test_mesh_raises_and_default_device():
     fc, hc = tapi.Flatclust(device="cpu"), tapi.Hierclust(device="cpu")
     for c in (fc, hc):
         c.load_matrix(matrix=np.random.RandomState(0).rand(8, 6))
-        with pytest.raises(NotImplementedError, match="slice 15"):
+        # a mesh that is not the port's (a JAX mesh, say) is refused
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             c.cluster(2, mesh=object())
     if torch.cuda.is_available():
         return

@@ -126,9 +126,10 @@ def test_npz_loads_in_either_package(writer, tmp_path):
 
 def test_mesh_raises_and_default_device():
     W, H = _factors()
-    with pytest.raises(NotImplementedError, match="slice 15"):
+    # a mesh that is not the port's (a JAX mesh, say) is refused
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         NmfEmbeddings(W, H, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 15"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         EmbeddingTable(W, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

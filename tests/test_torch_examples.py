@@ -143,7 +143,8 @@ def test_community_graph_driver(tmp_path, capsys):
 
 
 # examples/*.py that the port carries beside the drivers
-TOP_LEVEL = ["large_corpus_demo.py", "smallk_example.py"]
+TOP_LEVEL = ["large_corpus_demo.py", "multihost_demo.py", "scaling_demo.py",
+             "smallk_example.py"]
 
 
 def test_drivers_mirror_the_reference_set():
@@ -186,3 +187,44 @@ def test_large_corpus_demo(capsys):
     out = capsys.readouterr().out
     assert "resume: returns at iteration 12" in out
     assert "on cpu" in out
+
+
+def _spawning(name, argv, capfd):
+    """Run examples/torch_drivers/<name>.py as __main__; the output of the
+    ranks it starts (processes of their own) too."""
+    path = os.path.join(REPO, "examples", "torch_drivers", f"{name}.py")
+    old_argv = sys.argv
+    sys.argv = [path] + argv
+    capfd.readouterr()
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = old_argv
+    return capfd.readouterr().out
+
+
+def test_multihost_demo(capfd):
+    """Two processes joined into one gloo world, a 2 x 1 mesh: each moves
+    its block of the host matrix and runs BPP on it."""
+    out = _spawning("multihost_demo", CPU, capfd)
+    assert "multihost demo OK" in out
+    for pid, rows in ((0, "(0, 32)"), (1, "(32, 64)")):
+        assert f"[p{pid}] OK: " in out and f"W rows {rows}" in out
+
+
+def test_scaling_demo(capfd):
+    out = _spawning("scaling_demo", CPU + ["--size", "96", "--iters", "3"],
+                    capfd)
+    assert "mesh (1, 1): " in out and "mesh (1, 2): " in out
+
+
+def test_dryrun_multichip(capfd):
+    """The port of __graft_entry__.dryrun_multichip on two gloo ranks: the
+    dense, COO, ELL and blocked-ELL solves, hierclust with its checkpoint
+    resume, flatclust and preprocess -> NMF on a (2, 1) mesh."""
+    from smallk_torch.parallel.dryrun import dryrun_multichip
+
+    capfd.readouterr()
+    dryrun_multichip(2, device="cpu")
+    out = capfd.readouterr().out
+    assert "dryrun_multichip OK: mesh (2, 1) over 2 ranks (gloo, cpu)" in out

@@ -304,8 +304,9 @@ def test_load_dictionary_forms(tmp_path):
 def test_mesh_raises():
     smallk.LoadMatrix(matrix=np.ones((6, 5)))
     smallk.LoadDictionary([f"t{i}" for i in range(6)])
+    # a mesh that is not the port's (a JAX mesh, say) is refused
     for fn in (smallk.HierNmf2, smallk.HierNmf2WithFlat):
-        with pytest.raises(NotImplementedError, match="slice 15"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             fn(2, mesh=object())
 
 

@@ -179,6 +179,7 @@ def test_cli_renames_and_exit_codes(corpus, capsys):
     # BAD_PARAM: an algorithm flatclust does not offer, an unknown flag,
     # a missing file; usage errors too
     assert tflat_entry(base + ["--algorithm", "MU"]) == 2
+    # --mesh whose size is not the world's (one process: a world of one)
     assert tflat_entry(base + ["--mesh", "1x8"]) == 2
     assert tflat_entry(["--matrixfile", str(tmp_path / "no.mtx"),
                         "--dictfile", dic, "--clusters", "3",

@@ -312,7 +312,8 @@ def test_cli_exit_codes(tmp_path):
     assert thier_entry(base + ["--treefile", "t.json", "--format", "JSON",
                                "--assignfile", "a.csv"]) == 0
     assert (tmp_path / "t.json").is_file() and (tmp_path / "a.csv").is_file()
-    assert thier_entry(base + ["--mesh", "1x8"]) == 2   # not offered
+    # --mesh whose size is not the world's (one process: a world of one)
+    assert thier_entry(base + ["--mesh", "1x8"]) == 2
     assert thier_entry(base + ["--init", "nndsvd"]) == 2
     assert thier_entry(["--matrixfile", str(tmp_path / "no.mtx"),
                         "--dictfile", dic, "--clusters", "3",

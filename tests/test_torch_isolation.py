@@ -259,6 +259,7 @@ def test_entry_points_need_a_card_by_default():
     from smallk_torch.engines.nmf import run_nmf
     from smallk_torch.interop import from_reference
     from smallk_torch.ops.aop import as_aop
+    from smallk_torch.parallel.mesh import make_mesh
 
     rng = np.random.RandomState(0)
     A, W0, H0 = rng.rand(12, 9), rng.rand(12, 2), rng.rand(2, 9)
@@ -270,7 +271,11 @@ def test_entry_points_need_a_card_by_default():
              lambda: as_aop(A),
              lambda: from_reference(A, W0, H0),
              lambda: clust_hier(A, clust, Random(1)),
-             lambda: run_hier_nmf2(A, clust, Random(1))]
+             lambda: run_hier_nmf2(A, clust, Random(1)),
+             lambda: make_mesh(),
+             lambda: make_mesh((1, 1), backend="gloo")]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    # the mesh raised before it joined a world
+    assert not torch.distributed.is_initialized()
