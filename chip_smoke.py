@@ -25,8 +25,12 @@ fails (nonzero exit, no result line) on any fault:
      nnls_blockpivot at a shape where its rounds narrow to the columns
      still not optimal;
   6. the BPP main path at full width: the 12411 x 7984 Reuters shape, 80
-     nnz per column, k = 8, bf16 A, f32 factors, 100 fixed iterations,
-     with K1's launches counted over that run;
+     nnz per column, k = 8, bf16 A, f32 factors, 100 fixed iterations, at
+     the auto U, so captured: each step a CUDA graph whose pivot rounds
+     are nested conditional IF nodes (solvers/graph.py, csrc/graph_if.cu);
+     the graphs, capture and instantiation ms, host reads and pivot
+     rounds run printed, and K1's launches exactly 2 a step run and one a
+     round run;
   7. the flatclust HALS path at full width: the reference's flatclust
      configuration (dense 256 x 256 UNIFORM, k = 16, tol 1e-4) through
      run_flatclust, with K2's launches counted over that run; HALS it/s
@@ -101,8 +105,9 @@ fails (nonzero exit, no result line) on any fault:
      (EllAOp), and the five CLIs chained: matrixgen -> preprocess_tf ->
      nmf and hierclust on the card;
  20. the solve loop (loop): flatclust HALS, Reuters hierclust, sparse
-     hierclust at 50,000 x 1,000,000 (phase 16's operand) and flagship MU
-     at 25 iterations (phase 14's operand, through nmf_solve), each run
+     hierclust at 50,000 x 1,000,000 (phase 16's operand), flagship MU
+     at 25 iterations (phase 14's operand, through nmf_solve) and Reuters
+     BPP at 100 iterations (phase 6's problem, through nmf_solve), each run
      with solvers/graph.CAPTURE off and on, in turns (on, the loop
      replays its steps as a CUDA graph at U > 1; flagship MU's auto U is
      1, eager in both, solve.MU_ONE_STEP_ENTRIES): equal
@@ -221,10 +226,14 @@ factors made on their own.
     python3 chip_smoke.py --loop
 
 runs only the U sweep of the solve loop: flatclust HALS, Reuters
-hierclust, sparse hierclust and three MU solves that converge (the main
-path's operand at k = 8, the flagship's at k = 16 and 128), eager at
-U = 1 and with one step replayed U times at U = 2, 4, 8, 16, 32 (what
-solvers/solve.AUTO_UNROLL and MU_ONE_STEP_ENTRIES are set from).
+hierclust, sparse hierclust, Reuters BPP at 100 iterations and to a tol,
+and three MU solves that converge (the main path's operand at k = 8, the
+flagship's at k = 16 and 128), eager at U = 1 and with one step replayed
+U times at U = 2, 4, 8, 16, 32 (what solvers/solve.AUTO_UNROLL and
+MU_ONE_STEP_ENTRIES are set from); then Reuters BPP at k = 8 to 128,
+eager at U = 1 and captured at BPP's auto U, with each graph's capture
+and instantiation ms and memory (what graph.BPP_CAPTURE_MAX_K is set
+from).
 
     python3 chip_smoke.py --slice
 
@@ -413,8 +422,11 @@ EMB_QUERIES, EMB_TOPK, EMB_TIE, EMB_RTOL = 64, 10, 1e-6, 1e-5
 # the planted corpus (PERF.md)
 LOOP_ORDER = (False, True, True, False)
 LOOP_UNROLLS = (1, 2, 4, 8, 16, 32)
-# the --loop sweep's MU cells converge after these many iterations
+# the --loop sweep's MU cells and its Reuters BPP cell to a tol converge
+# after these many iterations; its BPP ranks (BPP_CAPTURE_MAX_K's sweep)
 LOOP_MU_FIXED = 91
+LOOP_BPP_FIXED = 91
+LOOP_BPP_KS = (8, 16, 32, 64, 128)
 SPH_NMI = 0.912
 
 # the chain phase (engines/hier_chain.py): Reuters hierclust on the
@@ -551,7 +563,7 @@ def reset_counts() -> None:
     from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
                                       rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
-    from smallk_torch.solvers import graph, solve
+    from smallk_torch.solvers import bpp, graph, solve
 
     seg_spmm.launches = seg_spmm.plain_cuda_calls = 0
     masked_gj.launches = 0
@@ -565,6 +577,7 @@ def reset_counts() -> None:
     aop.matmul_products = 0
     solve.steps_run = solve.host_reads = solve.frozen_steps = 0
     solve.solves = 0
+    bpp.reset_rounds_run()
     graph.captures = graph.replays = 0
     graph.capture_seconds = graph.replay_seconds = 0.0
 
@@ -573,12 +586,14 @@ def read_counts() -> dict:
     """Launches of K1, K2, K3, ell_spmm (and ell_spmm's transposed
     ones) and seg_spmm, the columns K1 solved, ell_spmm's and seg_spmm's
     plain-version calls on CUDA tensors, the dense products that went to K3 and to torch.matmul, and
-    the solve loop's counts, since the last reset_counts().  Launches
-    replayed from a CUDA graph count once a replay (solvers/graph.py)."""
+    the solve loop's counts (BPP's pivot rounds run among them), since the
+    last reset_counts().  Launches replayed from a CUDA graph count once a
+    replay, and those in its IF bodies once a body that ran
+    (solvers/graph.py)."""
     from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
                                       rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
-    from smallk_torch.solvers import graph, solve
+    from smallk_torch.solvers import bpp, graph, solve
 
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
@@ -592,7 +607,14 @@ def read_counts() -> dict:
             "matmul_products": aop.matmul_products,
             "steps": solve.steps_run, "host_reads": solve.host_reads,
             "frozen": solve.frozen_steps, "solves": solve.solves,
+            "rounds_run": bpp.rounds_run(),
             "captures": graph.captures, "replays": graph.replays}
+
+
+def k1_gate(counts: dict) -> bool:
+    """K1 launches exactly 2 a BPP step run (its two NNLS problems' first
+    solves) and one a pivot round run, frozen steps' too."""
+    return counts["K1"] == 2 * counts["steps"] + counts["rounds_run"]
 
 
 def k3_want(counts: dict) -> tuple[int, int]:
@@ -957,7 +979,7 @@ def phase_nnls_parity() -> None:
             reset_counts()
             X, Y, ok, rounds = nnls.nnls_blockpivot(*(
                 torch.tensor(a, device=device) for a in (LHS, RHS, Xinit)))
-            runs[device] = (X.cpu(), Y.cpu(), bool(ok), rounds,
+            runs[device] = (X.cpu(), Y.cpu(), bool(ok), int(rounds),
                             read_counts())
     finally:
         nnls._NARROW_MIN_ENTRIES = gate
@@ -976,23 +998,46 @@ def phase_nnls_parity() -> None:
         raise AssertionError(f"nnls parity: K1 counts {cc}, cpu {ch}")
 
 
-def phase_main_path(card: str) -> dict:
+def if_node_line() -> str:
+    """torch's version and the IF-node path the captured BPP step takes."""
     import torch
 
-    from smallk_torch import (NmfAlgorithm, NmfOptions, NmfStats, Random,
-                              random_matrix, random_sparse_matrix)
-    from smallk_torch.engines.nmf import run_nmf
-    from smallk_torch.ops.aop import as_aop
-    from smallk_torch.ops.dense import relative_fnorm
+    binding = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    return (f"[graph] torch {torch.__version__}: IF nodes from "
+            f"smallk_torch/csrc/graph_if.cu (torch's own binding "
+            f"{'present, unused' if binding else 'absent'}); IF bodies' "
+            f"allocations through "
+            f"torch._C._cuda_beginAllocateCurrentStreamToPool")
+
+
+def main_problem():
+    """The main path's operand (host, f32) and factor starts, from its
+    seed."""
+    from smallk_torch import Random, random_matrix, random_sparse_matrix
 
     rng = Random(2024)
     A = random_sparse_matrix(rng, M, N, nz_per_col=NZ_PER_COL,
                              dtype=np.float32)
     W0 = random_matrix(M, K, rng, dtype=np.float32)
     H0 = random_matrix(K, N, rng, dtype=np.float32)
+    return A, W0, H0
+
+
+def phase_main_path(card: str) -> dict:
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, NmfStats
+    from smallk_torch.engines.nmf import run_nmf
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.ops.dense import relative_fnorm
+    from smallk_torch.solvers import solve
+
+    A, W0, H0 = main_problem()
     opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.BPP, height=M,
                       width=N, k=K, min_iter=1, max_iter=ITERS,
                       verbose=False, a_dtype="bfloat16")
+    unroll = solve.auto_unroll(opts, torch.empty((M, K), device="cuda"),
+                               torch.empty((K, N), device="cuda"))
 
     def rel_err(W, H):
         A32 = as_aop(A, "float32", device="cuda").A
@@ -1010,6 +1055,7 @@ def phase_main_path(card: str) -> dict:
     W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
     wall = time.perf_counter() - t0
     counts = read_counts()
+    capture_s, _ = graph_seconds()
     launches, k2_launches = counts["K1"], counts["K2"]
 
     rel = rel_err(W, H)
@@ -1020,6 +1066,11 @@ def phase_main_path(card: str) -> dict:
         f"rel err {rel:.6f} (after 1 iteration {rel1:.6f})")
     log(f"[main] {its:.2f} it/s (solve {stats.elapsed_us / 1e6:.4f} s, "
         f"run_nmf wall {wall:.4f} s) on {card}")
+    log(f"[main] at the auto U = {unroll}: graphs {counts['captures']}, "
+        f"capture + instantiate {1e3 * capture_s:.1f} ms, host reads "
+        f"{counts['host_reads']}, steps run {counts['steps']}, pivot rounds "
+        f"run {counts['rounds_run']}; K1 {launches} = 2 x {counts['steps']}"
+        f" + {counts['rounds_run']}: {k1_gate(counts)}")
     if not (ok and ok1):
         raise AssertionError("main-path run failed")
     if stats.iteration_count != ITERS:
@@ -1034,7 +1085,17 @@ def phase_main_path(card: str) -> dict:
                              "iterations: masked solves bypassed the kernel")
     if k2_launches:
         raise AssertionError(f"K2 launched {k2_launches} times in a BPP run")
-    return {"launches": launches, "it_per_s": its}
+    # captured: one graph, a host read after iteration 0 and each U steps
+    reads = 1 + -(-(ITERS - 1) // unroll)
+    if unroll < 2 or counts["captures"] != 1 \
+            or counts["host_reads"] != reads:
+        raise AssertionError(f"main path not captured at U = {unroll}: "
+                             f"{counts}")
+    if not k1_gate(counts) or counts["rounds_run"] != stats.pivot_rounds:
+        raise AssertionError(f"main path K1 gate: {counts}, "
+                             f"{stats.pivot_rounds} pivot rounds")
+    return {"launches": launches, "it_per_s": its,
+            "capture_ms": 1e3 * capture_s, "counts": counts}
 
 
 def rel_err(A, W, H) -> float:
@@ -2232,7 +2293,7 @@ def nnls_gate_sweep(card: str) -> None:
                 raise AssertionError(f"nnls sweep k={k} n={n}: the narrowed "
                                      "and the full-width rounds disagree")
             picked = "narrowed" if k * n >= gate else "full width"
-            log(f"[nnls sweep f32] k={k} n={n}: {rn} rounds, wall ms per "
+            log(f"[nnls sweep f32] k={k} n={n}: {int(rn)} rounds, wall ms per "
                 f"call: narrowed {best[True]:.3f}, full width "
                 f"{best[False]:.3f}; nnls_blockpivot takes the {picked} "
                 f"rounds (k n = {k * n}, gate {gate}) on {card}")
@@ -3639,8 +3700,9 @@ def timed_call(fn, *args, **kwargs):
 def facade_nmf(card: str) -> dict:
     """The facade's Nmf(8) (BPP, its defaults: tol 0.005, PG_RATIO, f32) on
     the main path's operand, between two direct run_nmf calls from the
-    same random_matrix draws on the same card: equal bits, K1 = 2 x
-    iterations + pivot rounds, w.csv and h.csv written."""
+    same random_matrix draws on the same card: equal bits, K1 = 2 x steps
+    run + pivot rounds run (at its auto U, captured, the steps after
+    convergence run frozen), w.csv and h.csv written."""
     import smallk_torch as smallk
     from smallk_torch.engines.nmf import run_nmf
 
@@ -3689,7 +3751,8 @@ def facade_nmf(card: str) -> dict:
                              f"{its_printed} iterations, direct {its}")
     if not equal:
         raise AssertionError("facade Nmf factors differ from run_nmf's")
-    if counts["K1"] != 2 * its + rounds or dcounts != counts:
+    if not k1_gate(counts) or dcounts != counts \
+            or counts["steps"] - counts["frozen"] != its:
         raise AssertionError(f"facade Nmf: {counts} for {its} iterations "
                              f"and {rounds} rounds; direct {dcounts}")
     if Wf.shape != (M, K) or Hf.shape != (K, N):
@@ -4555,6 +4618,53 @@ def loop_flagship_cell(flag):
     return run, gate
 
 
+def loop_bpp_cell(k: int = K, tol_at=None):
+    """The main path's cell, Reuters BPP (K1): ITERS fixed iterations on
+    the 12411 x 7984 bf16 operand through nmf_solve on factors already on
+    the card, at k = K (the main path's draws) or another k (draws from
+    Random(k)).  `tol_at`: to a tol instead, the PG ratio after that many
+    iterations of a fixed run at U = 1, with checks from that iteration
+    on, so that every run converges there.  Gated exactly on K1."""
+    import torch
+
+    from smallk_torch import NmfAlgorithm, NmfOptions, Random
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.solvers.solve import nmf_solve
+
+    A, W0, H0 = main_problem()
+    if k != K:
+        W0, H0 = random_matrix_pair(Random(k), M, N, k)
+    op = as_aop(A, "bfloat16", device="cuda")
+    W0, H0 = (torch.from_numpy(np.ascontiguousarray(F, np.float32)).cuda()
+              for F in (W0, H0))
+    opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.BPP, height=M,
+                      width=N, k=k, min_iter=1, max_iter=tol_at or ITERS,
+                      verbose=False, a_dtype="bfloat16")
+    if tol_at:
+        tol = float(nmf_solve(op, W0, H0, dataclasses.replace(
+            opts, loop_unroll=1)).metric)
+        opts = dataclasses.replace(opts, tol=tol, min_iter=tol_at - 1,
+                                   max_iter=4 * tol_at)
+    want = tol_at or ITERS
+
+    def run(unroll=0):
+        r = nmf_solve(op, W0, H0, dataclasses.replace(opts,
+                                                      loop_unroll=unroll))
+        if not r.success or r.iterations != want:
+            raise AssertionError(f"loop: Reuters BPP k={k} stopped after "
+                                 f"{r.iterations}, not {want}")
+        return {"iterations": r.iterations, "rounds": r.pivot_rounds,
+                "bits": (r.W, r.H, np.asarray(r.pivot_rounds))}
+
+    def gate(counts, out):
+        if not k1_gate(counts) or counts["K2"] or counts["K3"] \
+                or counts["steps"] < out["iterations"] \
+                or counts["rounds_run"] < out["rounds"]:
+            raise AssertionError(f"loop Reuters BPP k={k}: {counts}")
+
+    return run, gate
+
+
 def loop_f64_parity() -> None:
     """MU, HALS and RANK2 in f64 on the card (the torch-ops steps and
     ell_spmm's f64 pair), captured against eager: bit for bit."""
@@ -4659,6 +4769,8 @@ def loop_cell(name: str, run, gate, card: str) -> dict:
         f"{1e6 * replay_s / max(cc['replays'], 1):.2f} us a replay"
         + (f"; NMI {c['nmi']:.4f}, leaves {c['leaves']}" if "nmi" in c
            else "")
+        + (f"; pivot rounds run {cc['rounds_run']}, K1 = 2 x steps + "
+           f"rounds run: {k1_gate(cc)}" if cc["rounds_run"] else "")
         + f"; captured {'equal' if same else 'DIFFERENT'} to eager bit for "
         f"bit, counts {'equal' if same_counts else 'DIFFERENT'} on {card}")
     if not (same and same_counts):
@@ -4684,6 +4796,7 @@ def phase_loop(card: str, flag: dict, sparse: dict) -> dict:
     cells["sparse hierclust 50k x 1M"] = loop_hier_cell(sparse["op"],
                                                         slabels, host_A=A)
     cells["flagship MU k=128"] = loop_flagship_cell(flag)
+    cells["Reuters BPP"] = loop_bpp_cell()
     loop_f64_parity()
     out = {name: loop_cell(name, run, gate, card)
            for name, (run, gate) in cells.items()}
@@ -4726,6 +4839,7 @@ def loop_problems(only=None) -> dict:
         cells["flatclust HALS"] = loop_flatclust_cell()
         a_op, labels = hier_problem()
         cells["hierclust Reuters"] = loop_hier_cell(a_op, labels)
+        cells["Reuters BPP"] = loop_bpp_cell()
     A, slabels, _ = sparse_corpus(SPH_N)
     cells["sparse hierclust 50k x 1M"] = loop_hier_cell(
         as_aop(A, dtype="bfloat16", device="cuda"), slabels, host_A=A)
@@ -4774,7 +4888,8 @@ def loop_busy_child(only=None) -> int:
         del FA
         cells["flagship MU k=128"] = loop_flagship_cell(
             {"op": op, "W0": W0, "H0": H0})
-    for name in ("flatclust HALS", "hierclust Reuters", *engines):
+    for name in ("flatclust HALS", "hierclust Reuters", "Reuters BPP",
+                 *engines):
         if name in cells:  # warm-ups
             cells[name][0]()
     torch.cuda.synchronize()
@@ -4897,7 +5012,7 @@ def loop_mu_cell(op, W0, H0):
     k = W0.shape[1]
     W0, H0 = (torch.from_numpy(np.ascontiguousarray(F, np.float32)).cuda()
               for F in (W0, H0))
-    tn, tn_t, nt = product_launches(op)
+    tn, tn_t, nt, _, _ = product_launches(op)
     fixed = LOOP_MU_FIXED
     opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.MU, height=m,
                       width=n, k=k, min_iter=1, max_iter=fixed,
@@ -4949,6 +5064,7 @@ def loop_study(card: str) -> None:
     for k in (16, FLAG_K):
         cells[f"flagship MU k={k}"] = loop_mu_cell(flag, FW0[:, :k],
                                                    FH0[:k])
+    cells["Reuters BPP to a tol"] = loop_bpp_cell(tol_at=LOOP_BPP_FIXED)
     best = {}
     for name, (run, gate) in cells.items():
         reps = 1 if name.startswith("sparse") else 2
@@ -4983,6 +5099,58 @@ def loop_study(card: str) -> None:
         rows.sort()
         log(f"[loop sweep] {name}: fastest "
             + "; ".join(f"U={u} {w:.4f} s" for w, u in rows[:4]))
+    del cells, flag
+    torch.cuda.empty_cache()
+    bpp_rank_sweep(card)
+
+
+def bpp_rank_sweep(card: str) -> None:
+    """Reuters BPP (ITERS fixed iterations) at each k of LOOP_BPP_KS, eager
+    at U = 1 and captured at BPP's auto U with graph.BPP_CAPTURE_MAX_K
+    lifted, in turns E, C, C, E: walls, each graph's capture and
+    instantiation ms and the peak device memory of the run (what
+    BPP_CAPTURE_MAX_K is set from)."""
+    import torch
+
+    from smallk_torch.common.options import NmfAlgorithm
+    from smallk_torch.solvers import graph, solve
+
+    unroll = solve.AUTO_UNROLL[NmfAlgorithm.BPP]
+    for k in LOOP_BPP_KS:
+        run, gate = loop_bpp_cell(k)
+        run(1)  # warm-up
+        rows = {False: [], True: []}
+        for capture in LOOP_ORDER:
+            with patched(graph, "CAPTURE", capture), \
+                    patched(graph, "BPP_CAPTURE_MAX_K", 1 << 30):
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = run(unroll if capture else 1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = read_counts()
+                capture_s, _ = graph_seconds()
+            gate(c, out)
+            if c["captures"] != capture:
+                raise AssertionError(f"BPP k={k}: {c['captures']} graphs")
+            rows[capture].append((wall, 1e3 * capture_s,
+                                  torch.cuda.max_memory_allocated() / 2**20))
+        log(f"[loop sweep] Reuters BPP k={k}, {ITERS} iterations, "
+            f"{out['rounds']} pivot rounds: eager U=1 wall "
+            + ", ".join(f"{w:.4f}" for w, _, _ in rows[False])
+            + f" s; captured U={unroll} wall "
+            + ", ".join(f"{w:.4f}" for w, _, _ in rows[True])
+            + " s, capture + instantiate "
+            + ", ".join(f"{t:.1f}" for _, t, _ in rows[True])
+            + " ms; peak memory eager "
+            + ", ".join(f"{p:.0f}" for _, _, p in rows[False])
+            + " MiB, captured "
+            + ", ".join(f"{p:.0f}" for _, _, p in rows[True])
+            + f" MiB on {card}")
+        del run, gate
+        torch.cuda.empty_cache()
 
 
 def trees_identical(a, sa, b, sb) -> str | None:
@@ -6131,6 +6299,7 @@ def main() -> int:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    log(if_node_line())
     secs = {}
 
     def timed(name, fn, *args):

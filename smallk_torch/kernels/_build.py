@@ -85,6 +85,13 @@ SIGNATURES = {
         "smallk_seg_max_grid": ((_I,), _I),
         "smallk_seg_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
+    "graph_if": {
+        # from stream, pred, body stream, device
+        "smallk_if_begin": ((_P, _P, _P, _I), _I),
+        "smallk_if_end": ((_P, _I), _I),
+        "smallk_stream_create": ((ctypes.POINTER(_P), _I), _I),
+        "smallk_if_cuda_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[tuple, ctypes.CDLL] = {}

@@ -11,14 +11,18 @@ card by the warm-started, Jacobi-preconditioned masked conjugate gradient
 (`_cg_solve_block`, torch ops, as the reference's is XLA code).  The pivot
 rules (PBAR = 3, Ninf counters, the backup single-bit toggle) and the
 tolerance-based sign tests are the reference's, line for line.  The pivot
-loop is a host loop: one host sync per round.  Where the right-hand side
-is large a round solves only the columns that still pivot.
+loop runs as the reference's while_loop runs it, with its test on the
+device, in a step captured as a CUDA graph (solvers/graph.py); elsewhere
+it is a host loop, one host sync per round.  Where the right-hand side
+is large a round solves only the columns that still pivot (a host loop).
 
 `nnls_hals` is the fixed-W NNLS by HALS row sweeps that hierclust's flat
 refinement calls.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +33,7 @@ from ..ops.dense import (
     projected_gradient_norm_single,
     zeroize_small,
 )
+from . import graph
 from .hals import update_h
 
 PBAR = 3
@@ -194,12 +199,68 @@ def _count(nonopt, infeas):
             + torch.sum(infeas, dim=0, dtype=torch.int32))
 
 
+class _Pivot(NamedTuple):
+    """The pivot loop's carry: the reference's while_loop carry."""
+    X: torch.Tensor         # (k, n)
+    Y: torch.Tensor         # (k, n): LHS X - RHS
+    passive: torch.Tensor   # (k, n) bool
+    P: torch.Tensor         # (n,) int32: backup-rule budget
+    Ninf: torch.Tensor      # (n,) int32: fewest offenders seen
+    nonopt: torch.Tensor    # (k, n) bool
+    infeas: torch.Tensor    # (k, n) bool
+    not_good: torch.Tensor  # (n,) int32: offenders a column
+    it: torch.Tensor        # 0-d int64: rounds run
+
+
+def _round_cap(k: int) -> int:
+    """The reference's cap on full-width pivot rounds (nnls.hpp: 5 k)."""
+    return 5 * k
+
+
+class _SelectGuard:
+    """The device form's guard on any device: each round runs and is kept
+    only where its test holds, the while_loop's semantics without control
+    flow.  Only the tests use it (SELECT_ROUNDS)."""
+
+    def __call__(self, live, step, c):
+        return _Pivot(*(torch.where(live, n, o)
+                        for n, o in zip(step(c), c, strict=True)))
+
+    def close(self, quiet: bool = False) -> None:
+        pass
+
+
+# Tests set this to run the device form of the pivot loop on the CPU
+SELECT_ROUNDS = False
+
+
+def _device_guard(across):
+    """The guard of each round of the device form, which reads nothing from
+    the host: in a captured step an IF node (graph.if_nest), with
+    SELECT_ROUNDS the select; None (the host loop) elsewhere and on a
+    sharded problem."""
+    if across is not None:
+        return None
+    nest = graph.if_nest()
+    if nest is not None:
+        return nest
+    return _SelectGuard() if SELECT_ROUNDS else None
+
+
 def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     """Solve LHS @ X = RHS s.t. X >= 0 columnwise, LHS (k, k) SPD.
 
     Returns (X, Y, ok, rounds): Y = LHS X - RHS is the gradient, `ok` a
     bool tensor (converged and finite), `rounds` the number of pivot
-    rounds (masked solves after the first) as a Python int.
+    rounds (masked solves after the first), a 0-d int64 tensor.
+
+    A round is a function of the carry (`_Pivot`), the reference's `body`,
+    and its test `live` = any(not_good > 0) & (it < 5 k) a 0-d tensor, the
+    reference's `cond`.  Two forms run it.  The device form reads nothing
+    from the host: in a step that solvers/graph.py captures, each round is
+    captured in an IF node on its test, inside the round before's.  The
+    host loop, everywhere else, reads each round's test: one host sync a
+    round.
 
     `across`: where RHS holds one rank's columns of a sharded problem
     (parallel/mesh.py; BPP's H side over docs, its W side over terms), the
@@ -207,14 +268,15 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     the two quantities taken over all columns, the infeasibility floor and
     the dust threshold, go through it, so every rank runs the same rounds
     and each column's pivots are the unsharded problem's; each rank solves
-    only its columns.
+    only its columns.  Always the host loop.
 
     Where RHS is large (k * n >= _NARROW_MIN_ENTRIES) a round gathers the
     columns that are not optimal yet, applies the pivot rules, the masked
     solve and the two small GEMMs at that exact width, and scatters the
     results back: the port of what the reference's slab ladder is for,
     without its slabs, padding and nested loops, which exist for XLA's
-    static shapes.  Each column's pivot sequence is independent of every
+    static shapes.  Its column ids are a host read, so these rounds run in
+    a host loop.  Each column's pivot sequence is independent of every
     other column's, and the one global quantity, the infeasibility floor
     dx from max|X|, is taken over all columns, so X, ok and `rounds` are
     what full-width rounds give (and Y up to the summation order of a GEMM
@@ -227,7 +289,7 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     k, n = RHS.shape
     RHS = RHS.contiguous()
     narrow_rounds = k * n >= _NARROW_MIN_ENTRIES
-    max_iter = 5 * k
+    max_iter = _round_cap(k)
     eps = torch.finfo(RHS.dtype).eps
     glob = across or (lambda x: x)
 
@@ -257,22 +319,21 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     infeas = (X < -delta_x(X)) & passive
     not_good = _count(nonopt, infeas)
 
-    it = 0
-    while it < max_iter:
-        notopt_col = not_good > 0
-        if narrow_rounds:
+    if narrow_rounds:
+        it = 0
+        while it < max_iter:
             # solve the non-optimal columns only, at their exact width;
             # their ids are the round's one host sync
-            ids = torch.nonzero(notopt_col)[:, 0]
+            ids = torch.nonzero(not_good > 0)[:, 0]
             live = ids.numel() > 0
             if not (live if across is None else bool(across(torch.tensor(
                     live, device=RHS.device)))):
                 break
+            it += 1
             if not live:
                 # this rank's columns are optimal: it takes the round's
                 # floor with the others and solves nothing
                 delta_x(X)
-                it += 1
                 continue
             RHS_s = RHS.index_select(1, ids)
             nonopt_s = nonopt.index_select(1, ids)
@@ -297,26 +358,44 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
             nonopt[:, ids] = nonopt_s
             infeas[:, ids] = infeas_s
             not_good[ids] = _count(nonopt_s, infeas_s)
-        else:
-            if not bool(glob(torch.any(notopt_col))):  # the round's sync
-                break
+        rounds = torch.full((), it, dtype=torch.int64, device=RHS.device)
+    else:
+        def step(c: _Pivot) -> _Pivot:
+            notopt_col = c.not_good > 0
             P, Ninf, cols1, cols2, cols3 = _pivot_cols(
-                P, Ninf, nonopt, infeas, not_good, notopt_col)
-            passive = _update_passive(passive, nonopt, infeas,
+                c.P, c.Ninf, c.nonopt, c.infeas, c.not_good, notopt_col)
+            passive = _update_passive(c.passive, c.nonopt, c.infeas,
                                       cols1, cols2, cols3)
-
             # solve every column with the updated passive sets; keep the
             # non-optimal ones
-            Xs = _masked_solve(LHS, RHS, passive, x0=X if cg else None)
+            Xs = _masked_solve(LHS, RHS, passive, x0=c.X if cg else None)
             Ys = gemm(LHS, Xs) - RHS
             mask = notopt_col[None, :]
-            X = torch.where(mask, Xs, X)
-            Y = torch.where(mask, Ys, Y)
-
+            X = torch.where(mask, Xs, c.X)
+            Y = torch.where(mask, Ys, c.Y)
             nonopt = mask & (Y < -delta_y(X, abs_rhs)) & ~passive
             infeas = mask & (X < -delta_x(X)) & passive
-            not_good = _count(nonopt, infeas)
-        it += 1
+            return _Pivot(X, Y, passive, P, Ninf, nonopt, infeas,
+                          _count(nonopt, infeas), c.it + 1)
+
+        def live(c: _Pivot):
+            return glob(torch.any(c.not_good > 0)) & (c.it < max_iter)
+
+        c = _Pivot(X, Y, passive, P, Ninf, nonopt, infeas, not_good,
+                   torch.zeros((), dtype=torch.int64, device=RHS.device))
+        guard = _device_guard(across)
+        if guard is None:
+            while bool(live(c)):  # the round's host sync
+                c = step(c)
+        else:
+            try:
+                for _ in range(max_iter):
+                    c = guard(live(c), step, c)
+            except BaseException:
+                guard.close(quiet=True)
+                raise
+            guard.close()
+        X, Y, not_good, rounds = c.X, c.Y, c.not_good, c.it
 
     converged = ~torch.any(not_good > 0)
     # isfinite, not just not-NaN: an f32 overflow yields +/-Inf
@@ -326,7 +405,7 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     X = torch.clamp(X, min=0.0)
     X = zeroize_small(X, 8.0 * eps * torch.clamp(glob(torch.max(X)),
                                                  min=1.0))
-    return X, Y, converged & finite, it
+    return X, Y, converged & finite, rounds
 
 
 def nnls_hals(a_op, W, H, tol, max_iter):

@@ -33,10 +33,12 @@ trips, so with U > 1 its loop runs past max_iter (10 iterations asked, 12
 run at U = 3 or 4); here the freeze also covers `it >= max_iter`, and a
 solve never runs past it.
 
-On the card, at U > 1, a MU, HALS or RANK2 step after iteration 0 is
-captured once as a CUDA graph and replayed between the host reads
-(solvers/graph.py); at U = 1, and for BPP, whose pivot loop reads the host
-inside a step, the same loop runs eagerly.
+On the card, at U > 1, a step after iteration 0 is captured once as a
+CUDA graph and replayed between the host reads (solvers/graph.py): BPP's
+too, where its pivot loops run on the device (graph.bpp_captures), each
+round in a conditional node on its test; at U = 1, and for a BPP step
+whose pivot loops read the host (sharded, narrowed rounds, the CG tier),
+the same loop runs eagerly.
 `verbose` prints the reference's lines at its cadence (iterations 1-9,
 then every 10th) after each read, from a device buffer of the block's
 metrics.
@@ -74,9 +76,14 @@ _SOLVERS = {
 # steps of ~140 us, where the reads cost more than the tail: U = 32
 # (0.42-0.45 s; 0.46-0.48 at 8).  MU on the 12411 x 7984 main path's
 # operand at k = 8, to a tol at iteration 91: U = 8 (0.030 s; 0.031 at 4,
-# 0.135 eager at U = 1).  BPP and the CPU take 1 (auto_unroll).
+# 0.135 eager at U = 1).  BPP at the main path's Reuters shape, k = 8
+# (captured where graph.bpp_captures holds): 100 fixed iterations, 0.67 s
+# eager at U = 1 and 0.37-0.40 at every U from 2 to 32 (the graph's
+# capture, 135-161 ms a solve, is most of what separates them); to a tol
+# at iteration 91, U = 4 (0.352 s; 0.362 at 8, 0.367 at 32, 0.368 at 2,
+# 0.394-0.457 at 16, 0.59-0.62 eager).  The CPU takes 1 (auto_unroll).
 AUTO_UNROLL = {NmfAlgorithm.RANK2: 4, NmfAlgorithm.HALS: 32,
-               NmfAlgorithm.MU: 8}
+               NmfAlgorithm.MU: 8, NmfAlgorithm.BPP: 4}
 # A MU solve whose W and H hold this many entries or more is device-bound:
 # a frozen step costs a whole step and a graph's copy-back more than the
 # host's launches, so it runs at U = 1, eagerly.  The same sweep at the
@@ -142,12 +149,15 @@ def get_solver(algorithm: NmfAlgorithm):
 def auto_unroll(opts: NmfOptions, W, H) -> int:
     """U for opts.loop_unroll = 0: the solver's AUTO_UNROLL on the card,
     and 1 for a MU solve whose factors W and H hold MU_ONE_STEP_ENTRIES
-    entries or more; 1 for BPP (its pivot rounds read the host anyway)
-    and on the CPU (a host read costs nothing there)."""
+    entries or more, and for a BPP solve whose pivot loops read the host
+    (not graph.bpp_captures: no graph, and frozen steps would be waste);
+    1 on the CPU (a host read costs nothing there)."""
     if not W.is_cuda:
         return 1
     if opts.algorithm == NmfAlgorithm.MU \
             and W.numel() + H.numel() >= MU_ONE_STEP_ENTRIES:
+        return 1
+    if opts.algorithm == NmfAlgorithm.BPP and not graph.bpp_captures(W, H):
         return 1
     return AUTO_UNROLL.get(opts.algorithm, 1)
 
@@ -227,15 +237,21 @@ class _Loop:
                     failed, best, stall)
         return select(frozen, c, new, out)
 
-    def read(self, c: Carry, it_before: int, npdt):
+    def read(self, c: Carry, it_before: int, npdt, runner=None):
         """One host read: (done, failed, it, metric), and the verbose lines
-        of the steps since `it_before`."""
+        of the steps since `it_before`; a graph `runner`'s launch counts
+        of its IF bodies go to the counters with it (StepGraph.settle)."""
         global host_reads
         parts = [t.reshape(1).double()
                  for t in (c.done, c.failed, c.it, c.metric)]
         if self.metrics is not None:
             parts.append(self.metrics)
+        counts = getattr(runner, "counts", None)
+        if counts is not None:
+            parts.append(counts.double())
         vals = torch.cat(parts).tolist()
+        if counts is not None:
+            runner.settle(vals[-counts.numel():])
         host_reads += 1
         done, failed, it, metric = bool(vals[0]), bool(vals[1]), \
             int(vals[2]), npdt(vals[3])
@@ -264,13 +280,6 @@ class _Eager:
         self.carry = None
 
 
-def _tensors(state, device):
-    """The solver state with every plain number made a 0-d tensor (BPP's
-    pivot count), so that the freeze can select it."""
-    return state._make(torch.as_tensor(v, device=device)
-                       if isinstance(v, (int, float)) else v for v in state)
-
-
 def initial_carry(solver, a_op, W0, H0, pstate) -> Carry:
     """The loop's state before iteration 0."""
     dev, dt = W0.device, W0.dtype
@@ -278,22 +287,26 @@ def initial_carry(solver, a_op, W0, H0, pstate) -> Carry:
     def scalar(v, dtype=torch.int64):
         return torch.full((), v, dtype=dtype, device=dev)
 
-    return Carry(W0, H0, _tensors(solver.init(a_op, W0, H0), dev), pstate,
+    return Carry(W0, H0, solver.init(a_op, W0, H0), pstate,
                  scalar(0), scalar(0), scalar(1.0, dt),
                  scalar(False, torch.bool), scalar(False, torch.bool),
                  scalar(np.inf, dt), scalar(0))
 
 
-def _step_runner(step, carry, key, graphs, applies: bool):
+def _step_runner(step, carry, key, graphs, applies: bool,
+                 nests: bool = False):
     """(runner, cached): the captured step at U > 1 on the card, else the
     eager one.  With `graphs` (a dict the caller keeps for operands at one
     address and shape) a graph captured under `key` by an earlier solve
     is loaded with `carry` and replayed, and a new one is kept there
-    (the caller closes them)."""
+    (the caller closes them).  `nests`: the step holds IF nests (BPP),
+    whose stream is made before the capture."""
     if not applies:
         return _Eager(step, carry), False
     runner = graphs.get(key) if graphs is not None else None
     if runner is None:
+        if nests:
+            graph.body_stream(carry.W.device)
         runner = graph.StepGraph(step, carry)
         if graphs is not None:
             graphs[key] = runner
@@ -348,12 +361,13 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
                 # freeze's select), which becomes the graph's buffers
                 runner, cached = _step_runner(
                     loop.step, c, (unroll, have_pg0), graphs,
-                    graph.applies(opts.algorithm, W0, unroll, a_op))
+                    graph.applies(opts.algorithm, W0, unroll, a_op, H0),
+                    opts.algorithm == NmfAlgorithm.BPP)
             done, failed, it, metric = loop.read(c, 0, npdt)
         while not (done or failed) and it < opts.max_iter:
             steps += runner.run(min(unroll, opts.max_iter - it))
             c = runner.carry
-            done, failed, it, metric = loop.read(c, it, npdt)
+            done, failed, it, metric = loop.read(c, it, npdt, runner)
     finally:
         if runner is not None and not cached:
             runner.close()

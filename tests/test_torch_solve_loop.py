@@ -284,9 +284,9 @@ def test_verbose_text_equals_u1(unroll, capsys):
 
 
 def test_auto_unroll():
-    """0 is auto: 1 for BPP and on the CPU; the card's value for the
-    captured solvers, and 1 for MU once its factors hold
-    MU_ONE_STEP_ENTRIES entries."""
+    """0 is auto: 1 on the CPU; the card's value for the captured solvers
+    (BPP too, where its capture rule holds), and 1 for MU once its factors
+    hold MU_ONE_STEP_ENTRIES entries."""
     W, H = torch.zeros((3, 2)), torch.zeros((2, 5))
     for alg in ("MU", "HALS", "RANK2", "BPP"):
         assert solve.auto_unroll(_opts(topt, alg), W, H) == 1
@@ -308,12 +308,26 @@ def test_auto_unroll():
     assert solve.auto_unroll(_opts(topt, "MU"), at, small) == 1
     for alg in ("HALS", "RANK2"):
         assert solve.auto_unroll(_opts(topt, alg), at, small) > 1
-    assert solve.auto_unroll(_opts(topt, "BPP"), small, small) == 1
+    W8, H8 = Shaped((M, 8)), Shaped((8, N))
+    assert solve.auto_unroll(_opts(topt, "BPP"), W8, H8) == \
+        solve.AUTO_UNROLL[topt.NmfAlgorithm.BPP] > 1
+
+
+class Shaped:
+    """A factor on the card of a given shape."""
+    is_cuda = True
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def numel(self):
+        return self.shape[0] * self.shape[1]
 
 
 def test_capture_rule(monkeypatch):
-    """A MU, HALS or RANK2 solve on the card is captured at U > 1 while
-    CAPTURE is on; not at U = 1, not BPP, not on the CPU."""
+    """A MU, HALS, RANK2 or BPP solve on the card is captured at U > 1
+    while CAPTURE is on; not at U = 1, not on the CPU (BPP's own rule:
+    tests/test_torch_bpp_graph.py)."""
     class OnCard:
         is_cuda = True
 
@@ -323,7 +337,9 @@ def test_capture_rule(monkeypatch):
         assert graph.applies(a, OnCard, 2) and graph.applies(a, OnCard, 32)
         assert not graph.applies(a, OnCard, 1)
         assert not graph.applies(a, torch.zeros(2), 8)
-    assert not graph.applies(topt.NmfAlgorithm.BPP, OnCard, 8)
+    W8, H8 = Shaped((M, 8)), Shaped((8, N))
+    assert graph.applies(topt.NmfAlgorithm.BPP, W8, 8, H=H8)
+    assert not graph.applies(topt.NmfAlgorithm.BPP, W8, 1, H=H8)
     monkeypatch.setattr(graph, "CAPTURE", False)
     assert not graph.applies(topt.NmfAlgorithm.MU, OnCard, 8)
 
