@@ -159,6 +159,21 @@ fails (nonzero exit, no result line) on any fault:
      exact) and ell_spmm (f32 BPP on an EllAOp block) launched; (c) with
      two cards or more, NCCL a card a rank at 1x2 (and 2x2 with four) at
      the Reuters shape against (a), else one line saying it was not run;
+ 23c. graph community detection (phase `graph`, bench.py:218-302; the
+     graph preset runs best-of-3 restarts as one solve of 3 lanes): (a)
+     K3 over R = 1, 2, 3, 4, 8 lanes (2R factor rows) against its plain
+     version at the two graph roots (20,000^2 e4m3, 3,000^2 f32) and
+     ragged shapes, each root product's device ms beside the plain
+     version's, torch.matmul's after the upcast and its bound; (b) 3 lanes
+     against the 3 single solves from the same starts, f64 on the card
+     (equal iterations, success and best lane, factors within 1e-10);
+     (c) the community cell: planted_partition_graph(3000, 20, seed=7),
+     normalized, graph_clust_options(20), engine seeds 3-7, NMI median
+     and worst gated, K3 exact (2 x steps run + 2 x solves, every launch a
+     lane launch), then restarts 1 against 3 in turns (1, 3, 3, 1); (d) the
+     north-star cell: 100 leaves of the 20,000-node graph, e4m3 A, restarts
+     1, the best of two timed runs, NMI gated, K3 exact (2 x steps run +
+     solves); (e) hierclust_cli --graph on the 3000-node graph's .mtx;
  24. the kernel table as one JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
@@ -249,6 +264,12 @@ from).
 
 runs only phase 23b (the sharded solve), after the build.
 
+    python3 chip_smoke.py --graph
+
+runs only phase 23c (graph community detection), after the build, then
+the device's busy share of its cells from profiles (one community seed at
+restarts 3 and 1, one north-star run).
+
     python3 chip_smoke.py --pair DIR
 
 times K2, P1, P2, the flatclust HALS path, the Reuters BPP path, the
@@ -315,6 +336,20 @@ P3_SHAPES = [(12411, 512, "bfloat16"), (12411, 512, "float32"),
 K3_RAGGED = [(1, 1, "float32"), (100, 3, "bfloat16"), (257, 130, "float32"),
              (257, 130, "bfloat16"), (4097, 33, "bfloat16")]
 HIER_M, HIER_N, HIER_TOPICS, HIER_K = 12411, 7984, 16, 12  # bench.py:60-79
+# phase graph (bench.py:218-302): K3 over R lanes (2R factor rows) at
+# GRAPH_LANES, at the two graph roots and ragged shapes; the community cell
+# (nodes, communities, generator seed), its engine seeds and the repo's
+# NMI targets (ROUND_NOTES.md:345-349); the north-star cell (nodes,
+# communities, generator seed), its NMI gate and the numpy oracle's NMI
+# (bench.py:31); the CLI's engine seed; the f64 lane check's lanes
+GRAPH_LANES = (1, 2, 3, 4, 8)
+GRAPH_K3_SHAPES = ((20000, 20000, "float8_e4m3fn"), (3000, 3000, "float32"))
+GRAPH_K3_RAGGED = ((257, 130, "float32"), (100, 3, "bfloat16"),
+                   (3001, 2999, "float8_e4m3fn"))
+GRAPH_COMM, GRAPH_SEEDS = (3000, 20, 7), (3, 4, 5, 6, 7)
+GRAPH_NMI_MEDIAN, GRAPH_NMI_WORST = 0.85, 0.6
+GRAPH_STAR, GRAPH_STAR_NMI, GRAPH_ORACLE_NMI = (20000, 100, 17), 0.95, 0.991
+GRAPH_CLI_SEED, GRAPH_F64_LANES = 3, 3
 HIER_NMI_MARGIN = 0.05   # f32 card run's NMI may trail the CPU run's by this
 HIER_PRIORITY_TOL = 1e-10
 
@@ -569,7 +604,7 @@ def reset_counts() -> None:
     masked_gj.launches = 0
     masked_gj.columns = 0
     hals_step.launches = 0
-    rank2_loop.launches = 0
+    rank2_loop.launches = rank2_loop.lane_launches = 0
     ell_spmm.launches = 0
     ell_spmm.transposed_launches = 0
     ell_spmm.plain_cuda_calls = 0
@@ -583,9 +618,10 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches of K1, K2, K3, ell_spmm (and ell_spmm's transposed
-    ones) and seg_spmm, the columns K1 solved, ell_spmm's and seg_spmm's
-    plain-version calls on CUDA tensors, the dense products that went to K3 and to torch.matmul, and
+    """Launches of K1, K2, K3 (and K3's of lanes, more than 2 rows),
+    ell_spmm (and ell_spmm's transposed ones) and seg_spmm, the columns
+    K1 solved, ell_spmm's and seg_spmm's plain-version calls on CUDA
+    tensors, the dense products that went to K3 and to torch.matmul, and
     the solve loop's counts (BPP's pivot rounds run among them), since the
     last reset_counts().  Launches replayed from a CUDA graph count once a
     replay, and those in its IF bodies once a body that ran
@@ -598,6 +634,7 @@ def read_counts() -> dict:
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
             "K2": hals_step.launches,
             "K3": rank2_loop.launches,
+            "K3_lanes": rank2_loop.lane_launches,
             "ell_spmm": ell_spmm.launches,
             "ell_spmm_transposed": ell_spmm.transposed_launches,
             "ell_plain_cuda": ell_spmm.plain_cuda_calls,
@@ -1085,6 +1122,11 @@ def phase_main_path(card: str) -> dict:
                              "iterations: masked solves bypassed the kernel")
     if k2_launches:
         raise AssertionError(f"K2 launched {k2_launches} times in a BPP run")
+    if counts["K3"]:
+        # BPP's k = 8 products stay on torch.matmul: only the rank-2 lane
+        # step's stacked products reach K3 past k = 2
+        raise AssertionError(f"K3 launched {counts['K3']} times "
+                             f"({counts['K3_lanes']} of lanes) in a BPP run")
     # captured: one graph, a host read after iteration 0 and each U steps
     reads = 1 + -(-(ITERS - 1) // unroll)
     if unroll < 2 or counts["captures"] != 1 \
@@ -1657,6 +1699,396 @@ def phase_hier_cli() -> None:
     log(f"[cli] hierclust_cli {m}x{n} --clusters {k} --flat 1 --device cuda: "
         f"rc 0, tree_{k}.xml with {2 * (k - 1)} nodes, files {names}; "
         f"{' '.join(tail[-2:])}")
+
+
+def lane_inputs(m: int, w: int, lanes: int, dtype: str, seed: int = 0):
+    """A >= 0 in `dtype` and factors of 2R rows (Wt with both signs, H),
+    made on the card from a seed."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + m + w + lanes)
+    A = torch.rand((m, w), generator=g, device="cuda").to(getattr(torch,
+                                                                  dtype))
+    Wt = torch.rand((2 * lanes, m), generator=g, device="cuda") - 0.3
+    H = torch.rand((2 * lanes, w), generator=g, device="cuda")
+    return A, Wt, H
+
+
+def graph_k3() -> dict:
+    """(a) K3 over R lanes (2R factor rows) against its plain version at
+    GRAPH_LANES, at the graph roots and ragged shapes; at the roots each
+    product's device ms, the plain version's and torch.matmul's after the
+    upcast (one call each side), and the bound: one read of A, the factor
+    in and the product out, 4R m w operations a side."""
+    import torch
+
+    from smallk_torch.kernels import rank2_loop as k3
+
+    worst_abs, rows = 0.0, {}
+    for m, w, dt in GRAPH_K3_RAGGED + GRAPH_K3_SHAPES:
+        for lanes in GRAPH_LANES:
+            A, Wt, H = lane_inputs(m, w, lanes, dt)
+            before = (k3.launches, k3.lane_launches)
+            got = (k3.wt_a(A, Wt), k3.h_at(A, H))
+            want = (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H))
+            torch.cuda.synchronize()
+            if (k3.launches - before[0], k3.lane_launches - before[1]) \
+                    != (2, 2 if lanes > 1 else 0):
+                raise AssertionError(f"K3 lanes R={lanes}: a wrapper did "
+                                     "not launch its kernel")
+            errs = []
+            for side, g_, w_ in zip(("wt_a", "h_at"), got, want):
+                diff = float((g_ - w_).abs().max())
+                rel = diff / max(float(w_.abs().max()), 1e-30)
+                if not (rel <= K3_TOL["product"]
+                        and bool(torch.isfinite(g_).all())):
+                    raise AssertionError(
+                        f"K3 lanes R={lanes} m={m} w={w} A {dt} {side}: "
+                        f"relative {rel:.3e} (tolerance "
+                        f"{K3_TOL['product']:g})")
+                worst_abs = max(worst_abs, diff)
+                errs.append(f"{side} {rel:.2e}")
+            label = f"m={m} w={w} A {dt} R={lanes} ({2 * lanes} rows)"
+            log(f"[graph K3] {label}: relative |kernel - plain| "
+                f"{', '.join(errs)} (tolerance {K3_TOL['product']:g})")
+            if (m, w, dt) not in GRAPH_K3_SHAPES:
+                continue
+            tn = device_ms(lambda: k3.wt_a(A, Wt), 20)
+            nt = device_ms(lambda: k3.h_at(A, H), 20)
+            plain = device_ms(lambda: (k3.wt_a_plain(A, Wt),
+                                       k3.h_at_plain(A, H)), 5)
+            library = device_ms(lambda: (
+                torch.matmul(Wt, A.to(torch.float32)),
+                torch.matmul(H, A.to(torch.float32).T)), 5)
+            a_bytes = A.numel() * A.element_size()
+            side_bound = bound(4.0 * lanes * m * w,
+                               a_bytes + 8 * lanes * (m + w))
+            b_ms, b_by = 2 * side_bound[0], side_bound[1]
+            log(f"[graph K3 time] {label}: device ms wt_a {tn:.4f}, h_at "
+                f"{nt:.4f} (pair {tn + nt:.4f}; a lane's share "
+                f"{(tn + nt) / lanes:.4f}), plain {plain:.4f}, library "
+                f"(torch.matmul after the upcast) {library:.4f}; bound a "
+                f"side {side_bound[0]:.4f} ms ({b_by}; A read once), "
+                f"wt_a at {100 * side_bound[0] / tn:.1f}% and h_at at "
+                f"{100 * side_bound[0] / nt:.1f}% of it")
+            rows[(m, w, dt, lanes)] = {
+                "ms": tn + nt, "wt_a_ms": tn, "h_at_ms": nt,
+                "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
+                "bound_by": b_by}
+    return {"max_abs_err": worst_abs, "rows": rows}
+
+
+def community_graph():
+    """The community cell's graph (bench.py:222-230): the planted partition,
+    its labels and its degree-normalized adjacency."""
+    from smallk_torch.engines.corpus import planted_partition_graph
+    from smallk_torch.engines.graph import normalized_adjacency
+
+    nodes, kc, seed = GRAPH_COMM
+    G, labels = planted_partition_graph(nodes, kc, seed=seed)
+    return G, labels, normalized_adjacency(G)
+
+
+def graph_lanes_f64(Gn) -> None:
+    """(b) R = GRAPH_F64_LANES lanes against the R unbatched solves from the
+    same starts, f64 on the card (the community graph's root, the graph
+    preset's solve options; captured at the auto U): factors within 1e-10
+    relative, equal iterations and success, the same best lane."""
+    import torch
+
+    from smallk_torch.engines.graph import graph_clust_options
+    from smallk_torch.engines.hierclust import _objective
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.solvers import graph
+    from smallk_torch.solvers.solve import nmf_solve
+
+    op = as_aop(Gn, dtype="float64")
+    m, n = op.shape
+    opts = dataclasses.replace(graph_clust_options(GRAPH_COMM[1]).nmf_opts,
+                               dtype="float64")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(GRAPH_COMM[2])
+    f64 = dict(dtype=torch.float64, device="cuda")
+    W0 = torch.rand((GRAPH_F64_LANES, m, 2), generator=g, **f64)
+    H0 = torch.rand((GRAPH_F64_LANES, 2, n), generator=g, **f64)
+    graph.captures = 0
+    lanes = nmf_solve(op, W0, H0, opts)
+    singles = [nmf_solve(op, W0[r], H0[r], opts)
+               for r in range(GRAPH_F64_LANES)]
+    captures = graph.captures
+    worst = 0.0
+    for r, one in enumerate(singles):
+        for a, b in ((lanes.W[r], one.W), (lanes.H[r], one.H)):
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    ok = torch.as_tensor(lanes.success, device="cuda")
+    best = int(torch.argmin(torch.where(ok, _objective(op, lanes.W, lanes.H),
+                                        torch.inf)))
+    best_one = int(np.argmin([
+        float(_objective(op, one.W[None], one.H[None])[0])
+        if one.success else np.inf for one in singles]))
+    iters = [int(i) for i in lanes.iterations]
+    log(f"[graph lanes f64] {GRAPH_F64_LANES} lanes against {GRAPH_F64_LANES} "
+        f"single solves at {m}x{n}: iterations {iters} against "
+        f"{[one.iterations for one in singles]}, success "
+        f"{[bool(v) for v in lanes.success]}, best lane {best} against "
+        f"{best_one}, max relative difference {worst:.3e} (tolerance 1e-10), "
+        f"{captures} graphs captured")
+    if (iters != [one.iterations for one in singles]
+            or [bool(v) for v in lanes.success]
+            != [one.success for one in singles]
+            or best != best_one or not worst <= 1e-10):
+        raise AssertionError("f64 lanes differ from the single solves")
+
+
+def graph_runs(op, opts, seeds, labels) -> dict:
+    """clust_hier on `op` for each engine seed, counted from 0: walls,
+    NMIs, nmf_count, iter_count and the counts of the whole block."""
+    import torch
+
+    from smallk_torch import ClustStats, Random
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import score_clustering
+
+    walls, nmis, nmf, iters, leaves = [], [], 0, 0, []
+    reset_counts()
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, stats = clust_hier(op, opts, Random(seed), ClustStats())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        nmis.append(score_clustering(tree.assignments, labels)["nmi"])
+        nmf += stats.nmf_count
+        iters += stats.iter_count
+        leaves.append(int(sum(tree.is_leaf)))
+    return {"walls": walls, "nmi": nmis, "nmf_count": nmf,
+            "iter_count": iters, "leaves": leaves, "counts": read_counts()}
+
+
+def graph_launch_gate(label: str, counts: dict, lanes: int) -> None:
+    """K3 exactly: two lane-stacked products a step run (frozen steps too)
+    and W'A once a solve, plus, with lanes, the lanes' scores' W'A once a
+    solve; every product one launch through K3, none through
+    torch.matmul, and with lanes every launch a lane launch."""
+    want = 2 * counts["steps"] + counts["solves"] * (2 if lanes > 1 else 1)
+    got = (counts["K3"], counts["kernel_products"], counts["K3_lanes"],
+           counts["matmul_products"])
+    expect = (want, want, want if lanes > 1 else 0, 0)
+    log(f"[graph] {label}: K3 launches {counts['K3']} = 2 x {counts['steps']} "
+        f"steps run + {2 if lanes > 1 else 1} x {counts['solves']} solves "
+        f"(lane launches {counts['K3_lanes']}, products through "
+        f"torch.matmul {counts['matmul_products']})")
+    if got != expect:
+        raise AssertionError(f"{label}: (K3, products through K3, lane "
+                             f"launches, matmul products) {got}, expected "
+                             f"{expect}")
+
+
+def graph_community(card: str, Gn, labels) -> dict:
+    """(c) the community cell, bench.py:222-252: graph_clust_options(20),
+    f32, the operand built once, engine seeds GRAPH_SEEDS; then restarts 1
+    against 3 on the same seeds, in turns (1, 3, 3, 1)."""
+    from smallk_torch.engines.graph import graph_clust_options
+    from smallk_torch.ops.aop import as_aop
+
+    opts = graph_clust_options(GRAPH_COMM[1])
+    op = as_aop(Gn, dtype="float32")
+    run = graph_runs(op, opts, GRAPH_SEEDS, labels)
+    c = run["counts"]
+    med, worst = float(np.median(run["nmi"])), min(run["nmi"])
+    splits = sum(v - 1 for v in run["leaves"])
+    log(f"[graph community] {GRAPH_COMM[0]} nodes, {GRAPH_COMM[1]} "
+        f"communities, restarts {opts.restarts}, seeds {GRAPH_SEEDS}: NMI "
+        f"{[round(v, 4) for v in run['nmi']]}, median {med:.4f} (gate >= "
+        f"{GRAPH_NMI_MEDIAN}), worst {worst:.4f} (gate >= "
+        f"{GRAPH_NMI_WORST}); walls s {[round(v, 4) for v in run['walls']]}, "
+        f"leaves {run['leaves']}, nmf_count {run['nmf_count']}, iter_count "
+        f"{run['iter_count']}, steps run {c['steps']} in {c['solves']} "
+        f"solves, host reads {c['host_reads']} ({c['host_reads'] / splits:.1f}"
+        f" a split), graphs {c['captures']}, replays {c['replays']} on "
+        f"{card}")
+    graph_launch_gate("community cell", c, opts.restarts)
+    if not (med >= GRAPH_NMI_MEDIAN and worst >= GRAPH_NMI_WORST):
+        raise AssertionError(f"community NMI median {med}, worst {worst}")
+    turns = {}
+    for restarts in (1, 3, 3, 1):
+        o = dataclasses.replace(opts, restarts=restarts)
+        r = graph_runs(op, o, GRAPH_SEEDS, labels)
+        graph_launch_gate(f"community cell, restarts {restarts}",
+                          r["counts"], restarts)
+        turns.setdefault(restarts, []).append(r)
+        log(f"[graph restarts] restarts {restarts}: wall {sum(r['walls']):.4f}"
+            f" s over {len(GRAPH_SEEDS)} seeds, host reads "
+            f"{r['counts']['host_reads']}, steps run "
+            f"{r['counts']['steps']}, K3 launches {r['counts']['K3']}, NMI "
+            f"median {float(np.median(r['nmi'])):.4f}")
+    return {"launches": c["K3"], "median": med, "worst": worst}
+
+
+def graph_north_star(card: str) -> dict:
+    """(d) the north-star cell, bench.py:254-302: 100 leaves of the
+    planted 20,000-node graph, restarts 1, stall 25, tol 3e-4, e4m3 A
+    prebuilt; a warm-up with Random(1), the best of two timed runs with
+    Random(2)."""
+    import torch
+
+    from smallk_torch import ClustStats, Random
+    from smallk_torch.engines.corpus import planted_partition_graph
+    from smallk_torch.engines.graph import (graph_clust_options,
+                                            normalized_adjacency)
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.engines.scoring import score_clustering
+    from smallk_torch.ops.aop import as_aop
+
+    nodes, kc, seed = GRAPH_STAR
+    t0 = time.perf_counter()
+    G, labels = planted_partition_graph(nodes, kc, seed=seed)
+    Gn = normalized_adjacency(G)
+    opts = graph_clust_options(kc, restarts=1)
+    opts = dataclasses.replace(opts, nmf_opts=dataclasses.replace(
+        opts.nmf_opts, stall_patience=25, tol=3e-4,
+        a_dtype="float8_e4m3fn"))
+    op = as_aop(Gn, dtype="float8_e4m3fn")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    clust_hier(op, opts, Random(1))  # warm-up
+    best = None
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, stats = clust_hier(op, opts, Random(2), ClustStats())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if best is None or wall < best[0]:
+            best = (wall, tree, stats, counts)
+    wall, tree, stats, counts = best
+    score = score_clustering(tree.assignments, labels)["nmi"]
+    leaves = int(sum(tree.is_leaf))
+    log(f"[graph north star] {nodes} nodes, {kc} communities, e4m3 A "
+        f"({op.A.numel() * op.A.element_size() / 1e6:.0f} MB, built in "
+        f"{build:.2f} s): best wall {wall:.4f} s, NMI {score:.4f} (gate >= "
+        f"{GRAPH_STAR_NMI}; the numpy oracle's {GRAPH_ORACLE_NMI}, "
+        f"bench.py:31), leaves {leaves}, nmf_count {stats.nmf_count}, "
+        f"iter_count {stats.iter_count}, steps run {counts['steps']} in "
+        f"{counts['solves']} solves, graphs {counts['captures']}, replays "
+        f"{counts['replays']}, host reads {counts['host_reads']} "
+        f"({counts['host_reads'] / max(leaves - 1, 1):.1f} a split) on "
+        f"{card}")
+    graph_launch_gate("north-star cell", counts, 1)
+    if leaves != kc:
+        raise AssertionError(f"north star: {leaves} leaves, expected {kc}")
+    if not score >= GRAPH_STAR_NMI:
+        raise AssertionError(f"north star: NMI {score}, gate "
+                             f"{GRAPH_STAR_NMI}")
+    return {"launches": counts["K3"], "wall": wall, "nmi": score}
+
+
+def graph_cli(G, labels) -> None:
+    """(e) the hierclust CLI's --graph preset on the card, the community
+    graph written as a .mtx: exit 0 and NMI >= GRAPH_NMI_MEDIAN."""
+    import scipy.io
+
+    from smallk_torch.engines.scoring import score_clustering
+
+    kc = GRAPH_COMM[1]
+    with tempfile.TemporaryDirectory() as td:
+        mtx = os.path.join(td, "graph.mtx")
+        scipy.io.mmwrite(mtx, G)
+        dic = os.path.join(td, "dict.txt")
+        with open(dic, "w") as f:
+            f.write("".join(f"v{i}\n" for i in range(G.shape[0])))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+        cmd = [sys.executable, "-m", "smallk_torch.cli.hierclust_cli",
+               "--matrixfile", mtx, "--dictfile", dic, "--clusters",
+               str(kc), "--graph", "--device", "cuda", "--verbose", "0",
+               "--seed", str(GRAPH_CLI_SEED), "--outdir", td]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=td, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"hierclust CLI --graph exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        assign = np.loadtxt(os.path.join(td, f"assignments_{kc}.csv"),
+                            delimiter=",", dtype=np.int64, ndmin=1,
+                            max_rows=1)
+    score = score_clustering(assign, labels)["nmi"]
+    tail = proc.stdout.strip().splitlines()
+    log(f"[graph cli] hierclust_cli --graph --clusters {kc} --device cuda "
+        f"--seed {GRAPH_CLI_SEED} on the {G.shape[0]}-node graph: rc 0 in "
+        f"{wall:.2f} s (the process's start and build load included), NMI "
+        f"{score:.4f} (gate >= {GRAPH_NMI_MEDIAN}); {' '.join(tail[-2:])}")
+    if not score >= GRAPH_NMI_MEDIAN:
+        raise AssertionError(f"hierclust CLI --graph: NMI {score}")
+
+
+def phase_graph(card: str) -> dict:
+    """Graph community detection on the card (bench.py:218-302): (a) K3
+    over lanes, (b) f64 lanes against single solves, (c) the community
+    cell with restarts 1 against 3, (d) the north-star cell, (e) the
+    CLI's --graph preset."""
+    t0 = time.perf_counter()
+    k3 = graph_k3()
+    G, labels, Gn = community_graph()
+    graph_lanes_f64(Gn)
+    community = graph_community(card, Gn, labels)
+    star = graph_north_star(card)
+    graph_cli(G, labels)
+    log(f"[graph] phase graph in {time.perf_counter() - t0:.1f} s")
+    return {"k3": k3, "community": community, "star": star}
+
+
+def graph_busy(card: str) -> None:
+    """The device's busy share of the graph cells: one community seed at
+    restarts 3 and at restarts 1, and one north-star run, each inside a
+    profiler session of its own (after a warm run), in a process where no
+    profiler ran before (torch's profiler loses records after earlier
+    sessions in a process, PERF.md)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smallk_torch import Random
+    from smallk_torch.engines.corpus import planted_partition_graph
+    from smallk_torch.engines.graph import (graph_clust_options,
+                                            normalized_adjacency)
+    from smallk_torch.engines.hierclust import clust_hier
+    from smallk_torch.ops.aop import as_aop
+
+    _, _, Gn = community_graph()
+    comm = as_aop(Gn, dtype="float32")
+    nodes, kc, seed = GRAPH_STAR
+    star_opts = graph_clust_options(kc, restarts=1)
+    star_opts = dataclasses.replace(star_opts, nmf_opts=dataclasses.replace(
+        star_opts.nmf_opts, stall_patience=25, tol=3e-4,
+        a_dtype="float8_e4m3fn"))
+    star = as_aop(normalized_adjacency(planted_partition_graph(
+        nodes, kc, seed=seed)[0]), dtype="float8_e4m3fn")
+    cells = [(f"community seed {GRAPH_SEEDS[0]}, restarts {r}", comm,
+              dataclasses.replace(graph_clust_options(GRAPH_COMM[1]),
+                                  restarts=r), GRAPH_SEEDS[0])
+             for r in (3, 1)]
+    cells.append(("north star, Random(2)", star, star_opts, 2))
+    for label, op, opts, rng_seed in cells:
+        clust_hier(op, opts, Random(rng_seed))  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            clust_hier(op, opts, Random(rng_seed))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_summary(prof, wall, f"graph {label} on {card}")
+
+
+def graph_study(card: str) -> None:
+    phase_graph(card)
+    graph_busy(card)
 
 
 def ell_inputs(g: int, L: int, B: int, k: int, vals_dtype: str,
@@ -6317,7 +6749,7 @@ def main() -> int:
                "--cg": cg_study, "--facade": facade_study,
                "--loop": loop_study, "--ladder": ladder_study,
                "--slice": slice_study, "--sparse-chain": sparse_chain_study,
-               "--mesh": phase_mesh}
+               "--mesh": phase_mesh, "--graph": graph_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
@@ -6358,6 +6790,7 @@ def main() -> int:
     timed("demo", phase_demo, card)
     timed("two traces", phase_two_traces, card)
     timed("bpp wide", phase_bpp_wide, card)
+    graph = timed("graph", phase_graph, card)
     # the CLI processes side by side, and beside them phase mesh's child
     # (its walls are taken beside the CLIs here; `--mesh` runs it alone)
     with ThreadPoolExecutor(7) as pool:
@@ -6424,6 +6857,22 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
     }] + [{
+        # K3 on the graph path: one step's two products, W'A and AH', of R
+        # lanes (2R rows; the graph preset's best-of-3) at the community
+        # root, and of one start at the north-star root (e4m3 A)
+        "name": f"rank2_loop ({label}, m=w={m}, A {dt}, wt_a + h_at)",
+        "route": "cuda",
+        "source": rank2_loop.SOURCE,
+        "replaces": rank2_loop.REPLACES,
+        "launches": graph[cell]["launches"],
+        "max_abs_err": graph["k3"]["max_abs_err"],
+        **{key: graph["k3"]["rows"][(m, m, dt, lanes)][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for label, cell, m, dt, lanes in (
+        ("graph lanes R=3, community cell", "community", GRAPH_COMM[0],
+         "float32", 3),
+        ("graph R=1, north-star cell", "star", GRAPH_STAR[0],
+         "float8_e4m3fn", 1))] + [{
         # each kernel's e4m3 load of A
         "name": f"{name} (e4m3 A, {shape})",
         "route": "cuda",

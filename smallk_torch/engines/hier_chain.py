@@ -44,8 +44,9 @@ then the chain resumes: TrialSplit's unbalanced gate (checked on the
 device with the reference's conservative margin, so a borderline split
 bails and the host's gate decides), children with <= 3 documents, a
 solver failure (the retry ladder), dense subsets wider than the ladder, and
-a pop-order mismatch.  With `restarts` > 1 each child runs its R draws, as
-the sequential engine does, and keeps its best.
+a pop-order mismatch.  With `restarts` > 1 each child draws its R starts
+and solves them as one solve of R lanes, as the sequential engine does
+(hierclust._solve_from_draw), and keeps the best lane.
 
 The chain runs only on the common fast path: a dense operand or a sparse
 one with its chunk table, random or spectral init, RANK2, no initdir, and

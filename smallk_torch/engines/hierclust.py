@@ -230,20 +230,26 @@ class _NodeSolve(NamedTuple):
 
 
 def _objective(op, W, H):
-    """||A_sub - W H||_F^2 up to the constant ||A_sub||^2:
-    tr((W'W)(HH')) - 2 <W'A, H>."""
-    return (torch.sum(op.sum_terms(gram(W)) * op.sum_docs(gemm_nt(H, H)))
-            - 2.0 * op.sum_docs(torch.sum(op.mm_tn(W) * H)))
+    """||A_sub - W H||_F^2 up to the constant ||A_sub||^2, one value a lane
+    of W (R, m, 2) and H (R, 2, n): tr((W'W)(HH')) - 2 <W'A, H>, W'A for
+    every lane in one lane-stacked product."""
+    return (torch.sum(op.sum_terms(gram(W)) * op.sum_docs(gemm_nt(H, H)),
+                      dim=(-2, -1))
+            - 2.0 * op.sum_docs(torch.sum(op.mm_tn_lanes(W) * H,
+                                          dim=(-2, -1))))
 
 
 def _solve_from_draw(op, draw, opts, init, restarts, graphs=None):
     """Initializer draw(s) + (optional spectral start) + solve loop.
 
     `draw() -> (W0, H0)` draws the next start.  With restarts > 1 the R
-    random starts run one after another and the one with the lowest
-    rank-2 reconstruction objective wins (ties: the lowest restart index);
-    failed restarts score +inf and the node fails only if every restart
-    fails.  `graphs`: the caller's kept graphs for `op` (nmf_solve).
+    random starts, drawn one after another, run as one solve of R lanes
+    (nmf_solve), as the JAX package's vmap runs them
+    (smallk_tpu/engines/hierclust.py:237-255), spectral init aside: the
+    lane with the lowest rank-2 reconstruction objective wins (ties: the
+    lowest lane), failed lanes score +inf, and the node fails only if
+    every lane fails; the iterations are the winner's.  `graphs`: the
+    caller's kept graphs for `op` (nmf_solve).
     Returns (W, H, success, iterations).
     """
     if restarts == 1:
@@ -266,13 +272,14 @@ def _solve_from_draw(op, draw, opts, init, restarts, graphs=None):
         res = nmf_solve(op, W0, H0, opts, pg0_hint=pg0, graphs=graphs)
         return res.W, res.H, bool(res.success), int(res.iterations)
 
-    runs = [nmf_solve(op, *draw(), opts, graphs=graphs)
-            for _ in range(restarts)]
-    scores = [float(_objective(op, r.W, r.H)) if r.success else np.inf
-              for r in runs]
-    best = runs[int(np.argmin(scores))]  # ties -> lowest restart index
-    return (best.W, best.H, any(r.success for r in runs),
-            int(best.iterations))
+    W0, H0 = zip(*(draw() for _ in range(restarts)))
+    res = nmf_solve(op, torch.stack(W0), torch.stack(H0), opts,
+                    graphs=graphs)
+    ok = torch.as_tensor(res.success, device=res.W.device)
+    scores = torch.where(ok, _objective(op, res.W, res.H), torch.inf)
+    best = int(torch.argmin(scores))  # ties -> the lowest lane
+    return (res.W[best], res.H[best], bool(res.success.any()),
+            int(res.iterations[best]))
 
 
 class _Rank2Runner:

@@ -10,10 +10,12 @@ slab A,
 Its two products are the two A-products of every rank-2 NMF step
 (solvers/rank2.py: W^T A and A H^T at k = 2), so K3 exports them alone,
 and `ops.aop.DenseAOp` sends every k = 2 product of an f32 factor on a
-CUDA f32, bf16 or e4m3 A to them:
+CUDA f32, bf16 or e4m3 A to them, and the lane-stacked products of a
+best-of-R rank-2 solve (R lanes, k = 2R rows, R <= MAX_LANES), which read
+A once whatever R is:
 
-    wt_a(A, Wt) -> (2, w) f32       Wt (2, m) f32
-    h_at(A, H)  -> (2, m) f32       H (2, w) f32
+    wt_a(A, Wt) -> (k, w) f32       Wt (k, m) f32, k in ROWS
+    h_at(A, H)  -> (k, m) f32       H (k, w) f32
     rank2_loop(A, Wt, iters) -> (2, m) f32, P3's whole function
 
 On CUDA tensors each launches the hand-written Hopper kernel
@@ -26,7 +28,9 @@ copy of A is made.
 `wt_a` cuts A's rows into slabs, one grid row each, so that a narrow slab
 (w = 512 is 2 column blocks) still puts about four blocks on each of the
 card's 132 SMs; `slab_plan` picks the cut, and a second launch adds the
-slabs' partial sums in order.
+slabs' partial sums in order.  The cut depends on m and w only: at k
+rows the partial sums take slabs x k x w floats (7 x 16 x 20,000, 9 MB, at
+the graph root's 20,000 columns and 8 lanes).
 """
 
 from __future__ import annotations
@@ -42,9 +46,15 @@ COLS = 256                # columns per wt_a block (csrc/rank2_loop.cu kCols)
 TARGET_BLOCKS = 4 * 132   # about four blocks per SM of an H100
 MIN_ROWS = 64             # fewest rows a slab is cut to
 
-# wrapper calls that launched the kernel since the last reset; the only
-# places it grows are the launches below
+# the factor rows the products take: 2R for R = 1..MAX_LANES lanes
+MAX_LANES = 8
+ROWS = tuple(range(2, 2 * MAX_LANES + 1, 2))
+
+# wrapper calls that launched the kernel since the last reset, and of them
+# the products of more than 2 rows (lanes); the only places they grow are
+# the launches below
 launches = 0
+lane_launches = 0
 
 # A's storage dtypes the products read (the loop: the first two)
 A_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
@@ -61,41 +71,55 @@ def slab_plan(m: int, w: int) -> tuple[int, int]:
 
 
 def wt_a(A, Wt):
-    """A (m, w), Wt (2, m) -> Wt . A (2, w) f32."""
-    global launches
-    m, w = _check(A, Wt, "wt_a", (2, A.shape[0]), A_DTYPES)
+    """A (m, w), Wt (k, m) -> Wt . A (k, w) f32, k in ROWS."""
+    m, w = _check(A, Wt, "wt_a", (_rows(Wt, "wt_a"), A.shape[0]), A_DTYPES)
     if Wt.device.type == "cpu":
         return wt_a_plain(A, Wt)
-    dev = Wt.device
+    dev, k = Wt.device, Wt.shape[0]
     slabs, rows = slab_plan(m, w)
-    out = torch.empty((2, w), dtype=torch.float32, device=dev)
-    partial = (torch.empty((slabs, 2, w), dtype=torch.float32, device=dev)
+    out = torch.empty((k, w), dtype=torch.float32, device=dev)
+    partial = (torch.empty((slabs, k, w), dtype=torch.float32, device=dev)
                if slabs > 1 else out)
     lib = _build.load_library("rank2_loop")
     fn = getattr(lib, f"smallk_wt_a_{_SUFFIX[A.dtype]}")
     _raise_on(lib, fn(A.data_ptr(), Wt.data_ptr(), out.data_ptr(),
-                      partial.data_ptr(), m, w, slabs, rows,
+                      partial.data_ptr(), m, w, k, slabs, rows,
                       torch.cuda.current_stream(dev).cuda_stream, dev.index),
               "wt_a", m, w)
-    launches += 1
+    _count(k)
     return out
 
 
 def h_at(A, H):
-    """A (m, w), H (2, w) -> H . A^T (2, m) f32."""
-    global launches
-    m, w = _check(A, H, "h_at", (2, A.shape[1]), A_DTYPES)
+    """A (m, w), H (k, w) -> H . A^T (k, m) f32, k in ROWS."""
+    m, w = _check(A, H, "h_at", (_rows(H, "h_at"), A.shape[1]), A_DTYPES)
     if H.device.type == "cpu":
         return h_at_plain(A, H)
-    dev = H.device
-    out = torch.empty((2, m), dtype=torch.float32, device=dev)
+    dev, k = H.device, H.shape[0]
+    out = torch.empty((k, m), dtype=torch.float32, device=dev)
     lib = _build.load_library("rank2_loop")
     fn = getattr(lib, f"smallk_h_at_{_SUFFIX[A.dtype]}")
-    _raise_on(lib, fn(A.data_ptr(), H.data_ptr(), out.data_ptr(), m, w,
+    _raise_on(lib, fn(A.data_ptr(), H.data_ptr(), out.data_ptr(), m, w, k,
                       torch.cuda.current_stream(dev).cuda_stream, dev.index),
               "h_at", m, w)
-    launches += 1
+    _count(k)
     return out
+
+
+def _rows(F, name) -> int:
+    """The factor's rows, one of ROWS (2R for R lanes)."""
+    k = F.shape[0] if F.ndim == 2 else None
+    if k not in ROWS:
+        raise ValueError(f"{name}: factor {tuple(F.shape)} (the products "
+                         f"take {ROWS} rows)")
+    return k
+
+
+def _count(k: int) -> None:
+    global launches, lane_launches
+    launches += 1
+    if k > 2:
+        lane_launches += 1
 
 
 def rank2_loop(A, Wt, iters: int = ITERS):

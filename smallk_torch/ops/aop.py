@@ -14,11 +14,13 @@ Three operands, and a view:
   - DenseAOp: A as an (m, n) tensor.  Which code computes a product is a
     dispatch by device, dtype and shape: a k = 2 product of an f32 factor
     on a CUDA A in f32, bf16 or e4m3 goes to K3 (kernels/rank2_loop.py:
-    `wt_a`, `h_at`), which reads A in its own dtype and sums in f32; every
-    other product is `torch.matmul` on A upcast to the accumulation dtype (at
-    the 12411 x 7984 bf16 shape a 396 MB f32 temporary per product).  A
-    K3 failure raises.  `kernel_products` and `matmul_products` count the
-    products that took each branch.
+    `wt_a`, `h_at`), which reads A in its own dtype and sums in f32, and so
+    does the lane-stacked product of R rank-2 lanes (k = 2R, R <=
+    rank2_loop.MAX_LANES: `mm_tn_lanes`, `mm_nt_lanes`); every other
+    product (BPP's k = 8 among them) is `torch.matmul` on A upcast to the
+    accumulation dtype (at the 12411 x 7984 bf16 shape a 396 MB f32
+    temporary per product).  A K3 failure raises.  `kernel_products` and
+    `matmul_products` count the products that took each branch.
   - EllAOp (ops/ell.py): bucketed ELL, every product through the CUDA
     gather-SpMM kernel on the card.
   - SparseAOp: dual-sorted COO, products by `index_select` and
@@ -36,7 +38,13 @@ Three operands, and a view:
 
 Every operand carries the reductions of `ops.dense.Unsharded` (sum_terms,
 sum_docs, ...): identities, except on a ShardedAOp, where they are the
-collectives of its mesh; a MaskedAOp takes its base's.
+collectives of its mesh; a MaskedAOp takes its base's.  Every operand also
+takes the products of R rank-2 lanes at once (`mm_tn_lanes` W (R, m, 2) ->
+(R, 2, n), `mm_nt_lanes` H (R, 2, n) -> (R, m, 2)): one product of the 2R
+stacked factor rows where its kernel takes them (K3, ell_spmm, the COO
+gather), so A is read once a side whatever R is; the static chunk operand
+(ops/ell_cols.ChunkColsAOp), whose seg_spmm launch shape is fixed at
+k = 2, runs one product a lane.
 """
 
 from __future__ import annotations
@@ -56,11 +64,13 @@ kernel_products = 0
 matmul_products = 0
 
 
-def _kernel_product_ok(A, F, k: int) -> bool:
+def _kernel_product_ok(A, F, k: int, lanes: int = 1) -> bool:
     """The dispatch rule: A on CUDA in f32, bf16 or e4m3, an f32 factor,
-    k = 2."""
+    k = 2 a lane, at most rank2_loop.MAX_LANES lanes (a product outside a
+    lane step is one lane: k = 2)."""
     return (A.is_cuda and A.dtype in rank2_loop.A_DTYPES
-            and F.dtype == torch.float32 and k == 2)
+            and F.dtype == torch.float32 and k == 2 * lanes
+            and 1 <= lanes <= rank2_loop.MAX_LANES)
 
 
 class DenseAOp(Unsharded):
@@ -100,6 +110,27 @@ class DenseAOp(Unsharded):
         matmul_products += 1
         pet = _pet(H)
         return torch.matmul(self.A.to(pet), H.T.to(pet)).to(H.dtype)
+
+    def mm_tn_lanes(self, W):
+        """W (R, m, 2) -> (R, 2, n); the 2R stacked rows through K3 where
+        the rule takes them (one read of A), else `mm_tn`'s branch."""
+        global kernel_products
+        R, m, k = W.shape
+        if not _kernel_product_ok(self.A, W, R * k, lanes=R):
+            return super().mm_tn_lanes(W)
+        out = rank2_loop.wt_a(self.A, W.transpose(1, 2).reshape(R * k, m))
+        kernel_products += 1
+        return out.reshape(R, k, -1)
+
+    def mm_nt_lanes(self, H):
+        """H (R, 2, n) -> (R, m, 2), as mm_tn_lanes."""
+        global kernel_products
+        R, k, n = H.shape
+        if not _kernel_product_ok(self.A, H, R * k, lanes=R):
+            return super().mm_nt_lanes(H)
+        out = rank2_loop.h_at(self.A, H.reshape(R * k, n).contiguous())
+        kernel_products += 1
+        return out.reshape(R, k, -1).transpose(1, 2)
 
     def col_sums(self):
         if self.A.dtype == torch.float8_e4m3fn:
@@ -262,6 +293,12 @@ class MaskedAOp:
     def mm_nt(self, H):
         return self.base.mm_nt(H * self.mask.to(H.dtype)[None, :])
 
+    def mm_tn_lanes(self, W):
+        return self.base.mm_tn_lanes(W) * self.mask.to(W.dtype)
+
+    def mm_nt_lanes(self, H):
+        return self.base.mm_nt_lanes(H * self.mask.to(H.dtype))
+
     def col_sums(self):
         sums = self.base.col_sums()
         return sums * self.mask.to(sums.dtype)
@@ -331,6 +368,12 @@ class ShardedAOp:
 
     def mm_nt(self, H):
         return self.sum_docs(self.local.mm_nt(H))
+
+    def mm_tn_lanes(self, W):
+        return self.sum_terms(self.local.mm_tn_lanes(W))
+
+    def mm_nt_lanes(self, H):
+        return self.sum_docs(self.local.mm_nt_lanes(H))
 
     def col_sums(self):
         sums = self.local.col_sums()

@@ -14,6 +14,13 @@ exactly the ops it ran before the sharded solve existed.  A helper that
 sums over a factor's sharded axis takes the operand (`a_op`, W's rows over
 terms, H's columns over docs) or, where the axis depends on the caller,
 the reduction itself (`total`).
+
+A factor may carry a leading lane axis (R independent rank-2 solves, the
+JAX package's vmap over restarts): every helper here takes its matrix
+axes from the end and returns one value a lane, so on a factor without
+lanes it runs the ops it ran before lanes existed.  `Unsharded` gives an
+operand the lanes' products (`mm_tn_lanes`, `mm_nt_lanes`): one product
+of the lanes' stacked factor rows, so A is read once whatever R is.
 """
 
 from __future__ import annotations
@@ -27,6 +34,10 @@ def _pet(x: torch.Tensor) -> torch.dtype:
 
 
 def _mm(X, Y, like):
+    if X.ndim == Y.ndim == 3 and X.shape[0] == Y.shape[0] == 1:
+        # one lane: its product is the unbatched one (a batched product
+        # of one sums in another order on the CPU)
+        return _mm(X[0], Y[0], like)[None]
     pet = _pet(like)
     return torch.matmul(X.to(pet), Y.to(pet)).to(like.dtype)
 
@@ -64,6 +75,20 @@ class Unsharded:
         """A 0-d bool tensor that holds only where it holds on every rank."""
         return ok
 
+    def mm_tn_lanes(self, W):
+        """W (R, m, k) -> W_r^T A for every lane r, (R, k, n): one product
+        of the R k stacked columns (lane r's at r k .. r k + k - 1)."""
+        R, m, k = W.shape
+        return self.mm_tn(W.transpose(0, 1).reshape(m, R * k)).reshape(
+            R, k, -1)
+
+    def mm_nt_lanes(self, H):
+        """H (R, k, n) -> A H_r^T for every lane r, (R, m, k): one product
+        of the R k stacked rows."""
+        R, k, n = H.shape
+        return self.mm_nt(H.reshape(R * k, n)).reshape(-1, R, k).transpose(
+            0, 1)
+
 
 UNSHARDED = Unsharded()
 
@@ -74,12 +99,12 @@ def _same(x):
 
 def gemm_tn(X, Y):
     """X^T @ Y."""
-    return _mm(X.T, Y, X)
+    return _mm(X.mT, Y, X)
 
 
 def gemm_nt(X, Y):
     """X @ Y^T."""
-    return _mm(X, Y.T, X)
+    return _mm(X, Y.mT, X)
 
 
 def gemm(X, Y):
@@ -97,9 +122,9 @@ def gram_t(X):
 
 
 def fro_norm(X, total=_same):
-    """The Frobenius norm; `total` sums the block's square sum over the
-    ranks that hold X's other blocks."""
-    return torch.sqrt(total(torch.sum(torch.square(X))))
+    """The Frobenius norm (a lane's own); `total` sums the block's square
+    sum over the ranks that hold X's other blocks."""
+    return torch.sqrt(total(torch.sum(torch.square(X), dim=(-2, -1))))
 
 
 def normalize_and_scale(W, H, a_op=UNSHARDED):
@@ -108,19 +133,22 @@ def normalize_and_scale(W, H, a_op=UNSHARDED):
     Returns (W, H, norms); a column norm below eps is guarded in the
     division (the caller inspects `norms`), as in the reference.
     """
-    norms = torch.sqrt(a_op.sum_terms(torch.sum(torch.square(W), dim=0)))
+    norms = torch.sqrt(a_op.sum_terms(torch.sum(torch.square(W), dim=-2)))
     eps = torch.finfo(W.dtype).eps
     safe = torch.clamp(norms, min=eps)
-    return W / safe[None, :], H * norms[:, None], norms
+    return W / safe[..., None, :], H * norms[..., :, None], norms
 
 
 def projected_gradient_norm(gradW, gradH, W, H, a_op=UNSHARDED):
-    """Norm of the projected gradient over (W, H): an element counts when
-    its gradient is negative or its factor entry is positive."""
+    """Norm of the projected gradient over (W, H) (a lane's own): an
+    element counts when its gradient is negative or its factor entry is
+    positive."""
     mw = (gradW < 0) | (W > 0)
     mh = (gradH < 0) | (H > 0)
-    sw = a_op.sum_terms(torch.sum(torch.where(mw, torch.square(gradW), 0)))
-    sh = a_op.sum_docs(torch.sum(torch.where(mh, torch.square(gradH), 0)))
+    sw = a_op.sum_terms(torch.sum(torch.where(mw, torch.square(gradW), 0),
+                                  dim=(-2, -1)))
+    sh = a_op.sum_docs(torch.sum(torch.where(mh, torch.square(gradH), 0),
+                                 dim=(-2, -1)))
     return torch.sqrt(sw + sh)
 
 

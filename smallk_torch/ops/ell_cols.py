@@ -320,6 +320,16 @@ class ChunkColsAOp(Unsharded):
                  out, carries=self.carries)
         return out.to(H.dtype)
 
+    # seg_spmm's launch shape is fixed at k = 2 here: lanes take one
+    # product each
+    def mm_tn_lanes(self, W):
+        """W (R, m, 2) -> (R, 2, wc), a product a lane."""
+        return torch.stack([self.mm_tn(w) for w in W])
+
+    def mm_nt_lanes(self, H):
+        """H (R, 2, wc) -> (R, m, 2), a product a lane."""
+        return torch.stack([self.mm_nt(h) for h in H])
+
     def col_sums(self):
         """Column sums in the storage dtype, summed in the accumulator."""
         ones = torch.ones((self.m, 1), dtype=sum_dtype(self.dtype),

@@ -123,7 +123,8 @@ def counters():
     from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop, seg_spmm
     from ..ops import aop
 
-    return ((rank2_loop, "launches"), (hals_step, "launches"),
+    return ((rank2_loop, "launches"), (rank2_loop, "lane_launches"),
+            (hals_step, "launches"),
             (ell_spmm, "launches"), (ell_spmm, "transposed_launches"),
             (ell_spmm, "plain_cuda_calls"), (seg_spmm, "launches"),
             (seg_spmm, "plain_cuda_calls"), (masked_gj, "launches"),

@@ -11,6 +11,17 @@ smallk_tpu/solvers/rank2.py.
 
 The reference's transposed-W variants (`*_t`, `TRANSPOSE_RANK2`) work
 around TPU lane padding of (m, 2) arrays and are not ported.
+
+Lanes.  The step also takes R independent solves at once, the JAX
+package's `jax.vmap(_nmf_solve_impl)` over best-of-R restarts
+(smallk_tpu/engines/hierclust.py:238-241): W (R, m, 2), H (R, 2, n) and
+the state's Grams and products with the same leading lane axis.  The 2x2
+solves, the fix-ups and the normalization run per lane (every index is
+taken from the end), `ok` is one flag a lane, and each side's A-product
+is one product of the 2R stacked factor rows (`mm_tn_lanes`,
+`mm_nt_lanes` of the operand), so A is read once a side whatever R is.
+Without the lane axis every op is the one the unbatched step ran before
+lanes existed.
 """
 
 from __future__ import annotations
@@ -23,12 +34,22 @@ from ..ops.dense import gemm, gram, gram_t, normalize_and_scale
 
 
 class Rank2State(NamedTuple):
-    WtW: torch.Tensor  # 2 x 2
-    WtA: torch.Tensor  # 2 x n
+    WtW: torch.Tensor  # 2 x 2 (R x 2 x 2 with lanes)
+    WtA: torch.Tensor  # 2 x n (R x 2 x n)
+
+
+def _wta(a_op, W):
+    """W^T A, a lane's own where W has a lane axis."""
+    return a_op.mm_tn_lanes(W) if W.ndim == 3 else a_op.mm_tn(W)
+
+
+def _aht(a_op, H):
+    """A H^T, a lane's own where H has a lane axis."""
+    return a_op.mm_nt_lanes(H) if H.ndim == 3 else a_op.mm_nt(H)
 
 
 def init(a_op, W, H) -> Rank2State:
-    return Rank2State(WtW=a_op.sum_terms(gram(W)), WtA=a_op.mm_tn(W))
+    return Rank2State(WtW=a_op.sum_terms(gram(W)), WtA=_wta(a_op, W))
 
 
 def _givens_solve(a00, a01, a10, a11, cos_form, sin_form, eps):
@@ -42,44 +63,53 @@ def _givens_solve(a00, a01, a10, a11, cos_form, sin_form, eps):
     ok = ~(singular | degenerate)
     x1 = f2 / d2
     x0 = (e2 - b2 * x1) / a2
-    return x0, x1, ok
+    return x0, x1, ok[..., 0]
+
+
+def _entries(A):
+    """A 2x2 matrix's entries (a lane's own under a lane axis), each with a
+    trailing axis of one that broadcasts over a row or column of B."""
+    return A[..., 0, 0, None], A[..., 0, 1, None], A[..., 1, 0, None], \
+        A[..., 1, 1, None]
 
 
 def _system_solve_h(A, B):
-    """Solve A @ X = B columnwise, A 2x2, B 2xn.  Returns (X, ok), with the
-    reference SystemSolveH's singularity checks."""
+    """Solve A @ X = B columnwise, A 2x2, B 2xn (a lane axis first: one
+    system a lane).  Returns (X, ok), with the reference SystemSolveH's
+    singularity checks."""
     eps = torch.finfo(B.dtype).eps
-    a00, a01 = A[0, 0], A[0, 1]
-    a10, a11 = A[1, 0], A[1, 1]
+    a00, a01, a10, a11 = _entries(A)
+    b0, b1 = B[..., 0, :], B[..., 1, :]
 
     # cosine form (t = tangent)
     t = -a10 / torch.where(a00 == 0, eps, a00)
     cos_form = (a00 - t * a10, a01 - t * a11, a11 + t * a01,
-                B[0, :] - t * B[1, :], B[1, :] + t * B[0, :])
+                b0 - t * b1, b1 + t * b0)
     # sine form (ct = cotangent)
     ct = -a00 / torch.where(a10 == 0, eps, a10)
     sin_form = (-a10 + ct * a00, -a11 + ct * a01, a01 + ct * a11,
-                -B[1, :] + ct * B[0, :], B[0, :] + ct * B[1, :])
+                -b1 + ct * b0, b0 + ct * b1)
 
     x0, x1, ok = _givens_solve(a00, a01, a10, a11, cos_form, sin_form, eps)
-    return torch.stack([x0, x1], dim=0), ok
+    return torch.stack([x0, x1], dim=-2), ok
 
 
 def _system_solve_w(A, B):
-    """Solve X @ A = B rowwise, A 2x2, B mx2.  Returns (X, ok)."""
+    """Solve X @ A = B rowwise, A 2x2, B mx2 (a lane axis first).  Returns
+    (X, ok)."""
     eps = torch.finfo(B.dtype).eps
-    a00, a01 = A[0, 0], A[0, 1]
-    a10, a11 = A[1, 0], A[1, 1]
+    a00, a01, a10, a11 = _entries(A)
+    b0, b1 = B[..., :, 0], B[..., :, 1]
 
     t = a01 / torch.where(a00 == 0, eps, a00)
     cos_form = (a00 + t * a01, a10 + t * a11, a11 - t * a10,
-                B[:, 0] + t * B[:, 1], B[:, 1] - t * B[:, 0])
+                b0 + t * b1, b1 - t * b0)
     ct = a00 / torch.where(a01 == 0, eps, a01)
     sin_form = (-a01 - ct * a00, -a11 - ct * a10, a10 - ct * a11,
-                -B[:, 1] - ct * B[:, 0], B[:, 0] - ct * B[:, 1])
+                -b1 - ct * b0, b0 - ct * b1)
 
     x0, x1, ok = _givens_solve(a00, a01, a10, a11, cos_form, sin_form, eps)
-    return torch.stack([x0, x1], dim=1), ok
+    return torch.stack([x0, x1], dim=-1), ok
 
 
 def _fixup(x0, x1, r0, r1, g00, g11):
@@ -96,16 +126,21 @@ def _fixup(x0, x1, r0, r1, g00, g11):
 
 def _optimal_active_set_h(H, WtW, WtA):
     """Columnwise optimal fix-up of nonpositive H entries."""
-    h0, h1 = _fixup(H[0, :], H[1, :], WtA[0, :], WtA[1, :],
-                    WtW[0, 0], WtW[1, 1])
-    return torch.stack([h0, h1], dim=0)
+    h0, h1 = _fixup(H[..., 0, :], H[..., 1, :], WtA[..., 0, :],
+                    WtA[..., 1, :], WtW[..., 0, 0, None], WtW[..., 1, 1, None])
+    return torch.stack([h0, h1], dim=-2)
 
 
 def _optimal_active_set_w(W, HHt, AHt):
     """Rowwise optimal fix-up of nonpositive W entries."""
-    w0, w1 = _fixup(W[:, 0], W[:, 1], AHt[:, 0], AHt[:, 1],
-                    HHt[0, 0], HHt[1, 1])
-    return torch.stack([w0, w1], dim=1)
+    w0, w1 = _fixup(W[..., :, 0], W[..., :, 1], AHt[..., :, 0],
+                    AHt[..., :, 1], HHt[..., 0, 0, None], HHt[..., 1, 1, None])
+    return torch.stack([w0, w1], dim=-1)
+
+
+def _all_finite(X):
+    """Whether every entry of X (of each lane's X) is finite."""
+    return torch.all(torch.isfinite(X).flatten(-2), dim=-1)
 
 
 def step(a_op, W, H, state: Rank2State):
@@ -116,7 +151,7 @@ def step(a_op, W, H, state: Rank2State):
     H = _optimal_active_set_h(H, WtW, WtA)
 
     HHt = a_op.sum_docs(gram_t(H))
-    AHt = a_op.mm_nt(H)
+    AHt = _aht(a_op, H)
 
     # solve W (HH') = AH'
     W, ok_w = _system_solve_w(HHt, AHt)
@@ -125,19 +160,20 @@ def step(a_op, W, H, state: Rank2State):
     # per-iteration normalization; rescale HH'/AH' by the factors instead of
     # recomputing them
     W, H, norms = normalize_and_scale(W, H, a_op)
-    norms_ok = torch.all(norms > torch.finfo(W.dtype).eps)
-    HHt = HHt * torch.outer(norms, norms)
-    AHt = AHt * norms[None, :]
+    norms_ok = torch.all(norms > torch.finfo(W.dtype).eps, dim=-1)
+    HHt = HHt * (norms[..., :, None] * norms[..., None, :])
+    AHt = AHt * norms[..., None, :]
 
     gradW = gemm(W, HHt) - AHt
 
     WtW = a_op.sum_terms(gram(W))
-    WtA = a_op.mm_tn(W)
+    WtA = _wta(a_op, W)
     gradH = gemm(WtW, H) - WtA
 
     ok = ok_h & ok_w & norms_ok
-    # isfinite, not just not-NaN: f32 overflow yields Inf without NaN
-    ok = ok & torch.all(torch.isfinite(gradW)) & torch.all(torch.isfinite(gradH))
+    # isfinite, not just not-NaN: f32 overflow yields Inf without NaN; a
+    # lane's own entries only
+    ok = ok & _all_finite(gradW) & _all_finite(gradH)
     return W, H, gradW, gradH, Rank2State(WtW=WtW, WtA=WtA), ok
 
 

@@ -42,6 +42,16 @@ the same loop runs eagerly.
 `verbose` prints the reference's lines at its cadence (iterations 1-9,
 then every 10th) after each read, from a device buffer of the block's
 metrics.
+
+Lanes: W0 (R, m, 2) and H0 (R, 2, n) run R independent RANK2 solves as
+one loop, the JAX package's `jax.vmap(_nmf_solve_impl)` over best-of-R
+restarts (smallk_tpu/engines/hierclust.py:238-241).  Every scalar of the
+carry is then one value a lane, the freeze selects by lane (a lane that
+has stopped keeps its state, as under a vmapped while_loop, at every U),
+the host reads all lanes' stop states in one transfer, and the loop ends
+when every lane has stopped or at max_iter; the result holds each lane's
+W, H, iterations, convergence and success.  A solve without the lane axis
+runs as it did before lanes existed.
 """
 
 from __future__ import annotations
@@ -179,7 +189,15 @@ def select(frozen, old, new, out=None):
         if not isinstance(new, torch.Tensor):
             return torch.where(frozen, old, new)
         out = torch.empty_like(new)
-    return torch.where(frozen, old, new, out=out)
+    return torch.where(_by_lane(frozen, new), old, new, out=out)
+
+
+def _by_lane(flag, t):
+    """A lane's flag (R,) over the other axes of its tensor t (R, ...); a
+    flag without lanes as it is."""
+    if flag.ndim and t.ndim > flag.ndim:
+        return flag.reshape(flag.shape + (1,) * (t.ndim - flag.ndim))
+    return flag
 
 
 class _Loop:
@@ -202,9 +220,10 @@ class _Loop:
         which `c` may be) the new state is written there."""
         o = self.opts
         # at U = 1 the host reads after every step and runs the next only
-        # while the solve goes on: no step is frozen, and none is selected
+        # while the solve goes on: no step is frozen, and none is selected;
+        # lanes stop one by one, so they select at every U
         frozen = (c.done | c.failed | (c.it >= o.max_iter)
-                  if self.unroll > 1 else None)
+                  if self.unroll > 1 or c.it.ndim else None)
         W, H, gW, gH, sstate, ok = self.solver.step(self.a_op, c.W, c.H,
                                                     c.sstate)
         # a sharded solve fails on every rank where it fails on one
@@ -216,7 +235,7 @@ class _Loop:
         metric, pstate = prog_update(self.method, c.it, W, H, gW, gH,
                                      c.pstate, self.have_pg0, self.a_op)
         metric = torch.where(do_update, metric, c.metric)
-        pstate = torch.where(do_update, pstate, c.pstate)
+        pstate = torch.where(_by_lane(do_update, pstate), pstate, c.pstate)
 
         check = at_check & ~failed
         hit = check & (metric <= o.tol)
@@ -238,11 +257,13 @@ class _Loop:
         return select(frozen, c, new, out)
 
     def read(self, c: Carry, it_before: int, npdt, runner=None):
-        """One host read: (done, failed, it, metric), and the verbose lines
+        """One host read: (done, failed, it, metric), each a numpy array of
+        one value a lane (one value without lanes), and the verbose lines
         of the steps since `it_before`; a graph `runner`'s launch counts
         of its IF bodies go to the counters with it (StepGraph.settle)."""
         global host_reads
-        parts = [t.reshape(1).double()
+        lanes = c.it.numel()
+        parts = [t.reshape(-1).double()
                  for t in (c.done, c.failed, c.it, c.metric)]
         if self.metrics is not None:
             parts.append(self.metrics)
@@ -253,10 +274,11 @@ class _Loop:
         if counts is not None:
             runner.settle(vals[-counts.numel():])
         host_reads += 1
-        done, failed, it, metric = bool(vals[0]), bool(vals[1]), \
-            int(vals[2]), npdt(vals[3])
+        state = np.asarray(vals[:4 * lanes]).reshape(4, lanes)
+        done, failed = state[0] != 0, state[1] != 0
+        it, metric = state[2].astype(np.int64), state[3].astype(npdt)
         if self.metrics is not None:
-            for i in range(it_before, it):
+            for i in range(it_before, int(it[0])):
                 # reference cadence: iterations 1-9, then every 10th
                 if (i + 1) < 10 or (i + 1) % 10 == 0:
                     print(f"{i + 1}:\tprogress metric:\t"
@@ -285,7 +307,8 @@ def initial_carry(solver, a_op, W0, H0, pstate) -> Carry:
     dev, dt = W0.device, W0.dtype
 
     def scalar(v, dtype=torch.int64):
-        return torch.full((), v, dtype=dtype, device=dev)
+        # one a lane
+        return torch.full(W0.shape[:-2], v, dtype=dtype, device=dev)
 
     return Carry(W0, H0, solver.init(a_op, W0, H0), pstate,
                  scalar(0), scalar(0), scalar(1.0, dt),
@@ -323,11 +346,19 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
     `reference_pg1`), used in place of the first iteration's PG.
     `graphs`: a dict of captured steps kept by the caller between solves
     on one operand (`_step_runner`; hierclust, one a bucket width).
+    With lanes (W0 (R, m, 2), H0 (R, 2, n), RANK2) the result's factors
+    carry the lane axis and its iterations, converged, success and metric
+    are numpy arrays of one value a lane.
     """
     global steps_run, frozen_steps, solves
     solver = get_solver(opts.algorithm)
     method = opts.prog_est_algorithm
     dev, dt = W0.device, W0.dtype
+    lanes = W0.ndim == 3
+    if lanes and (opts.algorithm != NmfAlgorithm.RANK2 or opts.verbose
+                  or pg0_hint is not None):
+        raise ValueError("nmf_solve: lanes run RANK2 only, without "
+                         "verbose lines or a pg0 hint")
     # host copies of the scalar state keep the factor dtype, as the
     # reference's on-device values do
     npdt = np.float64 if dt == torch.float64 else np.float32
@@ -335,6 +366,8 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
         else auto_unroll(opts, W0, H0)
 
     pstate = prog_init(method, W0)
+    if lanes and method == NmfProgressAlgorithm.PG_RATIO:
+        pstate = pstate.expand(W0.shape[0]).clone()
     have_pg0 = (pg0_hint is not None
                 and method == NmfProgressAlgorithm.PG_RATIO)
     if have_pg0:
@@ -345,9 +378,17 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
 
     if graphs is not None and opts.verbose:
         raise ValueError("nmf_solve: a kept graph prints no progress")
-    metric, it, steps = npdt(1.0), 0, 0
-    done = failed = False
+    one = W0.shape[0] if lanes else 1
+    metric = np.ones(one, dtype=npdt)
+    it = np.zeros(one, dtype=np.int64)
+    done = failed = np.zeros(one, dtype=bool)
+    steps = 0
     runner, cached = None, False
+
+    def going():
+        # some lane has not stopped (the lanes that go on share `it`)
+        return not np.all(done | failed | (it >= opts.max_iter))
+
     try:
         if opts.max_iter > 0:
             # iteration 0 runs eagerly, on the card too: it primes the
@@ -358,32 +399,42 @@ def nmf_solve(a_op, W0, H0, opts: NmfOptions, pg0_hint=None,
             if opts.max_iter > 1:
                 # captured while the device still runs iteration 0, on
                 # its fresh state (every field a new tensor of the
-                # freeze's select), which becomes the graph's buffers
+                # freeze's select), which becomes the graph's buffers; a
+                # graph of R lanes is kept under R
                 runner, cached = _step_runner(
-                    loop.step, c, (unroll, have_pg0), graphs,
+                    loop.step, c, (unroll, have_pg0, W0.shape[:-2]), graphs,
                     graph.applies(opts.algorithm, W0, unroll, a_op, H0),
                     opts.algorithm == NmfAlgorithm.BPP)
             done, failed, it, metric = loop.read(c, 0, npdt)
-        while not (done or failed) and it < opts.max_iter:
-            steps += runner.run(min(unroll, opts.max_iter - it))
+        while going():
+            last = int(it.max())
+            steps += runner.run(min(unroll, opts.max_iter - last))
             c = runner.carry
-            done, failed, it, metric = loop.read(c, it, npdt, runner)
+            done, failed, it, metric = loop.read(c, last, npdt, runner)
     finally:
         if runner is not None and not cached:
             runner.close()
         steps_run += steps
-        frozen_steps += steps - it
+        frozen_steps += steps - int(it.max())
         solves += 1
 
     W, H = c.W, c.H
-    if opts.normalize and not failed:
-        W, H, _ = normalize_and_scale(W, H, a_op)
+    if opts.normalize and not failed.all():
+        Wn, Hn, _ = normalize_and_scale(W, H, a_op)
+        # a failed lane keeps its factors unnormalized
+        if failed.any():
+            keep = torch.as_tensor(failed, device=dev)
+            Wn, Hn = select(keep, W, Wn), select(keep, H, Hn)
+        W, H = Wn, Hn
     elif cached:
         # the graph's buffers: the next solve overwrites them
         W, H = W.clone(), H.clone()
 
     rounds = getattr(c.sstate, "pivot_rounds", None)
-    success = not failed and (done or it >= opts.max_iter)
+    success = ~failed & (done | (it >= opts.max_iter))
+    if not lanes:
+        it, done, success, metric = (int(it[0]), bool(done[0]),
+                                     bool(success[0]), metric[0])
     return SolveResult(
         W=W, H=H, iterations=it, converged=done, success=success,
         metric=metric, pivot_rounds=0 if rounds is None else int(rounds),

@@ -38,7 +38,8 @@ SHAPES = [(1, 2), (2, 1), (2, 2)]
 # every shape runs the trees; the (2, 2) mesh also the rest (a collective
 # over gloo costs ~1 ms on a loopback, so the ranks' cases are few)
 TREE_CASES = ("hier_initdir", "hier_random")
-MESH22_CASES = ("hier_ell", "hier_flat", "hier_checkpoint", "entry_points")
+MESH22_CASES = ("hier_ell", "hier_flat", "hier_checkpoint", "entry_points",
+                "hier_restarts")
 PRIORITY_TOL = dict(rtol=1e-10, atol=1e-12)
 FLAT_TOL = dict(rtol=1e-8, atol=1e-10)   # test_parallel.py's
 
@@ -119,6 +120,14 @@ def test_random_tree_matches_unsharded(ranks):
     tree, _ = clust_hier(w.blocks_problem(4), w.clust_opts(topt, 4),
                          Random(7), device="cpu")
     _every_rank(res, "hier_random", w.tree_record(tree))
+
+
+def test_restarts_tree_matches_unsharded(ranks22):
+    """Best-of-3 restarts, each node one solve of 3 lanes on the masked
+    view of the rank's block: every rank's tree is the unsharded one."""
+    _, res, _ = ranks22
+    tree, _ = clust_hier(*w.restarts_problem(topt), Random(7), device="cpu")
+    _every_rank(res, "hier_restarts", w.tree_record(tree))
 
 
 def test_ell_operand_tree_matches_unsharded(ranks22):

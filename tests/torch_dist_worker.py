@@ -54,6 +54,18 @@ def blocks_problem(seed, m=64, n=48, blocks=4):
     return sp.csc_matrix(A)
 
 
+def restarts_problem(topt):
+    """(A, options) of the sharded restarts case: a small planted block
+    matrix, 3 clusters, best-of-3 restarts, node solves capped at 30
+    steps (each step's collectives cost the ranks ~1 ms apiece)."""
+    import dataclasses
+
+    opts = clust_opts(topt, 3, restarts=3)
+    return (blocks_problem(4, m=24, n=18, blocks=3),
+            dataclasses.replace(opts, nmf_opts=dataclasses.replace(
+                opts.nmf_opts, max_iter=30)))
+
+
 def clust_opts(topt, k, initdir=None, flat=False, **kw):
     return topt.ClustOptions(
         nmf_opts=topt.NmfOptions(
@@ -270,6 +282,17 @@ def case_hier_random(mesh, data):
 
     tree, _ = clust_hier(blocks_problem(4), clust_opts(topt, 4), Random(7),
                          mesh=mesh)
+    return tree_record(tree)
+
+
+def case_hier_restarts(mesh, data):
+    """Random mode with best-of-3 restarts: every node a solve of 3 lanes
+    on the masked view of the rank's block."""
+    from smallk_torch.common import options as topt
+    from smallk_torch.common.rng import Random
+    from smallk_torch.engines.hierclust import clust_hier
+
+    tree, _ = clust_hier(*restarts_problem(topt), Random(7), mesh=mesh)
     return tree_record(tree)
 
 
