@@ -37,10 +37,13 @@ fails (nonzero exit, no result line) on any fault:
      over 2000 fixed iterations; f32 on the card against f32 on the CPU;
   8. MU and RANK2 on a dense 800 x 600 operand and flatclust BPP at
      256 x 256, k = 16 beside it;
-  9. K3, the rank-2 products and loop, against its plain version at the
-     shapes of P3 (scripts/tpu_batch60.py) and small ragged shapes, and its
-     two products alone at the hierclust root shape (12411 x 7984 bf16);
-     kernel, plain and library times;
+  9. K3, the rank-2 products and loop: its kernels' registers, shared
+     memory and spills from the build (a spill fails), then against its
+     plain version at the shapes of P3 (scripts/tpu_batch60.py), small
+     ragged shapes, a misaligned view and exact widths (the scalar
+     path, whose bits must be the vector path's), and its two
+     products alone at the hierclust root shape (12411 x 7984 bf16) at
+     every factor row count K3 takes; kernel, plain and library times;
  10. hierclust parity: a small planted corpus in initdir mode, f64 on the
      card against the CPU (same tree, assignments and priorities), and f32
      on the card (through K3) against f32 on the CPU by NMI;
@@ -161,16 +164,17 @@ fails (nonzero exit, no result line) on any fault:
      the Reuters shape against (a), else one line saying it was not run;
  23c. graph community detection (phase `graph`, bench.py:218-302; the
      graph preset runs best-of-3 restarts as one solve of 3 lanes): (a)
-     K3 over R = 1, 2, 3, 4, 8 lanes (2R factor rows) against its plain
-     version at the two graph roots (20,000^2 e4m3, 3,000^2 f32) and
-     ragged shapes, each root product's device ms beside the plain
-     version's, torch.matmul's after the upcast and its bound; (b) 3 lanes
+     K3 over lanes (2R factor rows) against its plain version at the two
+     graph roots (20,000^2 e4m3, 3,000^2 f32) for R = 1..8, at a bucket-
+     width node of each cell and at ragged shapes for R = 1, 2, 3, 4, 8,
+     each root and node product's device ms beside the plain version's,
+     torch.matmul's after the upcast and its bound; (b) 3 lanes
      against the 3 single solves from the same starts, f64 on the card
      (equal iterations, success and best lane, factors within 1e-10);
      (c) the community cell: planted_partition_graph(3000, 20, seed=7),
      normalized, graph_clust_options(20), engine seeds 3-7, NMI median
      and worst gated, K3 exact (2 x steps run + 2 x solves, every launch a
-     lane launch), then restarts 1 against 3 in turns (1, 3, 3, 1); (d) the
+     lane launch), then restarts 1 against 3 in turns (3, 1, 3); (d) the
      north-star cell: 100 leaves of the 20,000-node graph, e4m3 A, restarts
      1, the best of two timed runs, NMI gated, K3 exact (2 x steps run +
      solves); (e) hierclust_cli --graph on the 3000-node graph's .mtx;
@@ -270,6 +274,13 @@ runs only phase 23c (graph community detection), after the build, then
 the device's busy share of its cells from profiles (one community seed at
 restarts 3 and 1, one north-star run).
 
+    python3 chip_smoke.py --k3
+
+runs only K3's checks and times (phase 9 and phase 23c (a)), after the
+build: the kernels' registers, shared memory and spills, the misaligned
+view and the exact widths, and both products at every factor row count at
+the roots.
+
     python3 chip_smoke.py --pair DIR
 
 times K2, P1, P2, the flatclust HALS path, the Reuters BPP path, the
@@ -335,6 +346,18 @@ P3_SHAPES = [(12411, 512, "bfloat16"), (12411, 512, "float32"),
              (20000, 512, "bfloat16"), (12411, 2048, "bfloat16")]
 K3_RAGGED = [(1, 1, "float32"), (100, 3, "bfloat16"), (257, 130, "float32"),
              (257, 130, "bfloat16"), (4097, 33, "bfloat16")]
+# K3's device kernels by name, for its share of a profile's device time
+K3_KERNELS = ("wt_a_kernel", "h_at_kernel", "split_sum_kernel")
+# a view one element past an aligned allocation (rows not 16-byte aligned:
+# the kernels' scalar path), at a bucket width
+K3_VIEW = (3000, 1024)
+# exact widths whose rows are not 16-byte aligned (the scalar path, each
+# row at its own offset), the widest below each cell's root: the community
+# cell's f32, the Reuters hierclust bf16 and the north star's e4m3.  A node
+# of such a width, past the bucket ladder, is gathered at whole 16-byte rows
+# (engines/hierclust.py row_width); a root of it would take this path.
+K3_EXACT = {"float32": (3000, 2999), "bfloat16": (12411, 7983),
+            "float8_e4m3fn": (20000, 19999)}
 HIER_M, HIER_N, HIER_TOPICS, HIER_K = 12411, 7984, 16, 12  # bench.py:60-79
 # phase graph (bench.py:218-302): K3 over R lanes (2R factor rows) at
 # GRAPH_LANES, at the two graph roots and ragged shapes; the community cell
@@ -346,6 +369,10 @@ GRAPH_LANES = (1, 2, 3, 4, 8)
 GRAPH_K3_SHAPES = ((20000, 20000, "float8_e4m3fn"), (3000, 3000, "float32"))
 GRAPH_K3_RAGGED = ((257, 130, "float32"), (100, 3, "bfloat16"),
                    (3001, 2999, "float8_e4m3fn"))
+# bucket-width node operands of the two graph cells (hierclust's ladder):
+# ((m, w, A dtype), lanes)
+GRAPH_K3_NODES = (((3000, 1024, "float32"), 3),
+                  ((20000, 4096, "float8_e4m3fn"), 1))
 GRAPH_COMM, GRAPH_SEEDS = (3000, 20, 7), (3, 4, 5, 6, 7)
 GRAPH_NMI_MEDIAN, GRAPH_NMI_WORST = 0.85, 0.6
 GRAPH_STAR, GRAPH_STAR_NMI, GRAPH_ORACLE_NMI = (20000, 100, 17), 0.95, 0.991
@@ -1392,14 +1419,107 @@ def k3_inputs(m: int, w: int, dtype: str, seed: int = 0):
     return A, Wt, H
 
 
-def phase_k3() -> dict:
-    """K3 against its plain version at P3's shapes and ragged ones; times of
-    the loop at P3's shapes and of one iteration's two products at the
-    hierclust root shape."""
+def k3_resources() -> None:
+    """K3's kernels as ptxas built them (the build's log): registers,
+    shared memory and spills a kernel; a spill fails the run (the plan keeps
+    each lane's sums in registers)."""
+    import re
+
+    from smallk_torch.kernels import _build
+
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "e4m3"}
+    rows, name = {}, None
+    for line in _build.build_log("rank2_loop").splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?(\w+)", line)
+        if hit:
+            name = hit.group(1)
+            continue
+        if name is None:
+            continue
+        row = rows.setdefault(name, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            row["spill"] = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            row["regs"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            row["smem"] = int(smem.group(1)) if smem else 0
+    labels = []
+    for name, row in sorted(rows.items()):
+        hit = re.search(r"(wt_a_kernel|h_at_kernel)I(f|13__nv_bfloat16|"
+                        r"13__nv_fp8_e4m3)Li(\d+)E", name)
+        label = (f"{hit.group(1)}<{types[hit.group(2)]}, K={hit.group(3)}>"
+                 if hit else next((k for k in ("split_sum_kernel",
+                                               "scale_kernel") if k in name),
+                                  name))
+        labels.append(f"{label} {row.get('regs')} regs {row.get('smem')} B "
+                      f"smem {row.get('spill', 0)} B spilled")
+    log(f"[K3 build] {len(rows)} kernels (ptxas -v): " + "; ".join(labels))
+    spilled = [name for name, row in rows.items() if row.get("spill", 0)]
+    if not rows or spilled:
+        raise AssertionError(f"K3 kernels spill: {spilled}" if rows else
+                             "no K3 kernel in the build's log")
+
+
+def k3_side_times(label: str, A, Wt, H) -> dict:
+    """Device ms of each K3 product on A (W'A with Wt, AH' with H), of the
+    library's (torch.matmul after the upcast) and each side's bound: A
+    read once, the factor in and the product out, 2 k m w operations."""
     import torch
 
     from smallk_torch.kernels import rank2_loop as k3
 
+    (m, w), k = A.shape, Wt.shape[0]
+    side = bound(2.0 * k * m * w,
+                 A.numel() * A.element_size() + 4 * k * (m + w))
+    out = {"wt_a_ms": device_ms(lambda: k3.wt_a(A, Wt), 20),
+           "h_at_ms": device_ms(lambda: k3.h_at(A, H), 20),
+           "lib_wt_a_ms": device_ms(
+               lambda: torch.matmul(Wt, A.to(torch.float32)), 5),
+           "lib_h_at_ms": device_ms(
+               lambda: torch.matmul(H, A.to(torch.float32).T), 5),
+           "side_bound_ms": side[0], "bound_by": side[1]}
+    out["ms"] = out["wt_a_ms"] + out["h_at_ms"]
+    out["library_ms"] = out["lib_wt_a_ms"] + out["lib_h_at_ms"]
+    log(f"[K3 sides] {label} k={k}: device ms wt_a {out['wt_a_ms']:.4f} "
+        f"({100 * side[0] / out['wt_a_ms']:.1f}% of its bound), h_at "
+        f"{out['h_at_ms']:.4f} ({100 * side[0] / out['h_at_ms']:.1f}%); "
+        f"library (torch.matmul after the upcast) wt_a "
+        f"{out['lib_wt_a_ms']:.4f}, h_at {out['lib_h_at_ms']:.4f}; pair "
+        f"{out['ms']:.4f} against {out['library_ms']:.4f} "
+        f"({out['ms'] / out['library_ms']:.2f}x); bound a side "
+        f"{side[0]:.4f} ms ({side[1]})")
+    return out
+
+
+def k3_misaligned(dt: str):
+    """A K3_VIEW A in `dt` one element past an aligned allocation: a
+    contiguous view whose rows are not 16-byte aligned."""
+    import torch
+
+    m, w = K3_VIEW
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m + w)
+    base = torch.rand((m * w + 1,), generator=g, device="cuda").to(
+        getattr(torch, dt))
+    return base[1:].view(m, w)
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version at P3's shapes, ragged ones and a
+    misaligned view and exact widths (the kernels' scalar path, whose
+    sums must be the vector path's bit for bit); times of the loop at P3's
+    shapes and, at the hierclust root shape, of the two products at every
+    factor row count K3 takes (k = 2 is the path's; k = 8 is BPP's step,
+    which runs torch.matmul after the upcast)."""
+    import torch
+
+    from smallk_torch.kernels import rank2_loop as k3
+
+    k3_resources()
     worst_abs = worst_rel = 0.0
 
     def check(label, got, want, tol):
@@ -1444,7 +1564,64 @@ def phase_k3() -> dict:
             f"of one iteration {library:.4f} (x{k3.ITERS} = "
             f"{library * k3.ITERS:.4f}); bound {b_ms:.4f} ms ({b_by})")
 
-    # one rank-2 iteration's A-products at the hierclust root shape
+    # the scalar path, each A dtype (the loop: f32 and bf16): a view whose
+    # rows all sit one element past 16-byte alignment, whose sums must be
+    # the vector path's on an aligned copy bit for bit, and an exact-width
+    # node, whose rows each sit at their own offset; each against the plain
+    # version, and timed beside an aligned copy (the node's padded with
+    # zero columns to a multiple of 16 bytes)
+    for dt in ("float32", "bfloat16", "float8_e4m3fn"):
+        A = k3_misaligned(dt)
+        Ac = A.clone()
+        if k3.vector_path(A) or not k3.vector_path(Ac):
+            raise AssertionError("K3's vector rule misjudged the view")
+        m, w = A.shape
+        for lanes in (1, 3, 8):
+            _, Wt, H = lane_inputs(m, w, lanes, dt)
+            label = f"misaligned view m={m} w={w} A {dt} k={2 * lanes}"
+            got = (k3.wt_a(A, Wt), k3.h_at(A, H))
+            check(f"{label} wt_a", got[0], k3.wt_a_plain(A, Wt),
+                  K3_TOL["product"])
+            check(f"{label} h_at", got[1], k3.h_at_plain(A, H),
+                  K3_TOL["product"])
+            if not (torch.equal(got[0], k3.wt_a(Ac, Wt))
+                    and torch.equal(got[1], k3.h_at(Ac, H))):
+                raise AssertionError(f"K3 {label}: the scalar path's sums "
+                                     "are not the vector path's")
+        if dt != "float8_e4m3fn":
+            _, Wt, _ = k3_inputs(m, w, dt)
+            check(f"misaligned view m={m} w={w} A {dt} loop x{k3.ITERS}",
+                  k3.rank2_loop(A, Wt), k3.rank2_loop_plain(A, Wt),
+                  K3_TOL["loop"])
+        _, Wt, H = k3_inputs(m, w, dt)
+        log(f"[K3 time] m={m} w={w} A {dt} k=2, device ms wt_a + h_at: "
+            f"scalar path (misaligned view) "
+            f"{device_ms(lambda: (k3.wt_a(A, Wt), k3.h_at(A, H)), 20):.4f}, "
+            f"vector path (aligned copy) "
+            f"{device_ms(lambda: (k3.wt_a(Ac, Wt), k3.h_at(Ac, H)), 20):.4f}")
+        del A, Ac
+        m, w = K3_EXACT[dt]
+        A, Wt, H = k3_inputs(m, w, dt)
+        if k3.vector_path(A):
+            raise AssertionError("K3's vector rule misjudged an exact width")
+        label = f"exact width m={m} w={w} A {dt} k=2"
+        check(f"{label} wt_a", k3.wt_a(A, Wt), k3.wt_a_plain(A, Wt),
+              K3_TOL["product"])
+        check(f"{label} h_at", k3.h_at(A, H), k3.h_at_plain(A, H),
+              K3_TOL["product"])
+        wp = -(-w * A.element_size() // 16) * 16 // A.element_size()
+        Ap = torch.zeros((m, wp), dtype=A.dtype, device="cuda")
+        Ap[:, :w] = A
+        Hp = torch.zeros((2, wp), device="cuda")
+        Hp[:, :w] = H
+        log(f"[K3 time] {label}, device ms wt_a + h_at: scalar path "
+            f"{device_ms(lambda: (k3.wt_a(A, Wt), k3.h_at(A, H)), 20):.4f}, "
+            f"vector path (padded to w={wp}) "
+            f"{device_ms(lambda: (k3.wt_a(Ap, Wt), k3.h_at(Ap, Hp)), 20):.4f}")
+        del A, Ap
+
+    # the hierclust root: one rank-2 iteration's A-products at k = 2 (the
+    # path's), and the products at every other k K3 takes
     A, Wt, H = k3_inputs(HIER_M, HIER_N, "bfloat16")
     check(f"root m={HIER_M} w={HIER_N} A bfloat16 wt_a", k3.wt_a(A, Wt),
           k3.wt_a_plain(A, Wt), K3_TOL["product"])
@@ -1471,6 +1648,14 @@ def phase_k3() -> dict:
         f"read of A), so wt_a at {100 * bounds[0][0] / parts[0]:.1f}% and "
         f"h_at at {100 * bounds[1][0] / parts[1]:.1f}% of its bound; the "
         f"pair's bound {b_ms:.4f} ms")
+    for k in k3.ROWS[1:]:
+        _, Wt, H = lane_inputs(HIER_M, HIER_N, k // 2, "bfloat16")
+        check(f"root m={HIER_M} w={HIER_N} A bfloat16 k={k} wt_a",
+              k3.wt_a(A, Wt), k3.wt_a_plain(A, Wt), K3_TOL["product"])
+        check(f"root m={HIER_M} w={HIER_N} A bfloat16 k={k} h_at",
+              k3.h_at(A, H), k3.h_at_plain(A, H), K3_TOL["product"])
+        k3_side_times(f"m={HIER_M} w={HIER_N} A bfloat16"
+                      + (" (BPP's k = 8 step)" if k == 8 else ""), A, Wt, H)
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
             "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
             "bound_by": b_by}
@@ -1716,66 +1901,65 @@ def lane_inputs(m: int, w: int, lanes: int, dtype: str, seed: int = 0):
 
 
 def graph_k3() -> dict:
-    """(a) K3 over R lanes (2R factor rows) against its plain version at
-    GRAPH_LANES, at the graph roots and ragged shapes; at the roots each
-    product's device ms, the plain version's and torch.matmul's after the
-    upcast (one call each side), and the bound: one read of A, the factor
-    in and the product out, 4R m w operations a side."""
+    """(a) K3 over R lanes (2R factor rows) against its plain version: at
+    the graph roots for every R K3 takes, at bucket-width nodes and at
+    ragged shapes for GRAPH_LANES; at the roots and nodes each product's
+    device ms, the plain version's and torch.matmul's after the upcast (one
+    call each side), and the bound: one read of A, the factor in and the
+    product out, 4R m w operations a side."""
     import torch
 
     from smallk_torch.kernels import rank2_loop as k3
 
     worst_abs, rows = 0.0, {}
-    for m, w, dt in GRAPH_K3_RAGGED + GRAPH_K3_SHAPES:
-        for lanes in GRAPH_LANES:
-            A, Wt, H = lane_inputs(m, w, lanes, dt)
-            before = (k3.launches, k3.lane_launches)
-            got = (k3.wt_a(A, Wt), k3.h_at(A, H))
-            want = (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H))
-            torch.cuda.synchronize()
-            if (k3.launches - before[0], k3.lane_launches - before[1]) \
-                    != (2, 2 if lanes > 1 else 0):
-                raise AssertionError(f"K3 lanes R={lanes}: a wrapper did "
-                                     "not launch its kernel")
-            errs = []
-            for side, g_, w_ in zip(("wt_a", "h_at"), got, want):
-                diff = float((g_ - w_).abs().max())
-                rel = diff / max(float(w_.abs().max()), 1e-30)
-                if not (rel <= K3_TOL["product"]
-                        and bool(torch.isfinite(g_).all())):
-                    raise AssertionError(
-                        f"K3 lanes R={lanes} m={m} w={w} A {dt} {side}: "
-                        f"relative {rel:.3e} (tolerance "
-                        f"{K3_TOL['product']:g})")
-                worst_abs = max(worst_abs, diff)
-                errs.append(f"{side} {rel:.2e}")
-            label = f"m={m} w={w} A {dt} R={lanes} ({2 * lanes} rows)"
-            log(f"[graph K3] {label}: relative |kernel - plain| "
-                f"{', '.join(errs)} (tolerance {K3_TOL['product']:g})")
-            if (m, w, dt) not in GRAPH_K3_SHAPES:
-                continue
-            tn = device_ms(lambda: k3.wt_a(A, Wt), 20)
-            nt = device_ms(lambda: k3.h_at(A, H), 20)
-            plain = device_ms(lambda: (k3.wt_a_plain(A, Wt),
-                                       k3.h_at_plain(A, H)), 5)
-            library = device_ms(lambda: (
-                torch.matmul(Wt, A.to(torch.float32)),
-                torch.matmul(H, A.to(torch.float32).T)), 5)
-            a_bytes = A.numel() * A.element_size()
-            side_bound = bound(4.0 * lanes * m * w,
-                               a_bytes + 8 * lanes * (m + w))
-            b_ms, b_by = 2 * side_bound[0], side_bound[1]
-            log(f"[graph K3 time] {label}: device ms wt_a {tn:.4f}, h_at "
-                f"{nt:.4f} (pair {tn + nt:.4f}; a lane's share "
-                f"{(tn + nt) / lanes:.4f}), plain {plain:.4f}, library "
-                f"(torch.matmul after the upcast) {library:.4f}; bound a "
-                f"side {side_bound[0]:.4f} ms ({b_by}; A read once), "
-                f"wt_a at {100 * side_bound[0] / tn:.1f}% and h_at at "
-                f"{100 * side_bound[0] / nt:.1f}% of it")
-            rows[(m, w, dt, lanes)] = {
-                "ms": tn + nt, "wt_a_ms": tn, "h_at_ms": nt,
-                "plain_ms": plain, "library_ms": library, "bound_ms": b_ms,
-                "bound_by": b_by}
+    every = tuple(range(1, k3.MAX_LANES + 1))
+    cases = [(shape, lanes) for shape in GRAPH_K3_RAGGED
+             for lanes in GRAPH_LANES]
+    cases += [(shape, lanes) for shape in GRAPH_K3_SHAPES for lanes in every]
+    cases += list(GRAPH_K3_NODES)
+    for (m, w, dt), lanes in cases:
+        A, Wt, H = lane_inputs(m, w, lanes, dt)
+        before = (k3.launches, k3.lane_launches)
+        got = (k3.wt_a(A, Wt), k3.h_at(A, H))
+        want = (k3.wt_a_plain(A, Wt), k3.h_at_plain(A, H))
+        torch.cuda.synchronize()
+        if (k3.launches - before[0], k3.lane_launches - before[1]) \
+                != (2, 2 if lanes > 1 else 0):
+            raise AssertionError(f"K3 lanes R={lanes}: a wrapper did "
+                                 "not launch its kernel")
+        errs = []
+        for side, g_, w_ in zip(("wt_a", "h_at"), got, want):
+            diff = float((g_ - w_).abs().max())
+            rel = diff / max(float(w_.abs().max()), 1e-30)
+            if not (rel <= K3_TOL["product"]
+                    and bool(torch.isfinite(g_).all())):
+                raise AssertionError(
+                    f"K3 lanes R={lanes} m={m} w={w} A {dt} {side}: "
+                    f"relative {rel:.3e} (tolerance "
+                    f"{K3_TOL['product']:g})")
+            worst_abs = max(worst_abs, diff)
+            errs.append(f"{side} {rel:.2e}")
+        label = f"m={m} w={w} A {dt} R={lanes} ({2 * lanes} rows)"
+        log(f"[graph K3] {label}: relative |kernel - plain| "
+            f"{', '.join(errs)} (tolerance {K3_TOL['product']:g})")
+        if (m, w, dt) in GRAPH_K3_RAGGED:
+            continue
+        t = k3_side_times(f"graph {label}", A, Wt, H)
+        plain = device_ms(lambda: (k3.wt_a_plain(A, Wt),
+                                   k3.h_at_plain(A, H)), 5)
+        b_ms = 2 * t["side_bound_ms"]
+        log(f"[graph K3 time] {label}: device ms wt_a {t['wt_a_ms']:.4f}, "
+            f"h_at {t['h_at_ms']:.4f} (pair {t['ms']:.4f}; a lane's share "
+            f"{t['ms'] / lanes:.4f}), plain {plain:.4f}, library "
+            f"(torch.matmul after the upcast) {t['library_ms']:.4f}; bound "
+            f"a side {t['side_bound_ms']:.4f} ms ({t['bound_by']}; A read "
+            f"once), wt_a at {100 * t['side_bound_ms'] / t['wt_a_ms']:.1f}% "
+            f"and h_at at {100 * t['side_bound_ms'] / t['h_at_ms']:.1f}% of "
+            "it")
+        rows[(m, w, dt, lanes)] = {
+            "ms": t["ms"], "wt_a_ms": t["wt_a_ms"], "h_at_ms": t["h_at_ms"],
+            "plain_ms": plain, "library_ms": t["library_ms"],
+            "bound_ms": b_ms, "bound_by": t["bound_by"]}
     return {"max_abs_err": worst_abs, "rows": rows}
 
 
@@ -1888,7 +2072,8 @@ def graph_launch_gate(label: str, counts: dict, lanes: int) -> None:
 def graph_community(card: str, Gn, labels) -> dict:
     """(c) the community cell, bench.py:222-252: graph_clust_options(20),
     f32, the operand built once, engine seeds GRAPH_SEEDS; then restarts 1
-    against 3 on the same seeds, in turns (1, 3, 3, 1)."""
+    against 3 on the same seeds, in turns (3, 1, 3) with the run above
+    (depth cut from (1, 3, 3, 1) after it to keep the full run's time)."""
     from smallk_torch.engines.graph import graph_clust_options
     from smallk_torch.ops.aop import as_aop
 
@@ -1912,7 +2097,7 @@ def graph_community(card: str, Gn, labels) -> dict:
     if not (med >= GRAPH_NMI_MEDIAN and worst >= GRAPH_NMI_WORST):
         raise AssertionError(f"community NMI median {med}, worst {worst}")
     turns = {}
-    for restarts in (1, 3, 3, 1):
+    for restarts in (1, 3):
         o = dataclasses.replace(opts, restarts=restarts)
         r = graph_runs(op, o, GRAPH_SEEDS, labels)
         graph_launch_gate(f"community cell, restarts {restarts}",
@@ -2089,6 +2274,12 @@ def graph_busy(card: str) -> None:
 def graph_study(card: str) -> None:
     phase_graph(card)
     graph_busy(card)
+
+
+def k3_study(card: str) -> None:
+    """--k3: K3's checks and times alone (phase K3, phase graph (a))."""
+    phase_k3()
+    graph_k3()
 
 
 def ell_inputs(g: int, L: int, B: int, k: int, vals_dtype: str,
@@ -3120,6 +3311,11 @@ def profile_summary(prof, wall: float, label: str) -> float:
     for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile]   {ns / 1e6:10.3f} ms {100 * ns / max(total, 1):6.2f}"
             f"%  {name[:90]}")
+    k3_ns = sum(ns for name, ns in by_name.items() if any(
+        k in name for k in K3_KERNELS))
+    log(f"[profile]   K3 (its products and their split sums): "
+        f"{k3_ns / 1e6:.3f} ms, {100 * k3_ns / max(total, 1):.2f}% of the "
+        "device time")
     return share
 
 
@@ -5919,7 +6115,8 @@ def phase_fp8(card: str) -> dict:
     rel = max(float((g - p).abs().max() / p.abs().max())
               for g, p in zip(got, want))
     err = max(float((g - p).abs().max()) for g, p in zip(got, want))
-    if rel > K3_TOL["product"]:
+    if not (rel <= K3_TOL["product"]
+            and all(bool(torch.isfinite(g).all()) for g in got)):
         raise AssertionError(f"K3 e4m3 products: relative {rel}")
     one = bound(4.0 * m * w, A.numel() + 8 * (m + w))
     rows["K3"] = {
@@ -5930,6 +6127,16 @@ def phase_fp8(card: str) -> dict:
         "library_ms": device_ms(lambda: (
             torch.matmul(Wt, A.float()), torch.matmul(H, A.float().T)), 10),
         "bound_ms": 2 * one[0], "bound_by": one[1]}
+    k3_side_times(f"m={m} w={w} A {f8}", A, Wt, H)
+    for k in k3.ROWS[1:]:
+        _, Wt, H = lane_inputs(m, w, k // 2, f8)
+        for side, g, p in (("wt_a", k3.wt_a(A, Wt), k3.wt_a_plain(A, Wt)),
+                           ("h_at", k3.h_at(A, H), k3.h_at_plain(A, H))):
+            rel = float((g - p).abs().max() / p.abs().max())
+            if not (rel <= K3_TOL["product"]
+                    and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"K3 e4m3 {side} k={k}: relative {rel}")
+        k3_side_times(f"m={m} w={w} A {f8}", A, Wt, H)
     # K2: one HALS step at the flatclust shape
     args = k2_inputs(FLAT_M, FLAT_N, FLAT_K, torch.float8_e4m3fn)
     out = k2.hals_step(*args)
@@ -6749,7 +6956,8 @@ def main() -> int:
                "--cg": cg_study, "--facade": facade_study,
                "--loop": loop_study, "--ladder": ladder_study,
                "--slice": slice_study, "--sparse-chain": sparse_chain_study,
-               "--mesh": phase_mesh, "--graph": graph_study}
+               "--mesh": phase_mesh, "--graph": graph_study,
+               "--k3": k3_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))

@@ -151,6 +151,17 @@ def bucket_width(size: int, n: int):
     return w if w < n else None
 
 
+def row_width(size: int, A) -> int:
+    """The width a dense subset of `size` documents past the ladder is
+    gathered at: on the card, `size` rounded up to a whole number of 16
+    bytes a row of A, so that K3's products take their aligned loads (the
+    extra columns are zero, as a bucket's padding); on the CPU, `size`."""
+    if not A.is_cuda:
+        return size
+    per = 16 // np.gcd(16, A.element_size())
+    return -(-size // per) * per
+
+
 def gather_columns(A, idx, width: int, out=None):
     """A's columns at `idx` (s,), then width - s zero columns: an (m, width)
     tensor, written into `out` if given.  An e4m3 A is gathered as its
@@ -335,13 +346,16 @@ class _Rank2Runner:
 
     def dense_operand(self, idx, width):
         """(operand, kept graphs) of a dense subset at `idx`: A's columns
-        padded with zero columns to `width` (None: its exact width).  With
+        padded with zero columns to `width` (None: its exact width, on the
+        card padded to whole 16-byte rows, `row_width`, but in an initdir
+        run, whose H initializers come at the subset's width).  With
         KEEP_GRAPHS a bucket's subset is gathered into the width's buffer
         and comes with the graphs kept on it (the operand stays valid until
         the next subset of that width); else it is a tensor of its own and
         its solve keeps no graph."""
         if width is None or not KEEP_GRAPHS:
-            w = width or idx.shape[0]
+            w = width or (idx.shape[0] if self.inits.initdir
+                          else row_width(idx.shape[0], self.a_op.A))
             return DenseAOp(gather_columns(self.a_op.A, idx, w)), None
         slot = self.slots.get(width)
         if slot is None:

@@ -26,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "smallk_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # each kernel's registers, shared memory and spills, kept in the
+    # build's log (`build_log`)
+    "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -50,14 +53,17 @@ SIGNATURES = {
         "smallk_hals_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "rank2_loop": {
-        # A, Wt, out, partial, m, w, k, slabs, rows, stream, device
-        **{f"smallk_wt_a_{t}": ((_P,) * 4 + (_I,) * 5 + (_P, _I), _I)
+        # A, Wt, out, partial, m, w, k, slabs, rows a slab, vec, stream,
+        # device
+        **{f"smallk_wt_a_{t}": ((_P,) * 4 + (_I,) * 6 + (_P, _I), _I)
            for t in ("f32", "bf16", "f8")},
-        # A, H, out, m, w, k, stream, device
-        **{f"smallk_h_at_{t}": ((_P,) * 3 + (_I,) * 3 + (_P, _I), _I)
+        # A, H, out, m, w, k, splits, cols a split, vec, stream, device
+        **{f"smallk_h_at_{t}": ((_P,) * 3 + (_I,) * 6 + (_P, _I), _I)
            for t in ("f32", "bf16", "f8")},
-        "smallk_rank2_loop_f32": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
-        "smallk_rank2_loop_bf16": ((_P,) * 6 + (_I,) * 5 + (_P, _I), _I),
+        # A, Wt, H, Wn, wt_a's partial, maxbits, m, w, iters, slabs, rows a
+        # slab, splits, cols a split, vec, stream, device
+        **{f"smallk_rank2_loop_{t}": ((_P,) * 6 + (_I,) * 8 + (_P, _I), _I)
+           for t in ("f32", "bf16")},
         "smallk_rank2_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "ell_spmm": {
@@ -145,11 +151,18 @@ def build(name: str, defines=()) -> Path:
             raise RuntimeError(
                 f"nvcc failed building {name} (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(name: str, defines=()) -> str:
+    """nvcc's output for library `name` (ptxas's lines for each kernel),
+    building it first if needed."""
+    return build(name, defines).with_suffix(".log").read_text()
 
 
 def load_library(name: str, defines=()) -> ctypes.CDLL:

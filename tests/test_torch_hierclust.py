@@ -344,3 +344,42 @@ def test_cli_graph_preset(tmp_path, capsys):
     with open(tmp_path / "assignments_3.csv") as f:
         assign = np.array([int(v) for v in f.readline().split(",")])
     assert nmi(assign, labels) > 0.9
+
+
+@pytest.mark.parametrize("restarts", [1, 3])
+def test_padded_exact_width_nodes_keep_the_tree(restarts, monkeypatch):
+    """A dense node past the bucket ladder is gathered at `row_width`
+    (on the card: whole 16-byte rows, so that K3 takes its aligned loads):
+    its zero columns leave the tree as it is at the exact width.  Forced
+    here on the CPU, 13 zero columns a node, in f64."""
+    from types import SimpleNamespace
+
+    from smallk_torch.common import options as topt
+    from smallk_torch.engines import hierclust as hc
+    from smallk_torch.engines.tree import _host
+
+    card = lambda item: SimpleNamespace(is_cuda=True,  # noqa: E731
+                                        element_size=lambda: item)
+    assert [hc.row_width(2999, card(i)) for i in (4, 2, 1, 8)] == \
+        [3000, 3000, 3008, 3000]
+    assert hc.row_width(7983, card(2)) == 7984
+    assert hc.row_width(2999, torch.zeros(1, 1)) == 2999
+    A, _ = _corpus()
+    opts = _random_opts(topt, 5, restarts=restarts)
+    want, wstats = clust_hier(A, opts, Random(2), device="cpu")
+    widths = []
+
+    def padded(size, A):
+        widths.append(size)
+        return size + 13
+
+    monkeypatch.setattr(hc, "row_width", padded)
+    got, stats = clust_hier(A, opts, Random(2), device="cpu")
+    assert widths and stats.nmf_count == wstats.nmf_count
+    np.testing.assert_array_equal(got.assignments, want.assignments)
+    for a, b in zip(got.nodes, want.nodes):
+        assert (a.topic_vector is None) == (b.topic_vector is None)
+        if a.topic_vector is not None:
+            np.testing.assert_allclose(_host(a.topic_vector),
+                                       _host(b.topic_vector),
+                                       rtol=0, atol=1e-9)

@@ -336,13 +336,13 @@ def test_lane_loop_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("lanes", range(1, k3.MAX_LANES + 1))
 @pytest.mark.parametrize("a_dtype", sorted(A_DTYPES))
 def test_cuda_lane_kernel_matches_plain(a_dtype, lanes):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     rng = np.random.RandomState(lanes)
-    for m, w in ((257, 130), (3000, 3000), (100, 3)):
+    for m, w in ((257, 130), (3000, 3000), (3000, 1024), (100, 3)):
         A = torch.from_numpy(rng.rand(m, w).astype(np.float32)).to(
             A_DTYPES[a_dtype]).cuda()
         Wt = torch.rand((2 * lanes, m), device="cuda")
