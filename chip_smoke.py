@@ -26,11 +26,12 @@ fails (nonzero exit, no result line) on any fault:
      still not optimal;
   6. the BPP main path at full width: the 12411 x 7984 Reuters shape, 80
      nnz per column, k = 8, bf16 A, f32 factors, 100 fixed iterations, at
-     the auto U, so captured: each step a CUDA graph whose pivot rounds
-     are nested conditional IF nodes (solvers/graph.py, csrc/graph_if.cu);
-     the graphs, capture and instantiation ms, host reads and pivot
-     rounds run printed, and K1's launches exactly 2 a step run and one a
-     round run;
+     the auto U, so captured: each step a CUDA graph whose two pivot
+     loops are conditional WHILE nodes (solvers/graph.py,
+     csrc/graph_if.cu); the graphs, their nodes, capture and instantiation
+     ms, host reads and pivot rounds run printed, bits equal to the same
+     run eager, and K1's launches exactly 2 a step run and one a round
+     run;
   7. the flatclust HALS path at full width: the reference's flatclust
      configuration (dense 256 x 256 UNIFORM, k = 16, tol 1e-4) through
      run_flatclust, with K2's launches counted over that run; HALS it/s
@@ -101,8 +102,9 @@ fails (nonzero exit, no result line) on any fault:
      against f64 on the host; profiling.block_and_time on a K1 call
      against device_ms, and a device_trace of K1 calls (in a process of
      its own); each entry point's wall beside the direct call's;
- 18. BPP at k = 160 (the masked CG tier's) on the main path's operand, the
-     CG solves and steps counted, and f64 on a slice against the CPU;
+ 18. BPP at k = 160 (the masked CG tier's) on the main path's operand,
+     captured (its CG loops WHILE nodes, inside the pivot loops' bodies)
+     and eager, bit-equal, the CG solves and steps counted, and f64 on a slice against the CPU;
  19. the nmf, flatclust and hierclust CLIs as subprocesses, the nmf and
      hierclust CLIs on a 30000 x 20000 .mtx above the densify threshold
      (EllAOp), and the five CLIs chained: matrixgen -> preprocess_tf ->
@@ -237,6 +239,12 @@ runs only the GJ/CG crossover: one full-width pivot round through K1 and
 through the CG tier (cold and warm-started), k = 32..128, n = 12,411,
 50,000 and 1,000,000.
 
+    python3 chip_smoke.py --bpp
+
+runs only the captured BPP step's phases: 6 (the main path at k = 8),
+18 (k = 160, the CG tier) and --loop's BPP sweep (k = 8 to 160 and the
+short solve, eager against captured).
+
     python3 chip_smoke.py --facade
 
 runs only phases 16, 17 and the CLI chain of 19, with the flagship's MU
@@ -249,10 +257,11 @@ hierclust, sparse hierclust, Reuters BPP at 100 iterations and to a tol,
 and three MU solves that converge (the main path's operand at k = 8, the
 flagship's at k = 16 and 128), eager at U = 1 and with one step replayed
 U times at U = 2, 4, 8, 16, 32 (what solvers/solve.AUTO_UNROLL and
-MU_ONE_STEP_ENTRIES are set from); then Reuters BPP at k = 8 to 128,
-eager at U = 1 and captured at BPP's auto U, with each graph's capture
-and instantiation ms and memory (what graph.BPP_CAPTURE_MAX_K is set
-from).
+MU_ONE_STEP_ENTRIES are set from); then Reuters BPP at k = 8 to 160,
+eager at U = 1 and captured at BPP's auto U, with each graph's nodes,
+capture and instantiation ms and memory (what graph.bpp_captures's rule
+is set from), and the short solve: BPP at k = 16, 10 iterations, on the
+50,000 x 40,000 EllAOp (phase 23b's), eager against captured.
 
     python3 chip_smoke.py --slice
 
@@ -485,10 +494,11 @@ EMB_QUERIES, EMB_TOPK, EMB_TIE, EMB_RTOL = 64, 10, 1e-6, 1e-5
 LOOP_ORDER = (False, True, True, False)
 LOOP_UNROLLS = (1, 2, 4, 8, 16, 32)
 # the --loop sweep's MU cells and its Reuters BPP cell to a tol converge
-# after these many iterations; its BPP ranks (BPP_CAPTURE_MAX_K's sweep)
+# after these many iterations; its BPP ranks (graph.bpp_captures's sweep;
+# 160 the CG tier's)
 LOOP_MU_FIXED = 91
 LOOP_BPP_FIXED = 91
-LOOP_BPP_KS = (8, 16, 32, 64, 128)
+LOOP_BPP_KS = (8, 16, 32, 64, 128, 160)
 SPH_NMI = 0.912
 
 # the chain phase (engines/hier_chain.py): Reuters hierclust on the
@@ -621,12 +631,14 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 def reset_counts() -> None:
     """Every kernel's launch count, the product branch counts and the solve
     loop's counts (steps run, host reads, frozen steps, solves, graphs
-    captured and replayed) to 0, just before a path is driven."""
+    captured and replayed) and the CG tier's to 0, just before a path is
+    driven."""
     from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
                                       rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
-    from smallk_torch.solvers import bpp, graph, solve
+    from smallk_torch.solvers import bpp, graph, nnls, solve
 
+    nnls.cg_solves = nnls.cg_steps = 0
     seg_spmm.launches = seg_spmm.plain_cuda_calls = 0
     masked_gj.launches = 0
     masked_gj.columns = 0
@@ -649,16 +661,17 @@ def read_counts() -> dict:
     ell_spmm (and ell_spmm's transposed ones) and seg_spmm, the columns
     K1 solved, ell_spmm's and seg_spmm's plain-version calls on CUDA
     tensors, the dense products that went to K3 and to torch.matmul, and
-    the solve loop's counts (BPP's pivot rounds run among them), since the
-    last reset_counts().  Launches replayed from a CUDA graph count once a
-    replay, and those in its IF bodies once a body that ran
-    (solvers/graph.py)."""
+    the solve loop's counts (BPP's pivot rounds run among them) and the CG
+    tier's solves and steps, since the last reset_counts().  Launches
+    replayed from a CUDA graph count once a replay, and those in its WHILE
+    bodies once a trip (solvers/graph.py)."""
     from smallk_torch.kernels import (ell_spmm, hals_step, masked_gj,
                                       rank2_loop, seg_spmm)
     from smallk_torch.ops import aop
-    from smallk_torch.solvers import bpp, graph, solve
+    from smallk_torch.solvers import bpp, graph, nnls, solve
 
     return {"K1": masked_gj.launches, "K1_columns": masked_gj.columns,
+            "cg_solves": nnls.cg_solves, "cg_steps": nnls.cg_steps,
             "K2": hals_step.launches,
             "K3": rank2_loop.launches,
             "K3_lanes": rank2_loop.lane_launches,
@@ -679,6 +692,13 @@ def k1_gate(counts: dict) -> bool:
     """K1 launches exactly 2 a BPP step run (its two NNLS problems' first
     solves) and one a pivot round run, frozen steps' too."""
     return counts["K1"] == 2 * counts["steps"] + counts["rounds_run"]
+
+
+def cg_gate(counts: dict) -> bool:
+    """Above K1's rank limit: no K1 launch, and CG solves exactly 2 a BPP
+    step run and one a pivot round run, frozen steps' too."""
+    return counts["K1"] == 0 and counts["cg_solves"] == (
+        2 * counts["steps"] + counts["rounds_run"])
 
 
 def k3_want(counts: dict) -> tuple[int, int]:
@@ -1062,16 +1082,18 @@ def phase_nnls_parity() -> None:
         raise AssertionError(f"nnls parity: K1 counts {cc}, cpu {ch}")
 
 
-def if_node_line() -> str:
-    """torch's version and the IF-node path the captured BPP step takes."""
+def while_node_line() -> str:
+    """torch's version and the WHILE-node path the captured BPP step
+    takes."""
     import torch
 
-    binding = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
-    return (f"[graph] torch {torch.__version__}: IF nodes from "
+    binding = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_while_loop")
+    return (f"[graph] torch {torch.__version__}: WHILE nodes from "
             f"smallk_torch/csrc/graph_if.cu (torch's own binding "
-            f"{'present, unused' if binding else 'absent'}); IF bodies' "
+            f"{'present, unused' if binding else 'absent'}); WHILE bodies' "
             f"allocations through "
-            f"torch._C._cuda_beginAllocateCurrentStreamToPool")
+            f"torch._C._cuda_beginAllocateCurrentStreamToPool, a pool a "
+            f"level of nesting")
 
 
 def main_problem():
@@ -1094,7 +1116,7 @@ def phase_main_path(card: str) -> dict:
     from smallk_torch.engines.nmf import run_nmf
     from smallk_torch.ops.aop import as_aop
     from smallk_torch.ops.dense import relative_fnorm
-    from smallk_torch.solvers import solve
+    from smallk_torch.solvers import graph, solve
 
     A, W0, H0 = main_problem()
     opts = NmfOptions(tol=1e-30, algorithm=NmfAlgorithm.BPP, height=M,
@@ -1120,7 +1142,11 @@ def phase_main_path(card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     capture_s, _ = graph_seconds()
+    nodes = graph.last_nodes
     launches, k2_launches = counts["K1"], counts["K2"]
+    with patched(graph, "CAPTURE", False):
+        We, He, oke = run_nmf(A, W0, H0, opts, device="cuda")
+    same = oke and np.array_equal(W, We) and np.array_equal(H, He)
 
     rel = rel_err(W, H)
     its = stats.iteration_count / (stats.elapsed_us / 1e6)
@@ -1130,11 +1156,14 @@ def phase_main_path(card: str) -> dict:
         f"rel err {rel:.6f} (after 1 iteration {rel1:.6f})")
     log(f"[main] {its:.2f} it/s (solve {stats.elapsed_us / 1e6:.4f} s, "
         f"run_nmf wall {wall:.4f} s) on {card}")
-    log(f"[main] at the auto U = {unroll}: graphs {counts['captures']}, "
-        f"capture + instantiate {1e3 * capture_s:.1f} ms, host reads "
+    log(f"[main] at the auto U = {unroll}: graphs {counts['captures']} "
+        f"({nodes} nodes, WHILE bodies' included), capture + instantiate "
+        f"{1e3 * capture_s:.1f} ms, host reads "
         f"{counts['host_reads']}, steps run {counts['steps']}, pivot rounds "
         f"run {counts['rounds_run']}; K1 {launches} = 2 x {counts['steps']}"
-        f" + {counts['rounds_run']}: {k1_gate(counts)}")
+        f" + {counts['rounds_run']}: {k1_gate(counts)}; W and H "
+        f"{'equal' if same else 'DIFFERENT'} to the same run eager on "
+        f"{card}")
     if not (ok and ok1):
         raise AssertionError("main-path run failed")
     if stats.iteration_count != ITERS:
@@ -1163,8 +1192,11 @@ def phase_main_path(card: str) -> dict:
     if not k1_gate(counts) or counts["rounds_run"] != stats.pivot_rounds:
         raise AssertionError(f"main path K1 gate: {counts}, "
                              f"{stats.pivot_rounds} pivot rounds")
+    if not same:
+        raise AssertionError("main path: captured differs from eager")
     return {"launches": launches, "it_per_s": its,
-            "capture_ms": 1e3 * capture_s, "counts": counts}
+            "capture_ms": 1e3 * capture_s, "nodes": nodes,
+            "counts": counts}
 
 
 def rel_err(A, W, H) -> float:
@@ -4187,13 +4219,16 @@ def phase_sparse_dense(card: str) -> None:
 
 def phase_bpp_wide(card: str) -> dict:
     """BPP at k = BPP_WIDE_K (> 128, the CG tier's) on the main path's
-    Reuters-shape operand: BPP_WIDE_ITERS fixed iterations on the card
-    with the CG solves and steps counted, no K1 launch; and f64 on a slice,
-    3 iterations, the card against the CPU with the CG tier forced."""
+    Reuters-shape operand: BPP_WIDE_ITERS fixed iterations on the card at
+    the auto U, captured (every CG loop a WHILE node) and eager, bit for
+    bit, with the CG solves and steps counted (the captured ones settled
+    from the card at the loop's host reads), no K1 launch; and f64 on a
+    slice, 3 iterations, the card against the CPU with the CG tier
+    forced."""
     from smallk_torch import (NmfAlgorithm, NmfOptions, NmfStats, Random,
                               random_matrix, random_sparse_matrix)
     from smallk_torch.engines.nmf import run_nmf
-    from smallk_torch.solvers import nnls
+    from smallk_torch.solvers import graph, nnls
 
     k = BPP_WIDE_K
     rng = Random(2024)
@@ -4206,28 +4241,44 @@ def phase_bpp_wide(card: str) -> dict:
                       verbose=False, a_dtype="bfloat16")
     W1, H1, ok1 = run_nmf(A, W0, H0, dataclasses.replace(opts, max_iter=1),
                           device="cuda")
-    stats = NmfStats()
-    reset_counts()
-    nnls.cg_solves = nnls.cg_steps = 0
-    W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
-    counts = read_counts()
-    solves, steps = nnls.cg_solves, nnls.cg_steps
+    runs = {}
+    for capture in (True, False):
+        stats = NmfStats()
+        with patched(graph, "CAPTURE", capture):
+            reset_counts()
+            W, H, ok = run_nmf(A, W0, H0, opts, stats, device="cuda")
+            counts = read_counts()
+        runs[capture] = (W, H, ok, stats, counts)
+        its = stats.iteration_count / (stats.elapsed_us / 1e6)
+        log(f"[bpp k={k}] {M}x{N} bf16 A, f32 factors, {BPP_WIDE_ITERS} "
+            f"iterations, {'captured' if capture else 'eager'} (graphs "
+            f"{counts['captures']}, {graph.last_nodes if capture else 0} "
+            f"nodes): success={ok}, {its:.3f} it/s, pivot rounds "
+            f"{stats.pivot_rounds}, CG solves {counts['cg_solves']}, CG "
+            f"steps {counts['cg_steps']}, K1 launches {counts['K1']} on "
+            f"{card}")
+        if not (ok and ok1) or stats.iteration_count != BPP_WIDE_ITERS:
+            raise AssertionError("BPP through the CG tier failed")
+        if not cg_gate(counts) or counts["captures"] != capture:
+            raise AssertionError(f"BPP k={k}: {counts}")
+    W, H, _, stats, counts = runs[True]
+    We, He, _, estats, ecounts = runs[False]
+    same = (np.array_equal(W, We) and np.array_equal(H, He)
+            and stats.pivot_rounds == estats.pivot_rounds)
     A64 = A.toarray()
     rel, rel1 = rel_err(A64, W, H), rel_err(A64, W1, H1)
     its = stats.iteration_count / (stats.elapsed_us / 1e6)
-    log(f"[bpp k={k}] {M}x{N} bf16 A, f32 factors, {BPP_WIDE_ITERS} "
-        f"iterations: success={ok}, {its:.3f} it/s, pivot rounds "
-        f"{stats.pivot_rounds}, CG solves {solves}, CG steps {steps}, K1 "
-        f"launches {counts['K1']}, rel err {rel:.6f} (after 1 iteration "
-        f"{rel1:.6f}) on {card}")
-    if not (ok and ok1) or stats.iteration_count != BPP_WIDE_ITERS:
-        raise AssertionError("BPP through the CG tier failed")
+    log(f"[bpp k={k}] captured W and H {'equal' if same else 'DIFFERENT'} "
+        f"to eager's bits; rel err {rel:.6f} (after 1 iteration "
+        f"{rel1:.6f})")
     for name, F in (("W", W), ("H", H)):
         if not np.isfinite(F).all() or (F < 0).any():
             raise AssertionError(f"{name} is not finite and nonnegative")
-    if not rel < rel1 or counts["K1"] or solves < 2 * BPP_WIDE_ITERS:
+    if not (same and rel < rel1) or counts["cg_solves"] != \
+            ecounts["cg_solves"] or counts["cg_steps"] > ecounts["cg_steps"]:
         raise AssertionError(f"BPP k={k}: rel err {rel} (1 iteration "
-                             f"{rel1}), K1 {counts['K1']}, CG solves {solves}")
+                             f"{rel1}), captured {counts}, eager {ecounts}")
+    solves, steps = counts["cg_solves"], counts["cg_steps"]
 
     m, n = BPP_WIDE_SLICE
     A_s = A64[:m, :n]
@@ -5252,10 +5303,12 @@ def loop_bpp_cell(k: int = K, tol_at=None):
     the card, at k = K (the main path's draws) or another k (draws from
     Random(k)).  `tol_at`: to a tol instead, the PG ratio after that many
     iterations of a fixed run at U = 1, with checks from that iteration
-    on, so that every run converges there.  Gated exactly on K1."""
+    on, so that every run converges there.  Gated exactly on K1 (on the
+    CG solves above K1's rank limit)."""
     import torch
 
     from smallk_torch import NmfAlgorithm, NmfOptions, Random
+    from smallk_torch.kernels import masked_gj
     from smallk_torch.ops.aop import as_aop
     from smallk_torch.solvers.solve import nmf_solve
 
@@ -5285,7 +5338,8 @@ def loop_bpp_cell(k: int = K, tol_at=None):
                 "bits": (r.W, r.H, np.asarray(r.pivot_rounds))}
 
     def gate(counts, out):
-        if not k1_gate(counts) or counts["K2"] or counts["K3"] \
+        solves = k1_gate if k <= masked_gj.MAX_K else cg_gate
+        if not solves(counts) or counts["K2"] or counts["K3"] \
                 or counts["steps"] < out["iterations"] \
                 or counts["rounds_run"] < out["rounds"]:
             raise AssertionError(f"loop Reuters BPP k={k}: {counts}")
@@ -5732,26 +5786,34 @@ def loop_study(card: str) -> None:
     bpp_rank_sweep(card)
 
 
+def bpp_study(card: str) -> None:
+    """--bpp: phases 6 and 18, then the BPP sweep of --loop."""
+    phase_main_path(card)
+    phase_bpp_wide(card)
+    bpp_rank_sweep(card)
+
+
 def bpp_rank_sweep(card: str) -> None:
     """Reuters BPP (ITERS fixed iterations) at each k of LOOP_BPP_KS, eager
-    at U = 1 and captured at BPP's auto U with graph.BPP_CAPTURE_MAX_K
-    lifted, in turns E, C, C, E: walls, each graph's capture and
-    instantiation ms and the peak device memory of the run (what
-    BPP_CAPTURE_MAX_K is set from)."""
+    at U = 1 and captured at BPP's auto U, in turns E, C, C, E: walls, each
+    graph's nodes (its WHILE bodies' included), capture and instantiation
+    ms, and the peak device memory of the run (what graph.bpp_captures's
+    rule is set from); then the short solve (bpp_short_cell) the same
+    way."""
     import torch
 
     from smallk_torch.common.options import NmfAlgorithm
     from smallk_torch.solvers import graph, solve
 
     unroll = solve.AUTO_UNROLL[NmfAlgorithm.BPP]
-    for k in LOOP_BPP_KS:
-        run, gate = loop_bpp_cell(k)
+
+    def turns(label, run, gate):
         run(1)  # warm-up
         rows = {False: [], True: []}
         for capture in LOOP_ORDER:
-            with patched(graph, "CAPTURE", capture), \
-                    patched(graph, "BPP_CAPTURE_MAX_K", 1 << 30):
+            with patched(graph, "CAPTURE", capture):
                 reset_counts()
+                graph.last_nodes = None
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
@@ -5762,23 +5824,67 @@ def bpp_rank_sweep(card: str) -> None:
                 capture_s, _ = graph_seconds()
             gate(c, out)
             if c["captures"] != capture:
-                raise AssertionError(f"BPP k={k}: {c['captures']} graphs")
+                raise AssertionError(f"{label}: {c['captures']} graphs")
             rows[capture].append((wall, 1e3 * capture_s,
-                                  torch.cuda.max_memory_allocated() / 2**20))
-        log(f"[loop sweep] Reuters BPP k={k}, {ITERS} iterations, "
+                                  torch.cuda.max_memory_allocated() / 2**20,
+                                  graph.last_nodes))
+        log(f"[loop sweep] {label}, {out['iterations']} iterations, "
             f"{out['rounds']} pivot rounds: eager U=1 wall "
-            + ", ".join(f"{w:.4f}" for w, _, _ in rows[False])
+            + ", ".join(f"{w:.4f}" for w, _, _, _ in rows[False])
             + f" s; captured U={unroll} wall "
-            + ", ".join(f"{w:.4f}" for w, _, _ in rows[True])
+            + ", ".join(f"{w:.4f}" for w, _, _, _ in rows[True])
             + " s, capture + instantiate "
-            + ", ".join(f"{t:.1f}" for _, t, _ in rows[True])
-            + " ms; peak memory eager "
-            + ", ".join(f"{p:.0f}" for _, _, p in rows[False])
+            + ", ".join(f"{t:.1f}" for _, t, _, _ in rows[True])
+            + " ms, nodes "
+            + ", ".join(str(n) for _, _, _, n in rows[True])
+            + "; peak memory eager "
+            + ", ".join(f"{p:.0f}" for _, _, p, _ in rows[False])
             + " MiB, captured "
-            + ", ".join(f"{p:.0f}" for _, _, p in rows[True])
+            + ", ".join(f"{p:.0f}" for _, _, p, _ in rows[True])
             + f" MiB on {card}")
+
+    for k in LOOP_BPP_KS:
+        run, gate = loop_bpp_cell(k)
+        turns(f"Reuters BPP k={k}", run, gate)
         del run, gate
         torch.cuda.empty_cache()
+    turns("short BPP: k={2}, {3} iterations on the {0}x{1} "
+          "EllAOp".format(*MESH_ELL), *bpp_short_cell())
+    torch.cuda.empty_cache()
+
+
+def bpp_short_cell():
+    """BPP at k = 16, 10 fixed iterations (MESH_ELL) on phase 23b's sparse
+    50,000 x 40,000 EllAOp (bf16 A, f32 factors from MESH_SEED): a short
+    solve, in which a graph's capture weighs the most.  (run, gate) as
+    loop_bpp_cell's; K1 gated exactly."""
+    import torch
+
+    from smallk_torch.ops.aop import as_aop
+    from smallk_torch.solvers.solve import nmf_solve
+
+    me, ne, ke, ie = MESH_ELL
+    A, _, _ = sparse_corpus(ne)
+    rng = np.random.RandomState(MESH_SEED)
+    op = as_aop(A, "bfloat16", device="cuda")
+    W = torch.from_numpy(rng.rand(me, ke).astype(np.float32)).cuda()
+    H = torch.from_numpy(rng.rand(ke, ne).astype(np.float32)).cuda()
+    opts = dataclasses.replace(mesh_nmf_opts("BPP", me, ne, "float32", ie),
+                               k=ke, a_dtype="bfloat16")
+    if type(op).__name__ != "EllAOp":
+        raise AssertionError("the short BPP cell is not on EllAOp")
+
+    def run(unroll=0):
+        r = nmf_solve(op, W, H, dataclasses.replace(opts, loop_unroll=unroll))
+        if not r.success or r.iterations != ie:
+            raise AssertionError(f"short BPP stopped after {r.iterations}")
+        return {"iterations": r.iterations, "rounds": r.pivot_rounds}
+
+    def gate(counts, out):
+        if not k1_gate(counts) or counts["steps"] < out["iterations"]:
+            raise AssertionError(f"short BPP: {counts}")
+
+    return run, gate
 
 
 def trees_identical(a, sa, b, sb) -> str | None:
@@ -6160,7 +6266,7 @@ def phase_fp8(card: str) -> dict:
     got = kell.ell_spmm(idx, vals, table, buf).clone()
     want = kell.ell_spmm_reference(idx, vals, table, buf.clone())
     rel = float((got - want).abs().max() / want.abs().max())
-    if rel > ELL_TOL["float32"]:
+    if not (rel <= ELL_TOL["float32"] and bool(torch.isfinite(got).all())):
         raise AssertionError(f"ell_spmm e4m3: relative {rel}")
     csr = torch.sparse_coo_tensor(
         torch.stack([torch.arange(G, device="cuda").repeat_interleave(L),
@@ -6938,7 +7044,7 @@ def main() -> int:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    log(if_node_line())
+    log(while_node_line())
     secs = {}
 
     def timed(name, fn, *args):
@@ -6957,7 +7063,7 @@ def main() -> int:
                "--loop": loop_study, "--ladder": ladder_study,
                "--slice": slice_study, "--sparse-chain": sparse_chain_study,
                "--mesh": phase_mesh, "--graph": graph_study,
-               "--k3": k3_study}
+               "--k3": k3_study, "--bpp": bpp_study}
     if len(sys.argv) == 2 and sys.argv[1] in studies:
         timed(f"{sys.argv[1][2:]} study", studies[sys.argv[1]], card)
         log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))

@@ -92,9 +92,14 @@ SIGNATURES = {
         "smallk_seg_cuda_error_string": ((_I,), ctypes.c_char_p),
     },
     "graph_if": {
-        # from stream, pred, body stream, device
-        "smallk_if_begin": ((_P, _P, _P, _I), _I),
-        "smallk_if_end": ((_P, _I), _I),
+        # from stream, pred, body stream, device, handle (written back)
+        "smallk_while_begin": ((_P, _P, _P, _I,
+                                ctypes.POINTER(ctypes.c_ulonglong)), _I),
+        # body stream, pred, handle, device
+        "smallk_while_end": ((_P, _P, ctypes.c_ulonglong, _I), _I),
+        # stream, device, nodes (written back)
+        "smallk_capture_nodes": ((_P, _I,
+                                  ctypes.POINTER(ctypes.c_ulonglong)), _I),
         "smallk_stream_create": ((ctypes.POINTER(_P), _I), _I),
         "smallk_if_cuda_error_string": ((_I,), ctypes.c_char_p),
     },

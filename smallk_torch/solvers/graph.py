@@ -22,27 +22,33 @@ fixed address and shape: dense hierclust keeps one a bucket width
 later solve at that width copies its state into the graph's buffers
 (`load`) and replays it.
 
-BPP's step holds two pivot loops whose trip counts are device values, as
-the JAX package's lax.while_loop (smallk_tpu/solvers/nnls.py:557-590).  In
-a captured step each is a nest of conditional IF nodes (`IfNest`, built by
-csrc/graph_if.cu; torch 2.11 has no binding for them): round r + 1 is
-captured inside the IF node of round r, up to the reference's cap of 5 k
-rounds, so the node of the first round whose test fails skips every later
-one.  The rounds run on a stream of the port's own (`body_stream`), and
-what they allocate goes to a memory pool that the graph keeps until it is
-released.
+BPP's step holds loops whose trip counts are device values, as the JAX
+package's lax.while_loop: its two pivot loops (smallk_tpu/solvers/
+nnls.py:557-590, :724) and, above K1's rank limit, the masked CG loop of
+every solve (:184-205).  In a captured step each is a conditional WHILE
+node (`while_loop`, `WhileLoop`, built by csrc/graph_if.cu; torch 2.11 has
+no binding for them): the loop's body is captured once, writes its new
+state into the carry's tensors and sets the node's handle from the next
+test, so the graph's size does not grow with the trips that run.  A loop
+inside a body (a CG solve in a pivot round) is a WHILE node in that
+body.  Each level of nesting captures on a stream of the port's own
+(`body_stream`, made and warmed before the capture), and what it
+allocates goes to a memory pool of its own that the graph keeps until it
+is released.
 
 A capture or a replay that fails raises; nothing here runs the eager loop
 instead.  A step that reads the host (`.item()`, `bool()` of a card
-tensor, a synchronize) makes the capture raise; in an IF body torch's
+tensor, a synchronize) makes the capture raise; in a WHILE body torch's
 sync check raises before the read reaches CUDA.
 
 Launch counters.  A kernel wrapper's Python body runs once, at capture, so
 each counter's change over the capture is undone and added once more
-after every replay, except the changes inside an IF node's body, which
-may not run: the body adds those to a tensor of counts on the card
-(`StepGraph.counts`), and the loop adds what it holds to the counters at
-its host read (`settle`).  So the counters count launches that ran.
+after every replay, except the changes inside a WHILE body, which runs
+any number of times: the body adds those to a tensor of counts on the
+card (`StepGraph.counts`) each time it runs, and the loop adds what it
+holds to the counters at its host read (`settle`).  So the counters count
+launches that ran; the CG tier's `cg_solves` and `cg_steps` are counted
+the same way.
 """
 
 from __future__ import annotations
@@ -61,16 +67,9 @@ from ..ops.dense import UNSHARDED
 # without it; not an option of the user's).
 CAPTURE = True
 
-# BPP is captured up to this rank.  A captured BPP step holds 5 k nested
-# rounds a side, each ~60 launches, and its capture and instantiation grow
-# with them, while the rounds that run do not.  chip_smoke.py --loop on an
-# NVIDIA H100 80GB HBM3, 700.00 W (PERF.md §7), Reuters BPP, 100
-# iterations, eager at U = 1 against captured at U = 8 (capture +
-# instantiate ms): k = 8 0.544-0.627 s against 0.361-0.399 (127-163 ms);
-# k = 16 0.753-0.820 against 0.558-0.590 (294-301); k = 32 0.769-0.771
-# against 0.942-1.106 (588-760); k = 64 0.826-0.851 against 1.642-1.992;
-# k = 128 0.839-0.896 against 3.346-3.874 (2320-2921).
-BPP_CAPTURE_MAX_K = 16
+# Levels of WHILE bodies a captured step can nest: a pivot loop's body,
+# and a CG loop inside it (nnls._cg_solve_block in a pivot round).
+BODY_LEVELS = 2
 
 # since the last reset: graphs captured, their capture and instantiation
 # seconds, replays, and the host's seconds in the replay calls
@@ -78,6 +77,9 @@ captures = 0
 capture_seconds = 0.0
 replays = 0
 replay_seconds = 0.0
+# the nodes of the last graph captured with WHILE nodes, its bodies'
+# included
+last_nodes = None
 
 _CAPTURED = (NmfAlgorithm.MU, NmfAlgorithm.HALS, NmfAlgorithm.RANK2,
              NmfAlgorithm.BPP)
@@ -106,22 +108,21 @@ def applies(algorithm: NmfAlgorithm, W, unroll: int,
 def bpp_captures(W, H) -> bool:
     """Whether a BPP step from W (m x k) and H (k x n) reads nothing from
     the host, so that it can be captured: both NNLS problems (k x n and
-    k x m) take full-width rounds (nnls._NARROW_MIN_ENTRIES), their masked
-    solves go to K1 (k at most its MAX_K; the CG tier above reads the host)
-    and k is at most BPP_CAPTURE_MAX_K."""
-    from ..kernels import masked_gj
+    k x m) take full-width rounds (nnls._NARROW_MIN_ENTRIES), whose pivot
+    loops, and the CG loops of their masked solves above K1's rank limit,
+    are WHILE nodes, so the graph does not grow with k."""
     from . import nnls
 
     m, k = W.shape
-    return (k <= min(masked_gj.MAX_K, BPP_CAPTURE_MAX_K)
-            and k * max(m, H.shape[1]) < nnls._NARROW_MIN_ENTRIES
-            and nnls.MASKED_SOLVER == "auto")
+    return k * max(m, H.shape[1]) < nnls._NARROW_MIN_ENTRIES
 
 
 def counters():
-    """(module, name) of every launch counter a captured step can move."""
+    """(module, name) of every launch counter a captured step can move,
+    and the CG tier's counts of solves and steps."""
     from ..kernels import ell_spmm, hals_step, masked_gj, rank2_loop, seg_spmm
     from ..ops import aop
+    from . import nnls
 
     return ((rank2_loop, "launches"), (rank2_loop, "lane_launches"),
             (hals_step, "launches"),
@@ -129,7 +130,8 @@ def counters():
             (ell_spmm, "plain_cuda_calls"), (seg_spmm, "launches"),
             (seg_spmm, "plain_cuda_calls"), (masked_gj, "launches"),
             (masked_gj, "columns"), (aop, "kernel_products"),
-            (aop, "matmul_products"))
+            (aop, "matmul_products"), (nnls, "cg_solves"),
+            (nnls, "cg_steps"))
 
 
 def _stream(device) -> torch.cuda.Stream:
@@ -153,31 +155,49 @@ def _check(lib, err: int, what: str) -> None:
                            f"(cudaError {err})")
 
 
-def body_stream(device) -> torch.cuda.ExternalStream:
-    """The stream that captures IF bodies on `device`: one of the port's
-    own (every stream of torch's pool may be handed out again), made once
-    and before any capture, with cuBLAS's workspace for it made by a
-    product on it (cuBLAS keeps one a stream and makes it at the stream's
-    first product, which in a body would allocate inside the capture)."""
-    s = _bodies.get(device)
+def _capture_nodes(lib, stream, device) -> int:
+    """The nodes captured so far into the graph that `stream` captures."""
+    n = ctypes.c_ulonglong()
+    _check(lib, lib.smallk_capture_nodes(stream.cuda_stream, device.index,
+                                         ctypes.byref(n)),
+           "counting a graph's nodes")
+    return n.value
+
+
+def body_stream(device, level: int = 1) -> torch.cuda.ExternalStream:
+    """The stream that captures the WHILE bodies of `level` on `device`
+    (1: a loop of the step; 2: a loop inside a level-1 body): one of the
+    port's own (every stream of torch's pool may be handed out again),
+    made once and before any capture, with cuBLAS's workspace for it made
+    by a product on it (cuBLAS keeps one a stream and makes it at the
+    stream's first product, which in a body would allocate inside the
+    capture)."""
+    s = _bodies.get((device, level))
     if s is None:
         lib = _lib()
         ptr = ctypes.c_void_p()
         _check(lib, lib.smallk_stream_create(ctypes.byref(ptr), device.index),
-               "creating the IF bodies' stream")
+               f"creating the level-{level} WHILE bodies' stream")
         s = torch.cuda.ExternalStream(ptr.value, device=device)
         with torch.cuda.stream(s):
             for dt in (torch.float32, torch.float64):
                 a = torch.ones((2, 2), dtype=dt, device=device)
                 torch.matmul(a, a)
         s.synchronize()
-        _bodies[device] = s
+        _bodies[(device, level)] = s
     return s
 
 
-def if_nest():
-    """An IfNest for a loop of the step being captured, else None."""
-    return None if _active is None else IfNest(_active)
+def capturing() -> bool:
+    """Whether a step is being captured: its loops are then WHILE nodes
+    (`while_loop`)."""
+    return _active is not None
+
+
+def while_loop(live, step, c):
+    """The JAX package's lax.while_loop(live, step, c) as a WHILE node of
+    the step being captured (WhileLoop.__call__)."""
+    return _active.loops(live, step, c)
 
 
 def _close_generator(device) -> None:
@@ -196,17 +216,17 @@ class StepGraph:
     """`step` captured on `carry`'s tensors; `run` replays it."""
 
     def __init__(self, step, carry):
-        global captures, capture_seconds, _active
+        global captures, capture_seconds, last_nodes, _active
         self.carry = carry
         dev = self.device = carry.W.device
         names = self._names = counters()
         before = [getattr(mod, name) for mod, name in names]
         t0 = time.perf_counter()
-        # launches in IF bodies, counted on the card as the bodies run,
+        # launches in WHILE bodies, counted on the card as the bodies run,
         # and what the host has taken of them
         self.counts = torch.zeros(len(names), dtype=torch.int64, device=dev)
         self._settled = [0] * len(names)
-        self.body_pool, self._routing = None, False
+        self.loops = WhileLoop(self)
         self.graph = torch.cuda.CUDAGraph()
         side, cur = _stream(dev), torch.cuda.current_stream(dev)
         side.wait_stream(cur)
@@ -215,14 +235,17 @@ class StepGraph:
             _active = self
             try:
                 step(self.carry, out=self.carry)
+                if self.loops.lib is not None:
+                    last_nodes = self.loops.nodes + _capture_nodes(
+                        self.loops.lib, side, dev)
             except BaseException:
                 # end the broken capture; the step's own error is the one
                 # to raise
                 with contextlib.suppress(RuntimeError):
                     self.graph.capture_end()
                 self.graph = None
-                self._end_routing()
-                self._release_body_pool()
+                self.loops.end_routing()
+                self.loops.release()
                 with contextlib.suppress(RuntimeError):
                     _close_generator(dev)
                 raise
@@ -236,36 +259,13 @@ class StepGraph:
                 self.graph.capture_end()
             except BaseException:
                 self.graph = None
-                self._end_routing()
-                self._release_body_pool()
+                self.loops.end_routing()
+                self.loops.release()
                 raise
-            self._end_routing()
+            self.loops.end_routing()
         cur.wait_stream(side)
         capture_seconds += time.perf_counter() - t0
         captures += 1
-
-    def route_body_allocations(self) -> None:
-        """From now until the capture ends, what the current stream (the IF
-        bodies') allocates comes from a pool of the graph's own.  The
-        bodies' temporaries then reuse each other's blocks, round after
-        round, where the graph's pool would match them to the capture
-        stream only; the graph needs them until it is released (`close`)."""
-        if self.body_pool is None:
-            self.body_pool = torch.cuda.graph_pool_handle()
-            torch._C._cuda_beginAllocateCurrentStreamToPool(
-                self.device.index, self.body_pool)
-            self._routing = True
-
-    def _end_routing(self) -> None:
-        if self._routing:
-            torch._C._cuda_endAllocateToPool(self.device.index,
-                                             self.body_pool)
-            self._routing = False
-
-    def _release_body_pool(self) -> None:
-        if self.body_pool is not None:
-            torch._C._cuda_releasePool(self.device.index, self.body_pool)
-            self.body_pool = None
 
     def load(self, carry) -> None:
         """Copy `carry` (a state of the captured step's shapes, dtypes and
@@ -286,7 +286,7 @@ class StepGraph:
         return n
 
     def settle(self, counts) -> None:
-        """Add to the counters what the IF bodies counted since the last
+        """Add to the counters what the WHILE bodies counted since the last
         settle: `counts`, the host's copy of `self.counts`, taken at the
         loop's host read."""
         for (mod, name), now, was in zip(self._names, counts, self._settled):
@@ -299,81 +299,124 @@ class StepGraph:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
-            self._release_body_pool()
+            self.loops.release()
 
 
-class IfNest:
-    """The IF nodes of one loop in the step being captured (`if_nest`):
-    each call captures a round in the body of an IF node on its test, the
-    node inside the body of the round before, and `close` ends the nest.
-    Each body counts its own launches on the card (StepGraph.counts)."""
+class WhileLoop:
+    """The WHILE nodes of the step being captured (`while_loop`).  A call
+    captures its loop's body once, into the body graph of a node, on the
+    body stream of its level of nesting; the body counts its own launches
+    on the card (StepGraph.counts) each time it runs."""
 
     def __init__(self, sg: StepGraph):
         self.sg = sg
-        self.lib = _lib()
-        self.outer = torch.cuda.current_stream(sg.device)
-        self.body = body_stream(sg.device)
-        self.depth = 0
-        self._mark = None
+        self.lib = None
+        self.nodes = 0       # the nodes of the bodies captured
+        self._pools = {}     # level -> the memory pool of its bodies
+        self._routing = []   # pools that the capture allocates from
+        self._marks = []     # the counters as each open body began
         self._sync_mode = None
 
-    def __call__(self, pred, step, c):
-        """Round `step` of the loop's carry `c` (a NamedTuple of tensors)
-        under an IF node on `pred` (a 0-d bool tensor on the card): the
-        body writes the new state into `c`'s tensors, which hold the loop's
-        state whether or not the round runs."""
-        self._enter(pred)
-        for dst, src in zip(c, step(c), strict=True):
-            dst.copy_(src)
+    def __call__(self, live, step, c):
+        """lax.while_loop(live, step, c) on `c`, a NamedTuple of tensors
+        on the card that holds the loop's state: `step(c)` returns the next
+        state (new tensors, which the body copies into c's) and `live(c)`
+        the test, a 0-d bool tensor.  The node tests `live(c)` before every
+        trip; returns `c`, which holds the final state when the node has
+        run."""
+        sg = self.sg
+        dev = sg.device
+        level = len(self._marks) + 1
+        body = _bodies.get((dev, level))
+        if body is None:
+            raise RuntimeError(f"no level-{level} WHILE body stream on {dev}:"
+                               f" body_stream(device, {level}) makes it, "
+                               "before the capture")
+        if self.lib is None:
+            self.lib = _lib()
+        lib = self.lib
+        outer = torch.cuda.current_stream(dev)
+        self._flush()  # the enclosing body's launches so far
+        pred = _test(live(c))
+        handle = ctypes.c_ulonglong()
+        _check(lib, lib.smallk_while_begin(
+            outer.cuda_stream, pred.data_ptr(), body.cuda_stream, dev.index,
+            ctypes.byref(handle)), "adding a WHILE node")
+        if level == 1:
+            self._sync_mode = torch.cuda.get_sync_debug_mode()
+        self._marks.append([getattr(mod, name) for mod, name in sg._names])
+        ended = False
+        try:
+            torch.cuda.set_stream(body)
+            if level == 1:
+                # a host read in a body raises before it reaches CUDA: a
+                # body whose capture CUDA invalidates leaves its node
+                # unusable, and the whole graph with it
+                torch.cuda.set_sync_debug_mode("error")
+            self._route(level)
+            for dst, src in zip(c, step(c), strict=True):
+                dst.copy_(src)
+            pred = _test(live(c))
+            self._flush()
+            # and the set kernel that smallk_while_end adds
+            self.nodes += _capture_nodes(lib, body, dev) + 1
+            err = lib.smallk_while_end(body.cuda_stream, pred.data_ptr(),
+                                       handle.value, dev.index)
+            ended = True
+            _check(lib, err, "ending a WHILE body")
+        finally:
+            if not ended:
+                lib.smallk_while_end(body.cuda_stream, None, 0, dev.index)
+            self._marks.pop()
+            torch.cuda.set_stream(outer)
+            if level == 1:
+                torch.cuda.set_sync_debug_mode(self._sync_mode)
         return c
 
-    def _enter(self, pred) -> None:
-        sg = self.sg
-        self._flush()
-        src = self.outer if self.depth == 0 else self.body
-        _check(self.lib, self.lib.smallk_if_begin(
-            src.cuda_stream, pred.data_ptr(), self.body.cuda_stream,
-            sg.device.index), "adding an IF node")
-        if self.depth == 0:
-            torch.cuda.set_stream(self.body)
-            sg.route_body_allocations()
-            # a host read in a body raises before it reaches CUDA: a body
-            # whose capture CUDA invalidates leaves its IF node
-            # unusable, and the whole graph with it
-            self._sync_mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-        self.depth += 1
-        self._mark = [getattr(mod, name) for mod, name in sg._names]
+    def _route(self, level: int) -> None:
+        """From now until the capture ends, what the current stream (the
+        level's bodies') allocates comes from a pool of the graph's own for
+        that level.  The bodies' temporaries then reuse each other's
+        blocks, where the graph's pool would match them to the capture
+        stream only; the graph needs them until it is released."""
+        if level not in self._pools:
+            pool = self._pools[level] = torch.cuda.graph_pool_handle()
+            torch._C._cuda_beginAllocateCurrentStreamToPool(
+                self.sg.device.index, pool)
+            self._routing.append(pool)
 
     def _flush(self) -> None:
-        """The current body's launches, counted on the card by the body and
-        taken out of the step's count of launches in every replay."""
-        if self.depth == 0:
+        """The open body's launches since its mark, added to the card's
+        counts by the body and taken out of the step's count of launches
+        in every replay."""
+        if not self._marks:
             return
         sg = self.sg
-        for i, ((mod, name), b) in enumerate(zip(sg._names, self._mark)):
+        for i, ((mod, name), b) in enumerate(zip(sg._names,
+                                                 self._marks[-1])):
             d = getattr(mod, name) - b
             if d:
                 sg.counts[i].add_(d)
                 setattr(mod, name, b)
 
-    def close(self, quiet: bool = False) -> None:
-        """End the nest: the capture stream goes on after its first node.
-        `quiet`: after a failure, end it, launching and raising nothing."""
-        if self.depth == 0:
-            return
-        err = 0
-        try:
-            if not quiet:
-                self._flush()
-        finally:
-            err = self.lib.smallk_if_end(self.body.cuda_stream,
-                                         self.sg.device.index)
-            torch.cuda.set_stream(self.outer)
-            torch.cuda.set_sync_debug_mode(self._sync_mode)
-            self.depth = 0
-        if not quiet:
-            _check(self.lib, err, "ending an IF nest")
+    def end_routing(self) -> None:
+        for pool in self._routing:
+            torch._C._cuda_endAllocateToPool(self.sg.device.index, pool)
+        self._routing = []
+
+    def release(self) -> None:
+        for pool in self._pools.values():
+            torch._C._cuda_releasePool(self.sg.device.index, pool)
+        self._pools = {}
+
+
+def _test(pred):
+    """A loop's test as the set kernel reads it: one bool on the card."""
+    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
+        raise ValueError(f"a WHILE node's test is one bool on the card, not "
+                         f"{pred.dtype} {tuple(pred.shape)} on "
+                         f"{pred.device}")
+    return pred
 
 
 def _copy_into(dst, src) -> None:

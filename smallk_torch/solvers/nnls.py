@@ -11,10 +11,13 @@ card by the warm-started, Jacobi-preconditioned masked conjugate gradient
 (`_cg_solve_block`, torch ops, as the reference's is XLA code).  The pivot
 rules (PBAR = 3, Ninf counters, the backup single-bit toggle) and the
 tolerance-based sign tests are the reference's, line for line.  The pivot
-loop runs as the reference's while_loop runs it, with its test on the
-device, in a step captured as a CUDA graph (solvers/graph.py); elsewhere
-it is a host loop, one host sync per round.  Where the right-hand side
-is large a round solves only the columns that still pivot (a host loop).
+loop and the CG loop run as the reference's while_loops run them, with
+their tests on the device, in a step captured as a CUDA graph: each a
+WHILE node (solvers/graph.py), the CG loop of a pivot round's solve
+inside the pivot loop's body; elsewhere they are host loops, one host
+sync a round and one every _CG_CHECK_EVERY CG steps.  Where the
+right-hand side is large a round solves only the columns that still
+pivot (a host loop).
 
 `nnls_hals` is the fixed-W NNLS by HALS row sweeps that hierclust's flat
 refinement calls.
@@ -22,6 +25,7 @@ refinement calls.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,14 +61,16 @@ MASKED_SOLVER = "auto"
 # steps; the slack absorbs rounding.  Module-level so that a test can
 # strangle the cap and reach the cap-out poison (the reference's value).
 _CG_EXTRA_STEPS = 16
-# CG steps between two looks at the residuals (each look is one host sync):
-# a solve that converges in s steps syncs ceil(s / _CG_CHECK_EVERY) + 1
-# times.  Columns freeze on the device, so the steps run past convergence
-# change nothing.
+# CG steps between two looks at the residuals in the host form (each look
+# is one host sync): a solve that converges in s steps syncs
+# ceil(s / _CG_CHECK_EVERY) + 1 times.  Columns freeze on the device, so
+# the steps run past convergence change nothing.  The device form tests
+# after every step, as the reference does.
 _CG_CHECK_EVERY = 8
 
-# CG solves and CG steps since the last reset; the only place they grow is
-# `_cg_solve_block`
+# CG solves and CG steps run since the last reset; the only place they
+# grow is `_cg_solve_block` (in a captured step, counted on the card and
+# settled at the loop's host read: solvers/graph.py)
 cg_solves = 0
 cg_steps = 0
 
@@ -89,6 +95,16 @@ def _masked_solve(LHS, RHS, passive, x0=None):
     return masked_gj.masked_gj_solve(LHS, RHS, passive)
 
 
+class _Cg(NamedTuple):
+    """The CG loop's carry: the reference's while_loop carry."""
+    x: torch.Tensor    # (k, n)
+    r: torch.Tensor    # (k, n): the residual b - M x
+    pd: torch.Tensor   # (k, n): the search direction
+    rz: torch.Tensor   # (n,): r' D^-1 r
+    rr: torch.Tensor   # (n,): r' r
+    it: torch.Tensor   # 0-d int64: steps run
+
+
 def _cg_solve_block(LHS, RHS, passive, x0=None):
     """Masked SPD solve by Jacobi-preconditioned conjugate gradient — port
     of smallk_tpu/solvers/nnls.py:_cg_solve_block.
@@ -101,15 +117,19 @@ def _cg_solve_block(LHS, RHS, passive, x0=None):
     off the passive support, so the identity block never enters a product.
 
     Columns freeze on the device at a relative residual of 64 eps; the
-    loop stops when none is live or after k + _CG_EXTRA_STEPS steps, and
-    looks at the residuals every _CG_CHECK_EVERY steps (its only host
-    syncs).  Warm start: `x0` on the passive support; a column holding a
-    non-finite value starts cold.  A column that capped out far above the
-    backward-stable floor eps (|LHS| |x| + |b|) comes back NaN, so the
-    caller's finiteness gate fails the attempt instead of feeding an
-    approximate x to the pivot sign tests.
+    loop stops when none is live or after k + _CG_EXTRA_STEPS steps.  A
+    step is a function of the carry (`_Cg`), the reference's `body`, and
+    the test `live` the reference's `cond`.  In a captured step the loop
+    is a WHILE node that tests after every step, as the reference's
+    while_loop does, so it runs the reference's steps; elsewhere it is a
+    host loop that looks at the residuals every _CG_CHECK_EVERY steps (its
+    only host syncs).  Warm start: `x0` on the passive support; a column
+    holding a non-finite value starts cold.  A column that capped out far
+    above the backward-stable floor eps (|LHS| |x| + |b|) comes back NaN,
+    so the caller's finiteness gate fails the attempt instead of feeding
+    an approximate x to the pivot sign tests.
     """
-    global cg_solves, cg_steps
+    global cg_solves
     k, n = RHS.shape
     dtype = torch.promote_types(torch.promote_types(LHS.dtype, RHS.dtype),
                                 torch.float32)
@@ -142,25 +162,40 @@ def _cg_solve_block(LHS, RHS, passive, x0=None):
     rz = torch.sum(r * pd, dim=0)
     rr = torch.sum(r * r, dim=0)
 
-    it = 0
-    while it < max_steps and bool(torch.any(rr > tol2)):
-        for _ in range(min(_CG_CHECK_EVERY, max_steps - it)):
-            live = (rr > tol2)[None, :]
-            Mp = matvec(pd)
-            pMp = torch.sum(pd * Mp, dim=0)
-            alpha = torch.where(pMp > 0,
-                                rz / torch.where(pMp > 0, pMp, 1.0), 0.0)
-            x = torch.where(live, x + alpha[None, :] * pd, x)
-            r = torch.where(live, r - alpha[None, :] * Mp, r)
-            rz_new = torch.sum(r * r * dinv, dim=0)
-            beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0),
-                               0.0)
-            pd = torch.where(live, r * dinv + beta[None, :] * pd, pd)
-            rz = torch.where(live[0], rz_new, rz)
-            rr = torch.where(live[0], torch.sum(r * r, dim=0), rr)
-            it += 1
+    def live(c: _Cg):
+        return torch.any(c.rr > tol2) & (c.it < max_steps)
+
+    def step(c: _Cg) -> _Cg:
+        global cg_steps
+        cg_steps += 1
+        on = (c.rr > tol2)[None, :]
+        Mp = matvec(c.pd)
+        pMp = torch.sum(c.pd * Mp, dim=0)
+        alpha = torch.where(pMp > 0, c.rz / torch.where(pMp > 0, pMp, 1.0),
+                            0.0)
+        x = torch.where(on, c.x + alpha[None, :] * c.pd, c.x)
+        r = torch.where(on, c.r - alpha[None, :] * Mp, c.r)
+        rz_new = torch.sum(r * r * dinv, dim=0)
+        beta = torch.where(c.rz > 0,
+                           rz_new / torch.where(c.rz > 0, c.rz, 1.0), 0.0)
+        pd = torch.where(on, r * dinv + beta[None, :] * c.pd, c.pd)
+        rz = torch.where(on[0], rz_new, c.rz)
+        rr = torch.where(on[0], torch.sum(r * r, dim=0), c.rr)
+        return _Cg(x, r, pd, rz, rr, c.it + 1)
+
+    c = _Cg(x, r, pd, rz, rr,
+            torch.zeros((), dtype=torch.int64, device=RHS.device))
+    loop = _device_loop(None, max_steps)
+    if loop is not None:
+        c = loop(live, step, c)
+    else:
+        it = 0
+        while it < max_steps and bool(torch.any(c.rr > tol2)):
+            for _ in range(min(_CG_CHECK_EVERY, max_steps - it)):
+                c = step(c)
+                it += 1
     cg_solves += 1
-    cg_steps += it
+    x, rr = c.x, c.rr
 
     floor = eps * (
         torch.sqrt(torch.sum(gemm(torch.abs(LHS), torch.abs(x)) ** 2, dim=0))
@@ -217,34 +252,32 @@ def _round_cap(k: int) -> int:
     return 5 * k
 
 
-class _SelectGuard:
-    """The device form's guard on any device: each round runs and is kept
-    only where its test holds, the while_loop's semantics without control
-    flow.  Only the tests use it (SELECT_ROUNDS)."""
+def _select_loop(cap, live, step, c):
+    """The device form of a loop on any device: each of `cap` trips runs
+    and is kept only where its test holds, the while_loop's semantics
+    without control flow (every trip runs, and counts).  Only the tests
+    use it (SELECT_ROUNDS)."""
+    for _ in range(cap):
+        keep = live(c)
+        c = c._make(torch.where(keep, new, old)
+                    for new, old in zip(step(c), c, strict=True))
+    return c
 
-    def __call__(self, live, step, c):
-        return _Pivot(*(torch.where(live, n, o)
-                        for n, o in zip(step(c), c, strict=True)))
 
-    def close(self, quiet: bool = False) -> None:
-        pass
-
-
-# Tests set this to run the device form of the pivot loop on the CPU
+# Tests set this to run the device form of the loops on the CPU
 SELECT_ROUNDS = False
 
 
-def _device_guard(across):
-    """The guard of each round of the device form, which reads nothing from
-    the host: in a captured step an IF node (graph.if_nest), with
-    SELECT_ROUNDS the select; None (the host loop) elsewhere and on a
-    sharded problem."""
+def _device_loop(across, cap: int):
+    """The device form of a loop of at most `cap` trips, a callable
+    while_loop(live, step, c) that reads nothing from the host: in a
+    captured step a WHILE node (graph.while_loop), with SELECT_ROUNDS the
+    select; None (the host loop) elsewhere and on a sharded problem."""
     if across is not None:
         return None
-    nest = graph.if_nest()
-    if nest is not None:
-        return nest
-    return _SelectGuard() if SELECT_ROUNDS else None
+    if graph.capturing():
+        return graph.while_loop
+    return functools.partial(_select_loop, cap) if SELECT_ROUNDS else None
 
 
 def nnls_blockpivot(LHS, RHS, Xinit, across=None):
@@ -257,10 +290,10 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
     A round is a function of the carry (`_Pivot`), the reference's `body`,
     and its test `live` = any(not_good > 0) & (it < 5 k) a 0-d tensor, the
     reference's `cond`.  Two forms run it.  The device form reads nothing
-    from the host: in a step that solvers/graph.py captures, each round is
-    captured in an IF node on its test, inside the round before's.  The
-    host loop, everywhere else, reads each round's test: one host sync a
-    round.
+    from the host: in a step that solvers/graph.py captures, the loop is
+    one WHILE node on that test with the round as its body, as the
+    reference's while_loop.  The host loop, everywhere else, reads each
+    round's test: one host sync a round.
 
     `across`: where RHS holds one rank's columns of a sharded problem
     (parallel/mesh.py; BPP's H side over docs, its W side over terms), the
@@ -383,18 +416,12 @@ def nnls_blockpivot(LHS, RHS, Xinit, across=None):
 
         c = _Pivot(X, Y, passive, P, Ninf, nonopt, infeas, not_good,
                    torch.zeros((), dtype=torch.int64, device=RHS.device))
-        guard = _device_guard(across)
-        if guard is None:
+        loop = _device_loop(across, max_iter)
+        if loop is None:
             while bool(live(c)):  # the round's host sync
                 c = step(c)
         else:
-            try:
-                for _ in range(max_iter):
-                    c = guard(live(c), step, c)
-            except BaseException:
-                guard.close(quiet=True)
-                raise
-            guard.close()
+            c = loop(live, step, c)
         X, Y, not_good, rounds = c.X, c.Y, c.not_good, c.it
 
     converged = ~torch.any(not_good > 0)

@@ -36,9 +36,9 @@ solve never runs past it.
 On the card, at U > 1, a step after iteration 0 is captured once as a
 CUDA graph and replayed between the host reads (solvers/graph.py): BPP's
 too, where its pivot loops run on the device (graph.bpp_captures), each
-round in a conditional node on its test; at U = 1, and for a BPP step
-whose pivot loops read the host (sharded, narrowed rounds, the CG tier),
-the same loop runs eagerly.
+a conditional WHILE node, as are the CG loops of its masked solves above
+K1's rank limit; at U = 1, and for a BPP step whose pivot loops read the
+host (sharded, narrowed rounds), the same loop runs eagerly.
 `verbose` prints the reference's lines at its cadence (iterations 1-9,
 then every 10th) after each read, from a device buffer of the block's
 metrics.
@@ -260,7 +260,8 @@ class _Loop:
         """One host read: (done, failed, it, metric), each a numpy array of
         one value a lane (one value without lanes), and the verbose lines
         of the steps since `it_before`; a graph `runner`'s launch counts
-        of its IF bodies go to the counters with it (StepGraph.settle)."""
+        of its WHILE bodies go to the counters with it
+        (StepGraph.settle)."""
         global host_reads
         lanes = c.it.numel()
         parts = [t.reshape(-1).double()
@@ -317,19 +318,20 @@ def initial_carry(solver, a_op, W0, H0, pstate) -> Carry:
 
 
 def _step_runner(step, carry, key, graphs, applies: bool,
-                 nests: bool = False):
+                 loops: bool = False):
     """(runner, cached): the captured step at U > 1 on the card, else the
     eager one.  With `graphs` (a dict the caller keeps for operands at one
     address and shape) a graph captured under `key` by an earlier solve
     is loaded with `carry` and replayed, and a new one is kept there
-    (the caller closes them).  `nests`: the step holds IF nests (BPP),
-    whose stream is made before the capture."""
+    (the caller closes them).  `loops`: the step holds WHILE nodes (BPP),
+    whose bodies' streams are made before the capture."""
     if not applies:
         return _Eager(step, carry), False
     runner = graphs.get(key) if graphs is not None else None
     if runner is None:
-        if nests:
-            graph.body_stream(carry.W.device)
+        if loops:
+            for level in range(1, graph.BODY_LEVELS + 1):
+                graph.body_stream(carry.W.device, level)
         runner = graph.StepGraph(step, carry)
         if graphs is not None:
             graphs[key] = runner
